@@ -1,0 +1,80 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one source ``parler_tts_tpu_torch/csrc/<name>.cu`` with a plain
+C interface.  It is compiled at first use with ``nvcc`` for ``sm_90a`` into a
+shared library and loaded with ``ctypes``.  Libraries live in
+``parler_tts_tpu_torch/_build/<hash>/``, where the hash covers the sources in
+``csrc/`` and the compiler flags, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing is compiled when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the port's kernels need it")
+    return str(path)
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
+
+
+def build(names) -> dict[str, str]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    process per source, all started together.  Returns each compiled
+    kernel's ``nvcc`` output (registers, shared memory, spills); raises with
+    the compiler's output if any build fails."""
+    procs = {}
+    for name in names:
+        lib = _library_path(name)
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, lib)
+    logs, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{logs[name]}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(_library_path(name)))
+    return _LIBS[name]
