@@ -8,20 +8,31 @@ Phases, in order; any failure exits non-zero before the result line:
 1. device: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and power
    limit; build the hand-written CUDA kernels from ``parler_tts_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all started together);
-2. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at the CPU tests' odd shapes, in bf16 and fp32, with
-   the tolerances stated below; device times (CUDA-graph replay) of the
-   kernel, its plain version and the one PyTorch call computing the same
-   function (timed as a yardstick only, never called by the port);
-3. reference: a small config (``dummy_config``) generated greedily at fp32 on
-   the card (kernel path) and on the CPU (plain path) must give the same
-   tokens and waveforms;
-4. main path: ``ParlerTTSPipeline.tts`` at full Parler-TTS Mini v0.1 width
-   (random weights from a seed, bf16), three calls of four requests whose
-   prompt buckets give prefill lengths 17, 65 and 257; each call must launch
-   the flash-attention kernel once per decoder layer.  Then one more call with
-   each phase synchronised and timed, and a short call under torch.profiler
-   for the device's busy time.
+2. kernels: each kernel (K1 the flash-attention forward; K2, K3, K4 its
+   backward) against its plain PyTorch version on the card, at the main
+   paths' shapes and at the CPU tests' odd shapes, in bf16 and fp32, with the
+   tolerances stated below; the backward's two routes (K4, and K2 + K3 forced
+   by ``PARLER_FLASH_NO_FUSED_BWD=1``) against each other; device times
+   (CUDA-graph replay) of each kernel, its plain version and the one PyTorch
+   call computing the same function (timed as a yardstick only, never called
+   by the port);
+3. reference: a small config (``dummy_config``) at fp32 on the card (kernel
+   path) and on the CPU (plain path): greedy generation must give the same
+   tokens and waveforms, and one training step the same loss, gradient norm
+   and gradients;
+4. inference path: ``ParlerTTSPipeline.tts`` at full Parler-TTS Mini v0.1
+   width (random weights from a seed, bf16), three calls of four requests
+   whose prompt buckets give prefill lengths 17, 65 and 257; each call must
+   launch K1 once per decoder layer.  Then one more call with each phase
+   synchronised and timed, and a short call under torch.profiler for the
+   device's busy time;
+5. training path: ``make_train_step`` on Mini at full width and depth, fp32
+   parameters with bf16 compute, the Mini recipe (AdamW lr 9.5e-4, beta
+   (0.9, 0.99), wd 0.01, clip 1.0, dropout 0.1, one warmup update): 5 steps
+   on one batch of 3 x 10 s (fused T = 903) launching K1 and K4 24 times per
+   step, an eval step, one step under torch.profiler, then 2 steps at 1 x
+   30 s (fused T = 2623) launching K2 and K3 24 times per step.  Losses must
+   be finite and the last of the 5 below the first.
 
 Output: a JSON line per phase, then the kernels line, then ``nvidia-smi``'s
 ``name, power.limit``, then the result line
@@ -31,6 +42,7 @@ Output: a JSON line per phase, then the kernels line, then ``nvidia-smi``'s
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -38,6 +50,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -47,6 +60,24 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # non-tensor fp32
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # on `out`; fp32 sums in another order, bf16 one output ulp
 LSE_TOL = 1e-3
+# backward kernels, relative to the largest |gradient| (at least 1): fp32 sums
+# in another order (and K4's dq by atomics, whose order varies), bf16 one
+# output ulp at the largest magnitude
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
+# small config trained on the card and on the CPU, fp32: loss and grad norm
+# relative, each gradient relative to its largest element (sums in another
+# order, K4's dq by atomics)
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-4}
+BWD_OPS_PER_PAIR = {"flash_attention_dq": 6, "flash_attention_dkv": 8, "flash_attention_dqkv": 10}  # x D
+BWD_OUTPUTS = {"flash_attention_dq": 1, "flash_attention_dkv": 2, "flash_attention_dqkv": 3}
+REPLACES = {
+    "flash_attention_fwd": "parler_tts_tpu/ops/pallas/flash_attention.py:69",
+    "flash_attention_dq": "parler_tts_tpu/ops/pallas/flash_attention.py:199",
+    "flash_attention_dkv": "parler_tts_tpu/ops/pallas/flash_attention.py:154",
+    "flash_attention_dqkv": "parler_tts_tpu/ops/pallas/flash_attention.py:239",
+}
+COUNTERS = {"flash_attention_fwd": "LAUNCHES", "flash_attention_dq": "LAUNCHES_DQ",
+            "flash_attention_dkv": "LAUNCHES_DKV", "flash_attention_dqkv": "LAUNCHES_DQKV"}
 
 DESCRIPTIONS = [
     "a female speaker with a low pitched voice speaks very fast",
@@ -100,20 +131,66 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
-def k1_bound(kv_mask: torch.Tensor, heads: int, t: int, d: int, elem: int, causal: bool, peak: float):
-    """Least time for this call: q, k, v read once, out and lse written once,
-    against 4*D operations per (query, valid key) pair that this mask leaves."""
+def kernel_ms(fn, calls: int = 5) -> float:
+    """Device time of one ``fn()`` as the sum of its kernels' durations under
+    torch.profiler, over ``calls`` calls after a warm-up call: for work that
+    is not captured in a graph (an autograd backward), where events around
+    eager calls would also count the host's gaps between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    return total_us / 1e3 / calls
+
+
+def counts(fa) -> dict[str, int]:
+    return {name: getattr(fa, attr) for name, attr in COUNTERS.items()}
+
+
+def reset_counts(fa) -> None:
+    for attr in COUNTERS.values():
+        setattr(fa, attr, 0)
+
+
+def valid_pairs(kv_mask: torch.Tensor, heads: int, t: int, causal: bool) -> int:
+    """(query, key) pairs that this mask (and causality) leaves valid."""
     m = kv_mask.int().cpu()
     start = m.argmax(dim=1)
     end = start + m.sum(dim=1)
     rows = torch.arange(t)[None, :]
     hi = torch.minimum(end[:, None], rows + 1) if causal else end[:, None].expand(-1, t)
-    pairs = heads * int((hi - start[:, None]).clamp(min=0).sum())
-    bh = m.shape[0] * heads
-    nbytes = 4 * bh * t * d * elem + bh * t * 4 + 2 * bh * 4
-    flops = 4 * d * pairs
+    return heads * int((hi - start[:, None]).clamp(min=0).sum())
+
+
+def bound(nbytes: int, flops: int, peak: float):
+    """Least time in ms, and what sets it."""
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(kv_mask: torch.Tensor, heads: int, t: int, d: int, elem: int, causal: bool, peak: float):
+    """Least time for this call: q, k, v read once, out and lse written once,
+    against 4*D operations per (query, valid key) pair that this mask leaves."""
+    bh = kv_mask.shape[0] * heads
+    nbytes = 4 * bh * t * d * elem + bh * t * 4 + 2 * bh * 4
+    return bound(nbytes, 4 * d * valid_pairs(kv_mask, heads, t, causal), peak)
+
+
+def bwd_bound(name: str, kv_mask: torch.Tensor, heads: int, t: int, d: int, elem: int, causal: bool):
+    """Least time of a backward kernel: q, k, v, do, lse, delta and the
+    bounds read once, its gradients written once, against 6*D (K2), 8*D
+    (K3) or 10*D (K4) operations per valid pair at the bf16 tensor-core
+    peak."""
+    bh = kv_mask.shape[0] * heads
+    nbytes = (4 + BWD_OUTPUTS[name]) * bh * t * d * elem + 2 * bh * t * 4 + 2 * bh * 4
+    return bound(nbytes, BWD_OPS_PER_PAIR[name] * d * valid_pairs(kv_mask, heads, t, causal), H100_BF16_FLOPS)
 
 
 def check_kernels(fa) -> dict:
@@ -151,7 +228,7 @@ def check_kernels(fa) -> dict:
             sdpa_mask = valid & torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
             row = {
                 "shape": [b, h, t, d], "pad": pad,
-                "ms": graph_ms(lambda: fa.flash_attention(q3, k3, v3, start, end, scale=0.125, causal=True)),
+                "ms": graph_ms(lambda: fa.flash_attention_fwd(q3, k3, v3, start, end, scale=0.125, causal=True)),
                 "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q3, k3, v3, start, end, scale=0.125,
                                                                       causal=True)),
                 "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
@@ -162,6 +239,117 @@ def check_kernels(fa) -> dict:
             per_shape.append(row)
             emit({"phase": "k1_time", **row})
     return {"max_abs_err": worst, "per_shape": per_shape}
+
+
+BWD_NAMES = ("flash_attention_dq", "flash_attention_dkv", "flash_attention_dqkv")
+
+
+def check_backward(fa) -> dict:
+    """Phase 2, backward: K2, K3 and K4 against their plain versions at the
+    training shapes (BH = 3*16, T = 903; BH = 16, T = 2623; causal, one
+    left-padded row) and the CPU tests' odd shapes, in bf16 and fp32; the
+    two routes against each other; then, in bf16, the times of K4 at the
+    10 s shape and of K2 and K3 at the 30 s shape (the kernels each path
+    takes), their plain versions and SDPA's backward with the same mask."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = [((3, 16, 903, 64), 20, True, "main path 10 s"), ((1, 16, 2623, 64), 12, True, "main path 30 s"),
+             ((1, 2, 40, 32), 5, True, "odd shape"), ((2, 2, 300, 64), 0, False, "odd shape")]
+    timed = {"main path 10 s": ("flash_attention_dqkv",),
+             "main path 30 s": ("flash_attention_dq", "flash_attention_dkv")}
+    plain = {"flash_attention_dq": fa.flash_dq_plain, "flash_attention_dkv": fa.flash_dkv_plain,
+             "flash_attention_dqkv": fa.flash_dqkv_plain}
+    result = {name: {"max_abs_err": 0.0, "per_shape": []} for name in BWD_NAMES}
+    result["flash_attention_fwd"] = {"per_shape": []}  # K1 at the training shapes
+    for (b, h, t, d), pad, causal, kind in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn((b * h, t, d), generator=gen, device="cuda").to(dtype) for _ in range(4))
+            kv_mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+            kv_mask[0, :pad] = 0
+            start, end = fa.kv_bounds(kv_mask, b, h, t, q.device)
+            out, lse = fa.flash_attention_fwd(q, k, v, start, end, scale=0.125, causal=causal)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            args, kw = (q, k, v, do, lse, delta, start, end), dict(scale=0.125, causal=causal)
+            ref = fa.flash_dqkv_plain(*args, **kw)
+            got = {"flash_attention_dq": (fa.flash_attention_dq(*args, **kw),),
+                   "flash_attention_dkv": fa.flash_attention_dkv(*args, **kw),
+                   "flash_attention_dqkv": fa.flash_attention_dqkv(*args, **kw)}
+            torch.cuda.synchronize()
+            refs = {"flash_attention_dq": ref[:1], "flash_attention_dkv": ref[1:], "flash_attention_dqkv": ref}
+            for name in BWD_NAMES:
+                err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got[name], refs[name]))
+                scale = max(1.0, max(r.float().abs().max().item() for r in refs[name]))
+                ok = math.isfinite(err) and err <= BWD_TOL[dtype] * scale
+                emit({"phase": "bwd_check", "kernel": name, "shape": [b, h, t, d], "pad": pad, "causal": causal,
+                      "dtype": str(dtype).removeprefix("torch."), "kind": kind, "max_abs_err": err,
+                      "tol": BWD_TOL[dtype] * scale, "ok": ok})
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its plain version at {(b, h, t, d)} {dtype}")
+                if kind.startswith("main") and dtype == torch.bfloat16:
+                    result[name]["max_abs_err"] = max(result[name]["max_abs_err"], err)
+            if kind not in timed or dtype != torch.bfloat16:
+                continue
+            q4, k4, v4 = (x.reshape(b, h, t, d).detach().requires_grad_() for x in (q, k, v))
+            sdpa_mask = kv_mask.bool()[:, None, None, :] & torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
+            sdpa_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=sdpa_mask, scale=0.125)
+            do4 = do.reshape(b, h, t, d)
+            library_ms = kernel_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4, retain_graph=True))
+            del sdpa_out
+            k1 = {"kernel": "flash_attention_fwd", "shape": [b, h, t, d], "pad": pad,
+                  "ms": graph_ms(lambda: fa.flash_attention_fwd(q, k, v, start, end, **kw)),
+                  "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v, start, end, **kw), calls=3,
+                                       replays=3),
+                  "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                      q4.detach(), k4.detach(), v4.detach(), attn_mask=sdpa_mask, scale=0.125))}
+            k1["bound_ms"], k1["bound_by"] = k1_bound(kv_mask, h, t, d, 2, causal, H100_BF16_FLOPS)
+            result["flash_attention_fwd"]["per_shape"].append(k1)
+            emit({"phase": "k1_time", **k1})
+            for name in timed[kind]:
+                kernel = getattr(fa, name)
+                row = {"kernel": name, "shape": [b, h, t, d], "pad": pad,
+                       "ms": graph_ms(lambda: kernel(*args, **kw)),
+                       "plain_ms": graph_ms(lambda: plain[name](*args, **kw), calls=3, replays=3),
+                       "library_ms": library_ms,
+                       "library_call": "scaled_dot_product_attention backward (dq, dk and dv together)"}
+                row["bound_ms"], row["bound_by"] = bwd_bound(name, kv_mask, h, t, d, 2, causal)
+                result[name]["per_shape"].append(row)
+                emit({"phase": "bwd_time", **row})
+    check_routes(fa)
+    return result
+
+
+def check_routes(fa) -> None:
+    """The autograd function's two routes, K4 and (``PARLER_FLASH_NO_FUSED_BWD=1``)
+    K2 + K3, on one fp32 input of 256 positions with a left-padded row."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v = (torch.randn((2, 3, 256, 64), generator=gen, device="cuda").requires_grad_() for _ in range(3))
+    kv_mask = torch.ones((2, 256), dtype=torch.int32, device="cuda")
+    kv_mask[0, :70] = 0
+    grads, launched = {}, {}
+    saved = os.environ.get("PARLER_FLASH_NO_FUSED_BWD")
+    try:
+        for env in ("0", "1"):
+            os.environ["PARLER_FLASH_NO_FUSED_BWD"] = env
+            before = counts(fa)
+            out = fa.flash_attention_bhtd(q, k, v, kv_mask, scale=0.125)
+            grads[env] = torch.autograd.grad(out.sin().sum(), (q, k, v))
+            after = counts(fa)
+            launched[env] = {name: after[name] - before[name] for name in BWD_NAMES}
+    finally:
+        if saved is None:
+            os.environ.pop("PARLER_FLASH_NO_FUSED_BWD")
+        else:
+            os.environ["PARLER_FLASH_NO_FUSED_BWD"] = saved
+    err = max((a - b).abs().max().item() for a, b in zip(grads["0"], grads["1"]))
+    scale = max(1.0, max(g.abs().max().item() for g in grads["0"]))
+    ok = (launched["0"] == {"flash_attention_dq": 0, "flash_attention_dkv": 0, "flash_attention_dqkv": 1}
+          and launched["1"] == {"flash_attention_dq": 1, "flash_attention_dkv": 1, "flash_attention_dqkv": 0}
+          and err <= BWD_TOL[torch.float32] * scale)
+    emit({"phase": "bwd_routes", "launched": launched, "max_abs_err_fused_vs_split": err,
+          "tol": BWD_TOL[torch.float32] * scale, "ok": ok})
+    if not ok:
+        raise AssertionError("the backward's fused and split routes disagree")
 
 
 def check_reference(cfg_mod, parler, generate_mod) -> None:
@@ -191,6 +379,56 @@ def check_reference(cfg_mod, parler, generate_mod) -> None:
         raise AssertionError("the card and the CPU disagree on the small config")
 
 
+def check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax) -> None:
+    """Phase 3, training: dummy_config at fp32 with dropout 0, one batch of
+    two rows (left-padded prompts, ragged labels): the loss and gradients of
+    ``train_forward`` and the loss and gradient norm of one train step on
+    the card (K1, K4) and on the CPU (plain versions) must agree."""
+    cfg = cfg_mod.dummy_config()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
+    cpu_model = parler.init(SEED, cfg, device="cpu")
+    parler.set_trainable(cpu_model)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    samples = run_mod.prepare_synthetic(2, cfg, seed=SEED, desc_len=12, prompt_len=10, codes_len=40)
+    batch = data_mod.Collator(0, 0, 12, 10, samples[0]["labels"].shape[1])(samples)
+    results = {}
+    reset_counts(fa)
+    for device, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        tensors = {key: torch.from_numpy(value).to(device) for key, value in batch.items()}
+        loss, _ = model.train_forward(**tensors, dtype=torch.float32)
+        loss.backward()
+        grads = from_jax.to_jax_tree(model, grads=True)
+        state = step_mod.create_state(model, learning_rate=1e-3, warmup_steps=1)
+        metrics = step_mod.make_train_step(cfg, dtype=torch.float32)(state, batch)
+        results[device] = (loss.item(), grads, metrics["loss"].item(), metrics["grad_norm"].item())
+    launched = counts(fa)
+    (loss_c, grads_c, step_loss_c, norm_c), (loss_g, grads_g, step_loss_g, norm_g) = results["cpu"], results["cuda"]
+    flat_c, flat_g = _flat(grads_c), _flat(grads_g)
+    grad_err = max(float(abs(flat_g[k] - flat_c[k]).max() / max(abs(flat_c[k]).max(), 1e-12)) for k in flat_c)
+    loss_err = max(abs(loss_g - loss_c), abs(step_loss_g - step_loss_c)) / abs(loss_c)
+    norm_err = abs(norm_g - norm_c) / norm_c
+    layers = cfg.decoder.num_hidden_layers
+    ok = (loss_err <= TRAIN_TOL["loss"] and norm_err <= TRAIN_TOL["grad_norm"] and grad_err <= TRAIN_TOL["grad"]
+          and launched["flash_attention_fwd"] == 2 * layers and launched["flash_attention_dqkv"] == 2 * layers
+          and math.isfinite(loss_g))
+    emit({"phase": "train_reference", "config": "dummy_config fp32, dropout 0", "loss_cpu": loss_c,
+          "loss_cuda": loss_g, "grad_norm_cpu": norm_c, "grad_norm_cuda": norm_g, "rel_err_loss": loss_err,
+          "rel_err_grad_norm": norm_err, "max_rel_err_grad": grad_err, "tol": TRAIN_TOL,
+          "gradients": len(flat_c), "launched": launched, "ok": ok})
+    if not ok:
+        raise AssertionError("the card and the CPU disagree on the small config's train step")
+
+
+def _flat(tree, prefix="") -> dict:
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flat(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = value
+    return out
+
+
 def zero_special_heads(model) -> None:
     """Zero the LM-head columns of the special ids (>= codebook_size).  With
     random weights every id is about equally likely, so a frame would hold a
@@ -216,7 +454,7 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str) -
     hop = cfg.audio_encoder.hop_length
 
     calls = []
-    fa.LAUNCHES = 0
+    reset_counts(fa)
     for i, (n_words, p) in enumerate(((10, pipe), (50, pipe), (200, pipe16))):
         prompts = _prompts(n_words)
         before = fa.LAUNCHES
@@ -240,7 +478,9 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str) -
                       "wall_s": wall, "audio_s_per_wall_s": sum(w.size for w in wavs) / sr / wall,
                       "k1_launches": launched})
         emit({"phase": "tts", **calls[-1]})
-    launches = fa.LAUNCHES
+    launches = counts(fa)
+    if any(launches[name] for name in BWD_NAMES):
+        raise AssertionError(f"inference launched a backward kernel: {launches}")
 
     timings = time_phases(model, pipe, _prompts(50), max_seconds)
     emit({"phase": "main_path", "config": "mini_600m_config bf16, random weights (seed 0)",
@@ -248,34 +488,162 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str) -
           "wall_s_per_call": [c["wall_s"] for c in calls],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     # a short call: the profiler's event processing costs seconds per 100k kernels
-    emit({"phase": "profile", "card": card, "max_seconds": 0.5, **profile_call(pipe, _prompts(50), 0.5)})
+    emit({"phase": "profile", "card": card, "max_seconds": 0.5,
+          **profile_call(lambda: pipe.tts(DESCRIPTIONS, _prompts(50), seed=SEED, max_seconds=0.5))})
     return launches
 
 
-def profile_call(pipe, prompts, max_seconds) -> dict:
-    """One warm tts call under torch.profiler: the device's busy time (sum
-    of kernel durations) against the call's wall time, which the profiler
-    itself lengthens, the kernel count, and the kernels that take the most
-    device time."""
+def profile_call(fn) -> dict:
+    """One warm call of ``fn`` under torch.profiler: the device's busy time
+    (sum of kernel durations) against the call's wall time, which the
+    profiler itself lengthens, the kernel count, and the kernels that take
+    the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.tts(DESCRIPTIONS, prompts, seed=SEED, max_seconds=max_seconds)
+        fn()
+        torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name: dict[str, float] = {}
     count = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # kernels and copies; not the ranges that annotate them (an
+        # optimizer's ``step``), which would count their time twice
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             count += 1
     if not count:
         return {"device_busy_share": None, "note": "the profiler recorded no device time"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    by_category: dict[str, float] = {}
+    for name, us in by_name.items():
+        cat = next((c for c, keys in PROFILE_CATEGORIES if any(k in name for k in keys)), "other")
+        by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": sum(by_name.values()) / 1e3,
             "device_busy_share": sum(by_name.values()) / wall_us, "device_events": count,
+            "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": [[name[:90], us / 1e3] for name, us in top]}
+
+
+# device kernels by what they do, matched on their names (first match wins)
+PROFILE_CATEGORIES = (
+    ("port attention kernels", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "Kernel2", "gemv")),
+    ("optimizer and clipping (foreach)", ("multi_tensor_apply",)),
+    ("layer norm", ("layer_norm",)),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy_kernel", "Memcpy", "Memset")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def train_step_model_flops(cfg, b, t_lab, desc_len, prompt_len) -> int:
+    """Matmul FLOPs of one train step: forward plus twice that backward on
+    the trainable path (decoder with full, not causal-discounted, attention
+    squares; LM heads; the projection), the frozen T5 forward once; no
+    recompute.  The count of ``benchmarks/train_bench.py``."""
+    d = cfg.decoder
+    h, layers, ffn = d.hidden_size, d.num_hidden_layers, d.ffn_dim
+    tf, te = prompt_len + t_lab, desc_len
+    layer = (4 * 2 * tf * h * h + 2 * 2 * tf * tf * h + 2 * 2 * tf * h * h + 2 * 2 * te * h * h
+             + 2 * 2 * tf * te * h + 2 * 2 * tf * h * ffn)
+    heads = d.num_codebooks * 2 * t_lab * h * d.vocab_size
+    t5 = cfg.text_encoder
+    hm, ff5 = t5.d_model, t5.d_ff
+    t5_layer = 4 * 2 * te * hm * hm + 2 * 2 * te * te * hm + 3 * 2 * te * hm * ff5
+    proj = 2 * te * hm * h if hm != h else 0
+    return b * (3 * (layers * layer + heads + proj) + t5.num_layers * t5_layer)
+
+
+def mini_batch(cfg, data_mod, *, seconds: int, prompt_lens, desc_lens, seed: int) -> dict:
+    """A collated batch of full-length random codes (``seconds`` of audio
+    per row), descriptions right-padded to 48 and prompts left-padded to
+    32 tokens."""
+    rng = np.random.default_rng(seed)
+    k, frames = cfg.decoder.num_codebooks, seconds * cfg.frame_rate
+    codes = [rng.integers(0, cfg.audio_encoder.codebook_size, (k, frames)) for _ in prompt_lens]
+    labels, _ = data_mod.build_labels(codes, bos_token_id=cfg.decoder.bos_token_id,
+                                      eos_token_id=cfg.decoder.eos_token_id, max_length=frames + k + 2)
+    samples = [{"input_ids": rng.integers(0, cfg.text_encoder.vocab_size, (dl,)),
+                "prompt_input_ids": rng.integers(0, cfg.vocab_size, (pl,)), "labels": lab}
+               for dl, pl, lab in zip(desc_lens, prompt_lens, labels)]
+    return data_mod.Collator(0, 0, 48, 32, frames + k + 2)(samples)
+
+
+def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
+    """Phase 5: the training path at full Mini width.  Returns the kernel
+    launches of the whole phase."""
+    cfg = cfg_mod.mini_600m_config()
+    layers = cfg.decoder.num_hidden_layers
+    model = parler.init(SEED, cfg, device="cuda")  # fp32 parameters
+    state = step_mod.create_state(model, learning_rate=9.5e-4, warmup_steps=1, b1=0.9, b2=0.99,
+                                  weight_decay=0.01, max_grad_norm=1.0)
+    train_step = step_mod.make_train_step(cfg, dtype=torch.bfloat16, dropout_seed=SEED)
+    n_params = sum(p.numel() for p in state.optimizer.params)
+    reset_counts(fa)
+    out = {"config": "mini_600m_config, fp32 parameters, bf16 compute, random weights (seed 0)",
+           "card": card, "trainable_params": n_params}
+    for seconds, prompt_lens, desc_lens, n_steps, route in (
+            (10, (32, 20, 27), (48, 31, 40), 5, "flash_attention_dqkv"),
+            (30, (26,), (48,), 2, "flash_attention_dq")):
+        batch = mini_batch(cfg, data_mod, seconds=seconds, prompt_lens=prompt_lens, desc_lens=desc_lens,
+                           seed=SEED + seconds)
+        b, t_lab = batch["labels"].shape[0], batch["labels"].shape[2]
+        torch.cuda.reset_peak_memory_stats()
+        before = counts(fa)
+        steps = []
+        for _ in range(n_steps):
+            timings = {}
+            t0 = time.perf_counter()
+            metrics = train_step(state, batch, timings)
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            steps.append({"step": metrics["step"], "loss": metrics["loss"].item(),
+                          "grad_norm": metrics["grad_norm"].item(), "step_ms": step_ms, **timings})
+            emit({"phase": "train_step", "seconds": seconds, "batch": b, **steps[-1]})
+        after = counts(fa)
+        launched = {name: (after[name] - before[name]) / n_steps for name in COUNTERS}
+        losses = [s["loss"] for s in steps]
+        want = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                "flash_attention_dqkv": 0}
+        if route == "flash_attention_dqkv":
+            want["flash_attention_dqkv"] = layers
+        else:
+            want["flash_attention_dq"] = want["flash_attention_dkv"] = layers
+        steady = steps[1:]
+        step_s = sorted(s["step_ms"] for s in steady)[len(steady) // 2] / 1e3
+        flops = train_step_model_flops(cfg, b, t_lab, 48, 32)
+        summary = {
+            "seconds": seconds, "batch": b, "label_frames": t_lab, "fused_T": 32 + t_lab,
+            "losses": losses, "launches_per_step": launched, "median_step_ms": 1e3 * step_s,
+            "forward_ms": [s["forward_ms"] for s in steps], "backward_ms": [s["backward_ms"] for s in steps],
+            "optimizer_ms": [s["optimizer_ms"] for s in steps],
+            "audio_s_per_wall_s": b * seconds / step_s,
+            "codec_tokens_per_wall_s": b * t_lab * cfg.decoder.num_codebooks / step_s,
+            "model_tflop_per_step": flops / 1e12, "mfu_vs_989_tflops": flops / step_s / H100_BF16_FLOPS,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        emit({"phase": "train", **summary})
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        if launched != want:
+            raise AssertionError(f"train steps at {seconds} s launched {launched} per step, want {want}")
+        prof = profile_call(lambda: train_step(state, batch))
+        emit({"phase": "train_profile", "seconds": seconds, "batch": b, **prof})
+        summary["profile"] = prof
+        if seconds == 10:
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"the loss did not fall over {n_steps} steps: {losses}")
+            eval_loss = step_mod.make_eval_step(cfg, dtype=torch.bfloat16)(model, batch)["loss"].item()
+            if not math.isfinite(eval_loss):
+                raise AssertionError(f"non-finite eval loss {eval_loss}")
+            summary["eval_loss"] = eval_loss
+        out[f"{seconds}s"] = summary
+    out["launches"] = counts(fa)
+    emit({"phase": "train_path", **{k: v for k, v in out.items() if not k.endswith("0s")}})
+    return out
 
 
 def time_phases(model, pipe, prompts, max_seconds) -> dict:
@@ -318,10 +686,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from parler_tts_tpu_torch import pipeline as pipeline_mod
     from parler_tts_tpu_torch.core import config as cfg_mod
+    from parler_tts_tpu_torch.core import from_jax
     from parler_tts_tpu_torch.generation import generate as generate_mod
     from parler_tts_tpu_torch.models import parler
     from parler_tts_tpu_torch.ops import cuda_build
     from parler_tts_tpu_torch.ops import flash_attention as fa
+    from parler_tts_tpu_torch.training import data as data_mod
+    from parler_tts_tpu_torch.training import run_training as run_mod
+    from parler_tts_tpu_torch.training import step as step_mod
     from parler_tts_tpu_torch.utils import toy_tokenizer as tokenizer_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons below are exact-fp32
@@ -332,24 +704,43 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["flash_attention_fwd"])
+    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "flags": " ".join(cuda_build.NVCC_FLAGS),
           "ptxas": [ln.strip() for log in logs.values() for ln in log.splitlines() if "Used" in ln]})
 
     k1 = check_kernels(fa)
+    bwd = check_backward(fa)
     check_reference(cfg_mod, parler, generate_mod)
-    launches = run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card)
+    check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax)
+    tts_launches = run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card)
+    torch.cuda.empty_cache()
+    train = run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card)
+    train_launches = train["launches"]
 
     head = next(r for r in k1["per_shape"] if r["shape"][2] == 257)
-    emit({"kernels": [{
+    kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "parler_tts_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "parler_tts_tpu/ops/pallas/flash_attention.py:69",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
+        "replaces": REPLACES["flash_attention_fwd"],
+        "launches": tts_launches["flash_attention_fwd"] + train_launches["flash_attention_fwd"],
+        "launches_by_path": {"tts": tts_launches["flash_attention_fwd"],
+                             "train": train_launches["flash_attention_fwd"]},
+        "max_abs_err": k1["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": head["shape"], "per_shape": k1["per_shape"],
-    }]})
+        "shape": head["shape"], "per_shape": k1["per_shape"] + bwd["flash_attention_fwd"]["per_shape"],
+    }]
+    for name in BWD_NAMES:
+        row = bwd[name]["per_shape"][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "parler_tts_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": REPLACES[name], "launches": train_launches[name],
+            "launches_by_path": {"tts": tts_launches[name], "train": train_launches[name]},
+            "max_abs_err": bwd[name]["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_call": row["library_call"], "shape": row["shape"], "per_shape": bwd[name]["per_shape"],
+        })
+    emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

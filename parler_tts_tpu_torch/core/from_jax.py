@@ -14,6 +14,10 @@ tree's keys, so most leaves copy as they are.  The layout changes:
   and is skipped.
 
 Every other leaf must match a parameter, and every parameter a leaf.
+
+``to_jax_tree`` goes the other way for the subtrees training updates: the
+port's parameters, or their gradients, become a numpy tree in the JAX
+layout, so tests can hold them against ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from torch import nn
 
 from parler_tts_tpu_torch.models.dac import DAC
 from parler_tts_tpu_torch.models.decoder import ParlerDecoder
-from parler_tts_tpu_torch.models.parler import ParlerTTSModel
+from parler_tts_tpu_torch.models.parler import TRAINABLE_KEYS, ParlerTTSModel
 from parler_tts_tpu_torch.ops import conv as conv_ops
 
 Entry = tuple[tuple[str, ...], torch.Tensor]
@@ -92,3 +96,38 @@ def load_jax_params(model: nn.Module, tree) -> None:
         if t.shape != state[name].shape:
             raise ValueError(f"{name}: JAX leaf {tuple(t.shape)} vs port {tuple(state[name].shape)}")
         state[name].copy_(t)
+
+
+def _nest(flat: dict[tuple[str, ...], np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, value in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+@torch.no_grad()
+def to_jax_tree(model: ParlerTTSModel, keys=TRAINABLE_KEYS, *, grads: bool = False) -> dict:
+    """The ``keys`` subtrees of ``model`` as an fp32 numpy tree in the JAX
+    layout (decoder layers stacked on a leading L axis): the parameters, or
+    with ``grads`` their ``.grad`` (zeros where a parameter has none)."""
+    tree = {}
+    for key in keys:
+        part = getattr(model, key, None)
+        if part is None:
+            continue
+        flat, layers = {}, {}
+        for name, p in part.named_parameters():
+            t = p.grad if grads else p
+            value = (torch.zeros_like(p) if t is None else t).float().cpu().numpy()
+            path = tuple(name.split("."))
+            if isinstance(part, ParlerDecoder) and path[0] == "layers":
+                layers.setdefault(path[2:], {})[int(path[1])] = value
+            else:
+                flat[path] = value
+        for path, per_layer in layers.items():
+            flat[("layers", *path)] = np.stack([per_layer[i] for i in range(len(per_layer))])
+        tree[key] = _nest(flat)
+    return tree

@@ -1,6 +1,6 @@
 """Delay pattern for multi-codebook codec-token generation.
 
-Port of ``parler_tts_tpu/models/delay_pattern.py`` (inference side): codebook
+Port of ``parler_tts_tpu/models/delay_pattern.py``: codebook
 ``k`` is shifted right by ``k`` steps so one decoder step predicts all K
 codebooks.  For 4 codebooks and max length 8 the pattern is::
 
@@ -68,3 +68,38 @@ def undelay_pattern(output_ids: torch.Tensor) -> torch.Tensor:
     t = torch.arange(out_len, device=output_ids.device)[None, :]
     k = torch.arange(num_codebooks, device=output_ids.device)[:, None]
     return torch.gather(output_ids, 2, (t + k)[None].expand(batch, -1, -1))
+
+
+def build_delay_pattern_labels(codes: torch.Tensor, lengths: torch.Tensor, *, bos_token_id: int,
+                               eos_token_id: int, max_length: int, ignore_id: int = -100) -> torch.Tensor:
+    """Training labels in the delay pattern from raw codes ``(batch, K,
+    T_codes)`` (right-padded arbitrarily past each sample's ``lengths``).
+    Label row ``k`` of a sample of length ``L`` is
+    ``[BOS]*k + codes_k[:L] + [EOS]*(K-k) + [ignore_id]*padding``, cut or
+    padded to ``max_length``; int32 ``(batch, K, max_length)``."""
+    codes = codes.to(torch.int32)
+    batch, num_codebooks, t_codes = codes.shape
+    device = codes.device
+    t = torch.arange(max_length, device=device)[None, None, :]
+    k = torch.arange(num_codebooks, device=device)[None, :, None]
+    lens = lengths.to(device=device, dtype=torch.int64)[:, None, None]
+
+    # codebook k's data occupies [k, k + len)
+    src = (t - k).clamp(0, t_codes - 1).expand(batch, num_codebooks, max_length)
+    gathered = torch.gather(codes, 2, src)
+    in_data = (t >= k) & (t < k + lens)
+    eos_region = (t >= k + lens) & (t < lens + num_codebooks)
+
+    labels = torch.full((batch, num_codebooks, max_length), ignore_id, dtype=torch.int32, device=device)
+    labels = labels.masked_fill((t < k).expand_as(labels), bos_token_id)
+    labels = torch.where(in_data, gathered, labels)
+    return labels.masked_fill(eos_region, eos_token_id)
+
+
+def labels_to_decoder_inputs(labels: torch.Tensor, *, bos_token_id: int, pad_token_id: int,
+                             ignore_id: int = -100) -> torch.Tensor:
+    """Teacher-forcing inputs: labels shifted right by one with BOS at
+    position 0 and ``ignore_id`` replaced by PAD; ``(batch, K, T)``."""
+    shifted = torch.roll(labels, 1, dims=-1)
+    shifted[..., 0] = bos_token_id
+    return shifted.masked_fill(shifted == ignore_id, pad_token_id)

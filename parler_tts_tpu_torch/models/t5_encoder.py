@@ -108,9 +108,11 @@ class T5Encoder(nn.Module):
         )
         return self.rel_attn_bias(buckets).permute(2, 0, 1)[None]
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """(B, T) ids, (B, T) {0,1} mask -> final-normed (B, T, d_model)."""
-        x = self.token_embed(input_ids)
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """(B, T) ids, (B, T) {0,1} mask -> final-normed (B, T, d_model) in
+        the compute ``dtype`` (None = the parameters')."""
+        x = self.token_embed(input_ids, dtype)
         bias = self.position_bias(input_ids.shape[1], input_ids.shape[1]).to(x.dtype)
         mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
         for layer in self.layers:

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one source ``parler_tts_tpu_torch/csrc/<name>.cu`` with a plain
-C interface.  It is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library and loaded with ``ctypes``.  Libraries live in
+Each library is one source ``parler_tts_tpu_torch/csrc/<name>.cu`` whose
+kernels have a plain C interface (``flash_attention_fwd.cu`` holds K1,
+``flash_attention_bwd.cu`` K2-K4).  It is compiled at first use with ``nvcc``
+for ``sm_90a`` into a shared library and loaded with ``ctypes``.  Libraries live in
 ``parler_tts_tpu_torch/_build/<hash>/``, where the hash covers the sources in
 ``csrc/`` and the compiler flags, so an edited source is rebuilt and a stale
 library is never loaded.  Nothing is compiled when a module is imported.
@@ -46,10 +47,10 @@ def _library_path(name: str) -> Path:
 
 
 def build(names) -> dict[str, str]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    process per source, all started together.  Returns each compiled
-    kernel's ``nvcc`` output (registers, shared memory, spills); raises with
-    the compiler's output if any build fails."""
+    """Compile every named library that is missing, one ``nvcc`` process
+    per source, all started together.  Returns each compiled library's
+    ``nvcc`` output (registers, shared memory, spills); raises with the
+    compiler's output if any build fails."""
     procs = {}
     for name in names:
         lib = _library_path(name)
@@ -73,7 +74,7 @@ def build(names) -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed."""
     if name not in _LIBS:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(_library_path(name)))

@@ -23,6 +23,17 @@ from torch import nn
 NEG_INF = -1e9  # finite additive mask: a fully masked row is uniform, not NaN
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with the JAX package's semantics: the identity at
+    ``rate`` 0 or without a ``generator`` (eval mode); otherwise each element
+    is kept with probability ``1 - rate`` and survivors are scaled by
+    ``1 / (1 - rate)``.  The generator lives on ``x``'s device."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ kernel (+ bias)`` with an ``(in, out)`` kernel."""
     y = torch.matmul(x, kernel.to(x.dtype))
@@ -74,17 +85,21 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      bias: torch.Tensor | None = None,
-                     mask: torch.Tensor | None = None) -> torch.Tensor:
+                     mask: torch.Tensor | None = None,
+                     dropout_rate: float = 0.0,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
     """Plain softmax attention over (B, H, T, D) tensors with materialised
     fp32 scores.  ``bias`` is added to the scores; ``mask`` (bool,
     broadcastable to (B, H, Tq, Tk), True = attend) sets the others to
-    ``NEG_INF``.  No scaling: the caller pre-scales q where it needs to."""
+    ``NEG_INF``.  With a ``generator``, dropout at ``dropout_rate`` is applied
+    to the probabilities (train mode).  No scaling: the caller pre-scales q
+    where it needs to."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias.float()
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype), dropout_rate, generator)
     return torch.matmul(probs, v.to(q.dtype))
 
 
@@ -128,5 +143,7 @@ class Embedding(nn.Module):
         super().__init__()
         self.embedding = nn.Parameter(torch.empty(num, dim))
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.embedding)
+    def forward(self, ids: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Rows of the table, cast to ``dtype`` (the compute dtype; None =
+        the table's own)."""
+        return F.embedding(ids, self.embedding if dtype is None else self.embedding.to(dtype))

@@ -62,3 +62,65 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="fp32 or bf16"):
         h = q[..., :32].contiguous().half()
         pfa.flash_attention(h, h, h, bounds, bounds)
+
+
+def _bwd_inputs(shape, pad, causal, dtype):
+    rng = np.random.default_rng(1)
+    b, h, t, d = shape
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b * h, t, d)).astype(np.float32)).cuda().to(dtype)
+                   for _ in range(4))
+    kv_mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+    kv_mask[0, :pad] = 0
+    start, end = pfa.kv_bounds(kv_mask, b, h, t, q.device)
+    out, lse = pfa.flash_attention_fwd(q, k, v, start, end, scale=0.125, causal=causal)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    return q, k, v, do, lse, delta, start, end
+
+
+def _assert_grads_close(got, ref, dtype):
+    """fp32: 1e-4 of the largest magnitude (sums in another order, dq by
+    atomics in K4); bf16: one bf16 ulp (2^-7) of the largest magnitude."""
+    for g, r in zip(got, ref):
+        scale = max(1.0, r.float().abs().max().item())
+        atol = scale * (2.0**-7 if dtype == torch.bfloat16 else 1e-4)
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pad,causal,dtype", [
+    ((3, 16, 903, 64), 20, True, torch.bfloat16),
+    ((1, 16, 1100, 64), 7, True, torch.bfloat16),
+    ((1, 2, 40, 32), 5, True, torch.float32),
+    ((2, 2, 300, 64), 0, False, torch.float32),
+])
+def test_backward_kernels_match_plain_versions(cuda, shape, pad, causal, dtype):
+    """K2, K3 and K4, each launched once, against their plain versions."""
+    args = _bwd_inputs(shape, pad, causal, dtype)
+    kw = dict(scale=0.125, causal=causal)
+    before = (pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+    got = (pfa.flash_attention_dq(*args, **kw), *pfa.flash_attention_dkv(*args, **kw),
+           *pfa.flash_attention_dqkv(*args, **kw))
+    torch.cuda.synchronize()
+    assert (pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV) == tuple(n + 1 for n in before)
+    ref = pfa.flash_dqkv_plain(*args, **kw)
+    _assert_grads_close(got[:3], ref, dtype)
+    _assert_grads_close(got[3:], ref, dtype)
+
+
+@pytest.mark.cuda
+def test_autograd_takes_k4_or_k2_and_k3(cuda, monkeypatch):
+    """The autograd function's two routes on one input give the same grads."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, 256, 64)).astype(np.float32)).cuda().requires_grad_()
+               for _ in range(3))
+    kv_mask = torch.ones((2, 256), dtype=torch.int32, device="cuda")
+    kv_mask[0, :70] = 0
+    grads = {}
+    for env in ("0", "1"):
+        monkeypatch.setenv("PARLER_FLASH_NO_FUSED_BWD", env)
+        before = (pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+        out = pfa.flash_attention_bhtd(q, k, v, kv_mask, scale=0.125)
+        grads[env] = torch.autograd.grad(out.sin().sum(), (q, k, v))
+        after = (pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+        assert [a - b for a, b in zip(after, before)] == ([0, 0, 1] if env == "0" else [1, 1, 0])
+    _assert_grads_close(grads["0"], grads["1"], torch.float32)
