@@ -19,42 +19,76 @@
 // What bounds it on the H100: per valid pair the backward does 6*D (K2),
 // 8*D (K3) or 10*D (K4) operations over 4 input and 1-3 output (BH, T, D)
 // tensors, so at the training shapes (T = 903 or 2623, D = 64) it has
-// hundreds of operations per byte: with bf16 tensor cores (989 TFLOP/s) it
-// would be bound by operations.  This first design does those operations as
-// fp32 FMAs on CUDA cores (67 TFLOP/s), so it is bound by them, several times
-// above the tensor-core bound; tensor-core MMA is later work.  PERF.md holds
-// its times.
+// hundreds of operations per byte and is bound by operations: at the bf16
+// tensor-core peak (989 TFLOP/s) by the matrix products, and, since those
+// are fast, in practice by what surrounds them: one exp and a few FMAs per
+// pair, the shared-memory traffic of the fragments, and the causal
+// triangle's unequal blocks.  PERF.md holds the times.
 //
-// Design, simple and right.  The TPU runs its grid in order on one core and
-// carries the dq, dk and dv sums in VMEM from one grid step to the next; here
-// blocks run in parallel and nothing carries over, so each block owns its
-// outputs and loops over the other side itself, and no two blocks write the
-// same output element except through K4's atomics:
-//   K2: one block of 128 threads per (bh, 64-row query tile), two threads per
-//       query row each holding half of D (interleaved dims) of q, do and the dq
-//       sum in registers; it walks the key range [kv_start, min(kv_end, Tk)),
-//       cut at the tile's causal limit as the forward does, in 64-key K/V
-//       tiles staged in shared memory as fp32.  No atomics.
-//   K3: one block per (bh, 64-key tile), two threads per key row holding half
-//       of k, v and the dk, dv sums; it walks the query rows from the first
-//       that can see a valid key of the tile (q_row >= key - q_offset, the
-//       counterpart of the TPU's q_map) to Tq, in 32-row q/do tiles in shared
-//       memory.  A tile with no valid key skips the walk and writes zeros.
-//   K4: K3's kernel, plus dq.  The TPU's fused kernel holds one (bh) whole
-//       sequence in VMEM (a 903 x 903 fp32 score tile is 3.3 MB, against 227 KB
-//       of shared memory here), which does not translate.  Instead the block
-//       also stores each 32 x 64 ds tile in shared memory and multiplies it by
-//       its fp32 K tile, then adds the 32 x D partial dq into a zeroed fp32
-//       (BH, Tq, D) scratch with atomicAdd; the wrapper casts the scratch to
-//       q's dtype.  s, p, dp and ds are computed once per pair.  The atomics
-//       make the order of dq's sum vary from run to run (about 1e-7 relative in
-//       fp32); a single owner per bh would be deterministic but would leave
-//       most of the card idle at BH = 48.
+// K2 and K3 in bf16 (flash_dq_mma_kernel, flash_dkv_mma_kernel): an
+// FA2-style tiled backward on the tensor cores.  Blocks run in parallel and
+// nothing carries over between them, so each block owns 64 rows of its
+// outputs (4 warps of 16 rows) and walks the other side in 64-row tiles:
+//   K2: one block per (bh, 64-row query tile); q and do stay resident as
+//       mma A fragments; it walks the key range [kv_start, min(kv_end, Tk)),
+//       cut at the tile's causal limit as the forward does.  Per key tile,
+//       each warp computes s = q.k^T and dp = do.v^T (16 x 64, fp32
+//       accumulators), then p = exp(s * scale - lse) and ds = p * (dp -
+//       delta) * scale, and dq += ds.k.  The last query tiles, the longest
+//       walks under causality, are launched first.
+//   K3: one block per (bh, 64-key tile); k and v stay resident as A
+//       fragments; it walks the query rows from the first that can see a
+//       valid key of the tile (q_row >= key - q_offset, the counterpart of
+//       the TPU's q_map) to Tq; a tile with no valid key writes zeros.  Per
+//       query tile, each warp computes s^T = k.q^T and dp^T = v.do^T for its
+//       16 keys, then dv += p^T.do and dk += ds^T.q.  The first key tiles,
+//       the longest walks, are launched first.
+// Products are mma.sync.m16n8k16 bf16 x bf16 -> fp32.  B fragments come from
+// shared memory by ldmatrix (.trans where the tile is stored k-major, as k
+// and q are for dq += ds.k and dk += ds^T.q).  The fp32 accumulator of an
+// m16n8 product has the layout of the A fragment of the next m16n8k16, so p
+// and ds, rounded to bf16, feed the second product from registers without a
+// trip through shared memory; that rounding is the one error these kernels
+// add (PERF.md reports it against the plain version).  The walked side is
+// staged in bf16 through a ring of kStages tiles by cp.async (16 bytes a
+// thread, neighbouring threads on neighbouring addresses, rows outside the
+// tensor zero-filled), so the next tile loads while this one computes; rows
+// are padded by 16 bytes so that ldmatrix reads no two rows from one bank.
+// Only tiles that straddle the causal diagonal or a bound (kv bounds, Tq,
+// Tk) take the per-element mask; masked p is selected to 0, never multiplied
+// by a mask, since for a fully masked row (lse = -1e9 - 69) the exp
+// overflows and inf * 0 is NaN.  One writer per output element and no
+// atomics, so dq is deterministic, unlike K4's.
+//
+// fp32 instances (the fp32 checks: the small-config train step card-vs-CPU
+// and the two routes at 1e-4 of the largest gradient) keep the first, CUDA-
+// core design below: TF32 tensor cores keep about 1e-3 and would not hold
+// that tolerance.  One block of 128 threads per 64-row tile, two threads per
+// row each holding half of D (interleaved dims) in registers, the other side
+// staged in shared memory as fp32:
+//   K2 (flash_dq_kernel): per (bh, query tile), walking 64-key K/V tiles.
+//   K3 (flash_dkv_kernel, kFusedDq = false): per (bh, key tile), walking
+//       32-row q/do tiles from the first row that can see a valid key.
+//   K4 (flash_dkv_kernel, kFusedDq = true, fp32 and bf16): K3's kernel, plus
+//       dq.  The TPU's fused kernel holds one (bh) whole sequence in VMEM (a
+//       903 x 903 fp32 score tile is 3.3 MB, against 227 KB of shared memory
+//       here), which does not translate.  Instead the block also stores each
+//       32 x 64 ds tile in shared memory and multiplies it by its fp32 K
+//       tile, then adds the 32 x D partial dq into a zeroed fp32 (BH, Tq, D)
+//       scratch with atomicAdd; the wrapper casts the scratch to q's dtype.
+//       s, p, dp and ds are computed once per pair.  The atomics make the
+//       order of dq's sum vary from run to run (about 1e-7 relative in fp32);
+//       a single owner per bh would be deterministic but would leave most of
+//       the card idle at BH = 48.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -76,7 +110,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
-// K2: dq for one (bh, 64-row query tile).
+// K2 in fp32: dq for one (bh, 64-row query tile).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -151,7 +185,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// K3 (kFusedDq = false): dk, dv for one (bh, 64-key tile).  K4 (kFusedDq =
+// K3 in fp32 (kFusedDq = false): dk, dv for one (bh, 64-key tile).  K4 (kFusedDq =
 // true): the same, plus this tile's share of dq added atomically to dq_acc.
 template <typename T, int D, bool kFusedDq>
 __global__ void __launch_bounds__(kThreads)
@@ -279,6 +313,450 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// --- K2 and K3 in bf16: tensor cores ----------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // 4 warps of 16 rows
+constexpr int kTile = 64;         // rows a block owns; rows of each walked tile
+constexpr int kStages = 2;        // cp.async ring of the walked side
+constexpr int kPad = 8;           // bf16 padding per shared row: 16 bytes
+// resident blocks per SM that __launch_bounds__ asks registers for: K2 fits
+// 3 without spilling; K3 spills at 3, so it asks for 2
+constexpr int kDqBlocksPerSm = 3;
+constexpr int kDkvBlocksPerSm = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kMmaThreads == 2 * kTile, "K3 loads a tile's lse and delta with one thread each");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes global -> shared without blocking; zero-filled when !ok
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (.trans: each matrix transposed)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rows [row0, row0 + kTile) of a (rows, D) bf16 matrix into a padded shared
+// tile, by cp.async; rows past `rows` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int rows, int tid) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
+    const int e = tid + i * kMmaThreads;
+    const int r = e / kChunks;
+    const int c = e % kChunks;
+    const int row = row0 + r;
+    const bool ok = row < rows;
+    cp_async_16(dst + r * (D + kPad) + c * 8, src + (size_t)(ok ? row : 0) * D + c * 8, ok);
+  }
+}
+
+// A fragments (16 rows x D) of a warp's rows of a padded shared tile
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const bf16* tile, int warp,
+                                             int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(f[kk], tile + (16 * warp + lane % 16) * (D + kPad) + 16 * kk + (lane / 16) * 8);
+}
+
+// acc[j] (16 x 8, columns = rows 8j.. of the tile) += a . tile^T over D: the
+// tile is stored row-major (rows x D), so its rows are B's columns
+template <int D>
+__device__ __forceinline__ void mma_a_tile_t(float (&acc)[kTile / 8][4],
+                                             const uint32_t (&a)[D / 16][4], const bf16* tile,
+                                             int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < kTile / 8; j += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, tile + (8 * j + lane % 8 + (lane / 16) * 8) * (D + kPad) + 16 * kk +
+                     ((lane / 8) % 2) * 8);
+      mma_16816(acc[j], a[kk], b[0], b[1]);
+      mma_16816(acc[j + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc[n] (16 x 8, columns 8n.. of D) += a . tile over the tile's 64 rows:
+// a is 16 x 64 (as 4 k-steps), the tile row-major (64 x D), read transposed
+template <int D>
+__device__ __forceinline__ void mma_a_tile(float (&acc)[D / 8][4],
+                                           const uint32_t (&a)[kTile / 16][4], const bf16* tile,
+                                           int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, tile + (16 * kk + lane % 8 + ((lane / 8) % 2) * 8) * (D + kPad) + 8 * n +
+                           (lane / 16) * 8);
+      mma_16816(acc[n], a[kk], b[0], b[1]);
+      mma_16816(acc[n + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// K2's scores -> ds as bf16 A fragments.  Accumulator element e of column
+// block j is (row h = e / 2 of {g, g + 8}, key 8j + 2*t4 + e % 2); the pairs
+// (e = 0, 1) and (2, 3) of blocks 2m and 2m + 1 form A fragment m.  kMask:
+// keys at or past kmax[h] (the bounds' end, or the row's causal limit + 1)
+// get p = 0.
+template <bool kMask>
+__device__ __forceinline__ void dq_ds(const float (&sa)[kTile / 8][4],
+                                      const float (&pa)[kTile / 8][4],
+                                      uint32_t (&dsf)[kTile / 16][4], const float (&lse2)[2],
+                                      const float (&dlt)[2], const int (&kmax)[2], int key0,
+                                      float scale2, float scale) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float p = exp2f(fmaf(sa[j][2 * h + c], scale2, -lse2[h]));
+        if constexpr (kMask) p = key0 + 8 * j + c < kmax[h] ? p : 0.f;  // selected, not multiplied
+        ds[c] = p * (pa[j][2 * h + c] - dlt[h]) * scale;
+      }
+      dsf[j / 2][2 * (j % 2) + h] = pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// K3's transposed scores -> p^T and ds^T as bf16 A fragments.  Element e of
+// column block j is (key h = e / 2 of {g, g + 8}, query 8j + 2*t4 + e % 2 of
+// the tile).  kMask: queries below qmin[h] (the key's causal first row, or
+// Tq when the key is out of bounds) or at or past `qend` get p = 0.
+template <bool kMask>
+__device__ __forceinline__ void dkv_p_ds(const float (&sa)[kTile / 8][4],
+                                         const float (&pa)[kTile / 8][4],
+                                         uint32_t (&pf)[kTile / 16][4],
+                                         uint32_t (&dsf)[kTile / 16][4], const float* lse_t,
+                                         const float* dlt_t, const int (&qmin)[2], int qend,
+                                         int col0, float scale2, float scale) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const int col = 8 * j + col0;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+    const float2 d2 = *reinterpret_cast<const float2*>(dlt_t + col);
+    const float lse2[2] = {l2.x * kLog2e, l2.y * kLog2e};
+    const float dlt[2] = {d2.x, d2.y};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float p[2], ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        p[c] = exp2f(fmaf(sa[j][2 * h + c], scale2, -lse2[c]));
+        if constexpr (kMask) p[c] = col + c >= qmin[h] && col + c < qend ? p[c] : 0.f;
+        ds[c] = p[c] * (pa[j][2 * h + c] - dlt[c]) * scale;
+      }
+      pf[j / 2][2 * (j % 2) + h] = pack_bf16(p[0], p[1]);
+      dsf[j / 2][2 * (j % 2) + h] = pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// Lets Kernel take `bytes` of dynamic shared memory (above 48 KB only when
+// asked for), once per device: the setting never changes, and a launch that
+// set it again would pay a CUDA runtime call each time.
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  static std::atomic<uint64_t> done{0};  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <int D>
+constexpr int dq_mma_smem() {  // q, do, and the ring of k, v
+  return (2 + 2 * kStages) * kTile * (D + kPad) * (int)sizeof(bf16);
+}
+template <int D>
+constexpr int dkv_mma_smem() {  // k, v, and the ring of q, do, lse, delta
+  return (2 + 2 * kStages) * kTile * (D + kPad) * (int)sizeof(bf16) +
+         2 * kStages * kTile * (int)sizeof(float);
+}
+
+// K2 in bf16: dq for one (bh, 64-row query tile); warp w owns the rows
+// [q0 + 16w, q0 + 16w + 16).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kDqBlocksPerSm)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const int* __restrict__ kv_start, const int* __restrict__ kv_end,
+                    bf16* __restrict__ dq, int tq, int tk, float scale, int causal, int q_offset) {
+  constexpr int S = D + kPad;  // shared row stride, elements
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + kTile * S;
+  bf16* ks = dos + kTile * S;           // [kStages][kTile][S]
+  bf16* vs = ks + kStages * kTile * S;  // [kStages][kTile][S]
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // the longest walks first
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int w0 = q0 + 16 * warp;  // the warp's first row
+  const int g = lane / 4;         // rows g and g + 8 of the warp ...
+  const int t4 = lane % 4;        // ... and columns 2*t4, 2*t4 + 1 of each 8-block
+
+  // keys this block needs: the row bounds, cut at the causal limit of its
+  // last row; the per-row causal limit is the mask's
+  const int start = max(kv_start[bh], 0);
+  const int kv_stop = min(kv_end[bh], tk);
+  int stop = kv_stop;
+  if (causal) stop = min(stop, q_offset + min(q0 + kTile, tq));
+  const int n_tiles = stop > start ? (stop - start + kTile - 1) / kTile : 0;
+
+  const size_t qbase = (size_t)bh * tq;
+  float dqa[D / 8][4] = {};
+  if (n_tiles > 0) {
+    const bf16* kb = k + (size_t)bh * tk * D;
+    const bf16* vb = v + (size_t)bh * tk * D;
+    auto load_kv = [&](int tile) {
+      const int s = tile % kStages;
+      load_tile<D>(ks + s * kTile * S, kb, start + tile * kTile, tk, tid);
+      load_tile<D>(vs + s * kTile * S, vb, start + tile * kTile, tk, tid);
+    };
+    load_tile<D>(qs, q + qbase * D, q0, tq, tid);
+    load_tile<D>(dos, dout + qbase * D, q0, tq, tid);
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < n_tiles) load_kv(t);
+      cp_async_commit();
+    }
+
+    float lse2[2], dlt[2];
+    int kmax[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w0 + g + 8 * h;
+      const bool ok = row < tq;  // rows past Tq read 0: q = do = 0 there, so ds = 0
+      lse2[h] = ok ? lse[qbase + row] * kLog2e : 0.f;
+      dlt[h] = ok ? delta[qbase + row] : 0.f;
+      kmax[h] = causal ? min(kv_stop, q_offset + row + 1) : kv_stop;
+    }
+    const float scale2 = scale * kLog2e;
+    uint32_t qf[D / 16][4], dof[D / 16][4];
+
+    for (int it = 0; it < n_tiles; ++it) {
+      if (it + kStages - 1 < n_tiles) load_kv(it + kStages - 1);  // into the stage freed last
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();  // this tile (and q, do) have landed
+      __syncthreads();
+      if (it == 0) {
+        load_a_frags<D>(qf, qs, warp, lane);
+        load_a_frags<D>(dof, dos, warp, lane);
+      }
+      const bf16* kt = ks + (it % kStages) * kTile * S;
+      const bf16* vt = vs + (it % kStages) * kTile * S;
+      const int k0 = start + it * kTile;
+
+      float sa[kTile / 8][4] = {};
+      float pa[kTile / 8][4] = {};
+      mma_a_tile_t<D>(sa, qf, kt, lane);  // s = q.k^T
+      mma_a_tile_t<D>(pa, dof, vt, lane);  // dp = do.v^T
+      uint32_t dsf[kTile / 16][4];
+      // every pair valid for every row of the warp: no mask
+      if (k0 + kTile <= kv_stop && (!causal || k0 + kTile - 1 <= q_offset + w0))
+        dq_ds<false>(sa, pa, dsf, lse2, dlt, kmax, k0 + 2 * t4, scale2, scale);
+      else
+        dq_ds<true>(sa, pa, dsf, lse2, dlt, kmax, k0 + 2 * t4, scale2, scale);
+      mma_a_tile<D>(dqa, dsf, kt, lane);  // dq += ds.k
+      __syncthreads();  // the stage is consumed before it is refilled
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = w0 + g + 8 * h;
+    if (row < tq) {
+      bf16* dst = dq + (qbase + row) * D + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(dqa[n][2 * h], dqa[n][2 * h + 1]);
+    }
+  }
+}
+
+// K3 in bf16: dk, dv for one (bh, 64-key tile); warp w owns the keys
+// [k0 + 16w, k0 + 16w + 16).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kDkvBlocksPerSm)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const int* __restrict__ kv_start, const int* __restrict__ kv_end,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk, float scale,
+                     int causal, int q_offset) {
+  constexpr int S = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kTile * S;
+  bf16* qs = vs + kTile * S;             // [kStages][kTile][S]
+  bf16* dos = qs + kStages * kTile * S;  // [kStages][kTile][S]
+  float* lse_s = reinterpret_cast<float*>(dos + kStages * kTile * S);  // [kStages][kTile]
+  float* dlt_s = lse_s + kStages * kTile;                               // [kStages][kTile]
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;  // the first key tiles, the longest walks, first
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int w0 = k0 + 16 * warp;  // the warp's first key
+  const int g = lane / 4;         // keys g and g + 8 of the warp ...
+  const int t4 = lane % 4;        // ... and queries 2*t4, 2*t4 + 1 of each 8-block
+
+  // query rows that can see a valid key of this tile: from the first row at
+  // or after the tile's first valid key (causal) to Tq; none if the tile
+  // holds no valid key
+  const int start = max(kv_start[bh], 0);
+  const int stop = min(kv_end[bh], tk);
+  const int first_key = max(k0, start);
+  const bool any_key = first_key < min(k0 + kTile, stop);
+  const int i_begin = causal ? max(0, first_key - q_offset) : 0;
+  const int i_end = any_key ? tq : 0;
+  const int n_tiles = i_end > i_begin ? (i_end - i_begin + kTile - 1) / kTile : 0;
+
+  const size_t kbase = (size_t)bh * tk;
+  float dka[D / 8][4] = {};
+  float dva[D / 8][4] = {};
+  if (n_tiles > 0) {
+    const size_t qbase = (size_t)bh * tq;
+    auto load_q = [&](int tile) {
+      const int s = tile % kStages;
+      const int i0 = i_begin + tile * kTile;
+      load_tile<D>(qs + s * kTile * S, q + qbase * D, i0, tq, tid);
+      load_tile<D>(dos + s * kTile * S, dout + qbase * D, i0, tq, tid);
+      const int r = tid % kTile;
+      const bool ok = i0 + r < tq;
+      const size_t off = qbase + (ok ? i0 + r : 0);
+      if (tid < kTile)
+        cp_async_4(lse_s + s * kTile + r, lse + off, ok);
+      else
+        cp_async_4(dlt_s + s * kTile + r, delta + off, ok);
+    };
+    load_tile<D>(ks, k + kbase * D, k0, tk, tid);
+    load_tile<D>(vs, v + kbase * D, k0, tk, tid);
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < n_tiles) load_q(t);
+      cp_async_commit();
+    }
+
+    // per key: the first query (tile-relative: minus i0) that may see it;
+    // Tq for a key out of bounds, so that no query does
+    int qmin_abs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = w0 + g + 8 * h;
+      const bool ok = key >= start && key < stop;
+      qmin_abs[h] = !ok ? tq : causal ? key - q_offset : INT_MIN / 2;
+    }
+    const bool keys_inside = w0 >= start && w0 + 16 <= stop;
+    const float scale2 = scale * kLog2e;
+    uint32_t kf[D / 16][4], vf[D / 16][4];
+
+    for (int it = 0; it < n_tiles; ++it) {
+      if (it + kStages - 1 < n_tiles) load_q(it + kStages - 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      __syncthreads();
+      if (it == 0) {
+        load_a_frags<D>(kf, ks, warp, lane);
+        load_a_frags<D>(vf, vs, warp, lane);
+      }
+      const int s = it % kStages;
+      const bf16* qt = qs + s * kTile * S;
+      const bf16* dot = dos + s * kTile * S;
+      const int i0 = i_begin + it * kTile;
+
+      float sa[kTile / 8][4] = {};
+      float pa[kTile / 8][4] = {};
+      mma_a_tile_t<D>(sa, kf, qt, lane);   // s^T = k.q^T
+      mma_a_tile_t<D>(pa, vf, dot, lane);  // dp^T = v.do^T
+      uint32_t pf[kTile / 16][4], dsf[kTile / 16][4];
+      if (keys_inside && i0 + kTile <= tq && (!causal || w0 + 15 <= q_offset + i0)) {
+        const int qmin[2] = {0, 0};
+        dkv_p_ds<false>(sa, pa, pf, dsf, lse_s + s * kTile, dlt_s + s * kTile, qmin, kTile,
+                        2 * t4, scale2, scale);
+      } else {
+        const int qmin[2] = {qmin_abs[0] - i0, qmin_abs[1] - i0};
+        dkv_p_ds<true>(sa, pa, pf, dsf, lse_s + s * kTile, dlt_s + s * kTile, qmin, tq - i0,
+                       2 * t4, scale2, scale);
+      }
+      mma_a_tile<D>(dva, pf, dot, lane);  // dv += p^T.do
+      mma_a_tile<D>(dka, dsf, qt, lane);  // dk += ds^T.q
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = w0 + g + 8 * h;
+    if (key < tk) {
+      const size_t off = (kbase + key) * D + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
+            __floats2bfloat162_rn(dka[n][2 * h], dka[n][2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) =
+            __floats2bfloat162_rn(dva[n][2 * h], dva[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *kv_start, *kv_end;
   int bh, tq, tk;
@@ -288,25 +766,61 @@ struct Args {
 };
 
 template <typename T, int D>
-void launch_dq(const Args& a, void* dq) {
-  const dim3 grid(a.bh, (a.tq + kDqRows - 1) / kDqRows);
-  flash_dq_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
-      static_cast<const int*>(a.kv_end), static_cast<T*>(dq), a.tq, a.tk, a.scale, a.causal,
-      a.q_offset);
+cudaError_t launch_dq(const Args& a, void* dq) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 grid(a.bh, (a.tq + kTile - 1) / kTile);
+    constexpr int smem = dq_mma_smem<D>();
+    const cudaError_t err = allow_smem<flash_dq_mma_kernel<D>>(smem);
+    if (err != cudaSuccess) return err;
+    flash_dq_mma_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
+        static_cast<const int*>(a.kv_end), static_cast<bf16*>(dq), a.tq, a.tk, a.scale, a.causal,
+        a.q_offset);
+  } else {
+    const dim3 grid(a.bh, (a.tq + kDqRows - 1) / kDqRows);
+    flash_dq_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
+        static_cast<const int*>(a.kv_end), static_cast<T*>(dq), a.tq, a.tk, a.scale, a.causal,
+        a.q_offset);
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int D, bool kFusedDq>
-void launch_dkv(const Args& a, void* dq_acc, void* dk, void* dv) {
-  const dim3 grid(a.bh, (a.tk + kKvKeys - 1) / kKvKeys);
-  flash_dkv_kernel<T, D, kFusedDq><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
-      static_cast<const int*>(a.kv_end), static_cast<float*>(dq_acc), static_cast<T*>(dk),
-      static_cast<T*>(dv), a.tq, a.tk, a.scale, a.causal, a.q_offset);
+cudaError_t launch_dkv(const Args& a, void* dq_acc, void* dk, void* dv) {
+  if constexpr (std::is_same_v<T, bf16> && !kFusedDq) {
+    const dim3 grid(a.bh, (a.tk + kTile - 1) / kTile);
+    constexpr int smem = dkv_mma_smem<D>();
+    const cudaError_t err = allow_smem<flash_dkv_mma_kernel<D>>(smem);
+    if (err != cudaSuccess) return err;
+    flash_dkv_mma_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
+        static_cast<const int*>(a.kv_end), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.tq,
+        a.tk, a.scale, a.causal, a.q_offset);
+  } else {
+    const dim3 grid(a.bh, (a.tk + kKvKeys - 1) / kKvKeys);
+    flash_dkv_kernel<T, D, kFusedDq><<<grid, kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
+        static_cast<const int*>(a.kv_end), static_cast<float*>(dq_acc), static_cast<T*>(dk),
+        static_cast<T*>(dv), a.tq, a.tk, a.scale, a.causal, a.q_offset);
+  }
+  return cudaSuccess;
+}
+
+// The bf16 tensor-core kernels copy 16 bytes at a time: every (bh, T, D)
+// tensor must start on a 16-byte boundary (torch's allocations do).
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 // Runs CALL with T (the element type) and D (the head dim) bound; returns
@@ -351,18 +865,30 @@ void launch_dkv(const Args& a, void* dq_acc, void* dk, void* dv) {
   Args{q, k, v, dout, lse, delta, kv_start, kv_end, bh, tq, tk, scale, causal, q_offset, \
        static_cast<cudaStream_t>(stream)}
 
+// The launch's own error, else cudaGetLastError() (which it also clears).
+int launch_result(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
 extern "C" int flash_attention_dq(PARLER_BWD_ARGS, void* dq, PARLER_BWD_TAIL) {
   if (bh <= 0 || tq <= 0) return 0;
+  if (is_bf16 && !aligned16({q, k, v, dout, dq}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a = PARLER_BWD_PACK;
-  PARLER_DISPATCH(d, is_bf16, (launch_dq<T, D>(a, dq)));
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  PARLER_DISPATCH(d, is_bf16, (err = launch_dq<T, D>(a, dq)));
+  return launch_result(err);
 }
 
 extern "C" int flash_attention_dkv(PARLER_BWD_ARGS, void* dk, void* dv, PARLER_BWD_TAIL) {
   if (bh <= 0 || tk <= 0) return 0;
+  if (is_bf16 && !aligned16({q, k, v, dout, dk, dv}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a = PARLER_BWD_PACK;
-  PARLER_DISPATCH(d, is_bf16, (launch_dkv<T, D, false>(a, nullptr, dk, dv)));
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  PARLER_DISPATCH(d, is_bf16, (err = launch_dkv<T, D, false>(a, nullptr, dk, dv)));
+  return launch_result(err);
 }
 
 extern "C" int flash_attention_dqkv(PARLER_BWD_ARGS, void* dq_acc, void* dk, void* dv,

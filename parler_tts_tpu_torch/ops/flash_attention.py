@@ -14,6 +14,12 @@ raises.
 * K3 ``flash_attention_dkv``: ``dk`` and ``dv``, key-major;
 * K4 ``flash_attention_dqkv``: all three in one pass.
 
+In bf16, K2 and K3 run on the tensor cores (``mma.sync`` bf16 -> fp32, tiles
+staged by ``cp.async``; p and ds are rounded to bf16 between the two
+products); in fp32 they, like K1 and K4, use fp32 FMAs on CUDA cores, which
+hold the fp32 checks' 1e-4 tolerance that TF32 tensor cores would not.  The
+source's header describes each design.
+
 :class:`FlashAttention` is the autograd function around them, the
 counterpart of the JAX ``custom_vjp``: forward saves q, k, v, the bounds,
 ``out`` and ``lse``; backward computes ``delta = rowsum(do * out)`` in fp32
