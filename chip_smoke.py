@@ -10,11 +10,13 @@ Phases, in order; any failure exits non-zero before the result line:
    with ``nvcc`` (one process per source, all started together);
 2. kernels: each kernel (K1 the flash-attention forward; K2, K3, K4 its
    backward) against its plain PyTorch version on the card, at the main
-   paths' shapes and at the CPU tests' odd shapes, in bf16 and fp32, with the
-   tolerances stated below; the backward's two routes (K4, and K2 + K3 forced
-   by ``PARLER_FLASH_NO_FUSED_BWD=1``) against each other in fp32 and bf16;
-   the build fails unless ``ptxas`` reports each tensor-core K2 and K3 with
-   no spills;
+   paths' shapes (tts and both training shapes) and at the CPU tests' odd
+   shapes, in bf16 and fp32, with the tolerances stated below (also tile by
+   tile, and K1's ``lse`` bit for bit on rows with no valid key); the
+   backward's two routes (K4, and K2 + K3 forced by
+   ``PARLER_FLASH_NO_FUSED_BWD=1``) against each other in fp32 and bf16;
+   the build fails unless ``ptxas`` reports each bf16 tensor-core K1, K2,
+   K3 and K4 at head dims 32 and 64 with no spills;
    device times (CUDA-graph replay) of each kernel, its plain version and the
    one PyTorch call computing the same function (timed as a yardstick only,
    never called by the port);
@@ -61,6 +63,11 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # non-tensor fp32
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # on `out`; fp32 sums in another order, bf16 one output ulp
+# and, scale-free, the Frobenius error over each 64-row tile of `out` relative
+# to that tile (tile_rel_err): a long causal walk averages up to 2,600 values,
+# so its outputs are about as small as TOL; a K1 that skips one 64-key tile of
+# a walk at T = 2623 is off by far more than this in that tile (PERF.md)
+OUT_TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 LSE_TOL = 1e-3
 # backward kernels, relative to the largest |gradient| (at least 1): fp32 sums
 # in another order (and K4's dq by atomics, whose order varies), bf16 one
@@ -86,7 +93,8 @@ REPLACES = {
     "flash_attention_dkv": "parler_tts_tpu/ops/pallas/flash_attention.py:154",
     "flash_attention_dqkv": "parler_tts_tpu/ops/pallas/flash_attention.py:239",
 }
-MMA_KERNELS = ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")  # bf16 K2, K3 on the tensor cores
+# bf16 K1, K2, K3, K4 on the tensor cores
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel", "flash_dqkv_mma_kernel")
 COUNTERS = {"flash_attention_fwd": "LAUNCHES", "flash_attention_dq": "LAUNCHES_DQ",
             "flash_attention_dkv": "LAUNCHES_DKV", "flash_attention_dqkv": "LAUNCHES_DQKV"}
 
@@ -204,6 +212,30 @@ def bwd_bound(name: str, kv_mask: torch.Tensor, heads: int, t: int, d: int, elem
     return bound(nbytes, BWD_OPS_PER_PAIR[name] * d * valid_pairs(kv_mask, heads, t, causal), H100_BF16_FLOPS)
 
 
+def check_k1(fa, q, k, v, start, end, out, lse, kw: dict, meta: dict) -> float:
+    """K1's ``out`` and ``lse`` (BH, T, D) against its plain version on the
+    same inputs: ``TOL``, ``OUT_TILE_TOL`` tile by tile, ``LSE_TOL``, and
+    ``lse`` bit for bit on rows with no valid key (the backward kernels
+    read it).  Emits a ``k1_check`` line; returns the max abs error."""
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, start, end, **kw)
+    dtype = q.dtype
+    out, lse = out.reshape(ref_out.shape), lse.reshape(ref_lse.shape)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    tile_err = tile_rel_err(out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    empty = ref_lse < -1e8  # rows with no valid key
+    empty_exact = bool(torch.equal(lse[empty], ref_lse[empty]))
+    ok = (math.isfinite(err) and err <= TOL[dtype] and tile_err <= OUT_TILE_TOL[dtype] and lse_err <= LSE_TOL
+          and empty_exact)
+    emit({"phase": "k1_check", **meta, "dtype": str(dtype).removeprefix("torch."), "max_abs_err_out": err,
+          "tol_out": TOL[dtype], "max_tile_rel_err_out": tile_err, "tile_tol_out": OUT_TILE_TOL[dtype],
+          "max_abs_err_lse": lse_err, "tol_lse": LSE_TOL, "rows_without_key": int(empty.sum()),
+          "their_lse_bit_exact": empty_exact, "ok": ok})
+    if not ok:
+        raise AssertionError(f"flash_attention_fwd disagrees with its plain version at {meta} {dtype}")
+    return err
+
+
 def check_kernels(fa) -> dict:
     """Phase 2: K1 against its plain version, then its times at the main
     path's shapes (bf16, BH = 4*16, causal, one left-padded row)."""
@@ -223,15 +255,8 @@ def check_kernels(fa) -> dict:
             torch.cuda.synchronize()
             start, end = fa.kv_bounds(kv_mask, b, h, t, q.device)
             q3, k3, v3 = (x.reshape(b * h, t, d) for x in (q, k, v))
-            ref_out, ref_lse = fa.flash_attention_plain(q3, k3, v3, start, end, scale=0.125, causal=causal)
-            err = (out.float() - ref_out.reshape(out.shape).float()).abs().max().item()
-            lse_err = (lse - ref_lse.reshape(lse.shape)).abs().max().item()
-            ok = err <= TOL[dtype] and lse_err <= LSE_TOL and math.isfinite(err)
-            emit({"phase": "k1_check", "shape": [b, h, t, d], "pad": pad, "causal": causal,
-                  "dtype": str(dtype).removeprefix("torch."), "kind": kind, "max_abs_err_out": err,
-                  "tol_out": TOL[dtype], "max_abs_err_lse": lse_err, "tol_lse": LSE_TOL, "ok": ok})
-            if not ok:
-                raise AssertionError(f"flash_attention_fwd disagrees with its plain version at {(b, h, t, d)} {dtype}")
+            err = check_k1(fa, q3, k3, v3, start, end, out, lse, dict(scale=0.125, causal=causal),
+                           {"shape": [b, h, t, d], "pad": pad, "causal": causal, "kind": kind})
             if kind != "main path" or dtype != torch.bfloat16:
                 continue
             worst = max(worst, err)
@@ -254,8 +279,8 @@ def check_kernels(fa) -> dict:
 
 def tile_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """The largest ||got - ref|| / ||ref|| (Frobenius) over the 64-row
-    tiles of a (BH, T, D) gradient; a tile whose reference is zero must be
-    zero (inf otherwise)."""
+    tiles of a (BH, T, D) output or gradient; a tile whose reference is zero
+    must be zero (inf otherwise)."""
     bh, t, d = ref.shape
     pad = (0, 0, 0, -t % BWD_TILE)
     diff = torch.nn.functional.pad(got.float() - ref.float(), pad).reshape(bh, -1, BWD_TILE * d)
@@ -273,10 +298,11 @@ MAIN_SHAPE = {"flash_attention_dq": "main path 30 s", "flash_attention_dkv": "ma
 
 
 def check_backward(fa) -> dict:
-    """Phase 2, backward: K2, K3 and K4 against their plain versions at the
-    training shapes (BH = 3*16, T = 903; BH = 16, T = 2623; causal, one
-    left-padded row), the CPU tests' odd shapes and a Tq < Tk case with
-    ``q_offset`` > 0 (one batch row with no valid pair), in bf16 and fp32;
+    """Phase 2, backward: K1, then K2, K3 and K4 against their plain
+    versions at the training shapes (BH = 3*16, T = 903; BH = 16, T = 2623;
+    causal, one left-padded row), the CPU tests' odd shapes and a Tq < Tk
+    case with ``q_offset`` > 0 (one batch row with no valid pair), in bf16
+    and fp32;
     the two routes against each other; then, in bf16, the times of K4 at the
     10 s shape and of K2 and K3 at the 30 s shape (the kernels each path
     takes) and at the 10 s shape, their plain versions and SDPA's backward
@@ -307,6 +333,8 @@ def check_backward(fa) -> dict:
             start, end = fa.kv_bounds(kv_mask, b, h, tk, q.device)
             kw = dict(scale=0.125, causal=causal, q_offset=q_offset)
             out, lse = fa.flash_attention_fwd(q, k, v, start, end, **kw)
+            check_k1(fa, q, k, v, start, end, out, lse, kw, {"shape": [b, h, t, d], "tk": tk, "q_offset": q_offset,
+                                                            "pads": list(pads), "causal": causal, "kind": kind})
             delta = (do.float() * out.float()).sum(-1, keepdim=True)
             args = (q, k, v, do, lse, delta, start, end)
             pad = pads[0]

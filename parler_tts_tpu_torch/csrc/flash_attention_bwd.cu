@@ -25,10 +25,11 @@
 // pair, the shared-memory traffic of the fragments, and the causal
 // triangle's unequal blocks.  PERF.md holds the times.
 //
-// K2 and K3 in bf16 (flash_dq_mma_kernel, flash_dkv_mma_kernel): an
-// FA2-style tiled backward on the tensor cores.  Blocks run in parallel and
-// nothing carries over between them, so each block owns 64 rows of its
-// outputs (4 warps of 16 rows) and walks the other side in 64-row tiles:
+// K2, K3 and K4 in bf16 (flash_dq_mma_kernel, flash_dkv_mma_kernel,
+// flash_dqkv_mma_kernel): an FA2-style tiled backward on the tensor cores.
+// Blocks run in parallel and nothing carries over between them, so each
+// block owns 64 rows of its outputs (4 warps of 16 rows) and walks the other
+// side in 64-row tiles:
 //   K2: one block per (bh, 64-row query tile); q and do stay resident as
 //       mma A fragments; it walks the key range [kv_start, min(kv_end, Tk)),
 //       cut at the tile's causal limit as the forward does.  Per key tile,
@@ -43,6 +44,18 @@
 //       query tile, each warp computes s^T = k.q^T and dp^T = v.do^T for its
 //       16 keys, then dv += p^T.do and dk += ds^T.q.  The first key tiles,
 //       the longest walks, are launched first.
+//   K4: K3, plus dq.  The TPU's fused kernel holds one (bh) whole sequence
+//       in VMEM (a 903 x 903 fp32 score tile is 3.3 MB, against 227 KB of
+//       shared memory here), which does not translate.  Instead, per query
+//       tile, every warp also stores its 16 keys of ds^T (bf16) into one
+//       shared 64 x 64 tile; after a barrier, warp w multiplies query rows
+//       [16w, 16w + 16) of ds (ldmatrix.trans of that tile) by the resident
+//       K tile and adds the 16 x D partial into a zeroed fp32 (BH, Tq, D)
+//       scratch with float2 atomics; the wrapper casts the scratch to q's
+//       dtype.  s, p, dp and ds are computed once per pair.  The atomics
+//       make the order of dq's sum vary from run to run (about 1e-7
+//       relative); a single owner per bh would be deterministic but would
+//       leave most of the card idle at BH = 48.
 // Products are mma.sync.m16n8k16 bf16 x bf16 -> fp32.  B fragments come from
 // shared memory by ldmatrix (.trans where the tile is stored k-major, as k
 // and q are for dq += ds.k and dk += ds^T.q).  The fp32 accumulator of an
@@ -58,7 +71,7 @@
 // Tk) take the per-element mask; masked p is selected to 0, never multiplied
 // by a mask, since for a fully masked row (lse = -1e9 - 69) the exp
 // overflows and inf * 0 is NaN.  One writer per output element and no
-// atomics, so dq is deterministic, unlike K4's.
+// atomics in K2 and K3, so their dq is deterministic, unlike K4's.
 //
 // fp32 instances (the fp32 checks: the small-config train step card-vs-CPU
 // and the two routes at 1e-4 of the largest gradient) keep the first, CUDA-
@@ -69,28 +82,19 @@
 //   K2 (flash_dq_kernel): per (bh, query tile), walking 64-key K/V tiles.
 //   K3 (flash_dkv_kernel, kFusedDq = false): per (bh, key tile), walking
 //       32-row q/do tiles from the first row that can see a valid key.
-//   K4 (flash_dkv_kernel, kFusedDq = true, fp32 and bf16): K3's kernel, plus
-//       dq.  The TPU's fused kernel holds one (bh) whole sequence in VMEM (a
-//       903 x 903 fp32 score tile is 3.3 MB, against 227 KB of shared memory
-//       here), which does not translate.  Instead the block also stores each
-//       32 x 64 ds tile in shared memory and multiplies it by its fp32 K
-//       tile, then adds the 32 x D partial dq into a zeroed fp32 (BH, Tq, D)
-//       scratch with atomicAdd; the wrapper casts the scratch to q's dtype.
-//       s, p, dp and ds are computed once per pair.  The atomics make the
-//       order of dq's sum vary from run to run (about 1e-7 relative in fp32);
-//       a single owner per bh would be deterministic but would leave most of
-//       the card idle at BH = 48.
+//   K4 (flash_dkv_kernel, kFusedDq = true): K3's kernel, plus dq as above:
+//       each 32 x 64 ds tile goes through shared memory, is multiplied by
+//       the fp32 K tile with scalar FMAs and added into the scratch with
+//       scalar atomics.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sm90_mma.cuh"
 
-#include <atomic>
 #include <climits>
-#include <cstdint>
-#include <initializer_list>
 #include <type_traits>
 
 namespace {
+
+using namespace sm90;
 
 constexpr int kThreads = 128;
 constexpr int kDqRows = 64;   // K2: query rows per block (two threads per row)
@@ -98,26 +102,14 @@ constexpr int kDqKeys = 64;   // K2: keys per shared-memory tile
 constexpr int kKvKeys = 64;   // K3/K4: keys per block (two threads per key)
 constexpr int kKvRows = 32;   // K3/K4: query rows per shared-memory tile
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
 // K2 in fp32: dq for one (bh, 64-row query tile).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, const int* __restrict__ kv_start,
-                const int* __restrict__ kv_end, T* __restrict__ dq, int tq, int tk, float scale,
-                int causal, int q_offset) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const int* __restrict__ kv_start, const int* __restrict__ kv_end,
+                float* __restrict__ dq, int tq, int tk, float scale, int causal, int q_offset) {
   constexpr int DH = D / 2;
   __shared__ float ks[kDqKeys][D];
   __shared__ float vs[kDqKeys][D];
@@ -133,8 +125,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float qr[DH], dor[DH], acc[DH];
 #pragma unroll
   for (int i = 0; i < DH; ++i) {
-    qr[i] = row_ok ? to_float(q[roff + 2 * i + half]) : 0.f;
-    dor[i] = row_ok ? to_float(dout[roff + 2 * i + half]) : 0.f;
+    qr[i] = row_ok ? q[roff + 2 * i + half] : 0.f;
+    dor[i] = row_ok ? dout[roff + 2 * i + half] : 0.f;
     acc[i] = 0.f;
   }
   const float row_lse = row_ok ? lse[(size_t)bh * tq + row] : 0.f;
@@ -155,8 +147,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       const int kp = k0 + r;
       const bool ok = kp < stop;
       const size_t off = ((size_t)bh * tk + (ok ? kp : 0)) * D + c;
-      ks[r][c] = ok ? to_float(k[off]) : 0.f;
-      vs[r][c] = ok ? to_float(v[off]) : 0.f;
+      ks[r][c] = ok ? k[off] : 0.f;
+      vs[r][c] = ok ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -181,19 +173,20 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   if (row_ok) {
 #pragma unroll
-    for (int i = 0; i < DH; ++i) dq[roff + 2 * i + half] = from_float<T>(acc[i]);
+    for (int i = 0; i < DH; ++i) dq[roff + 2 * i + half] = acc[i];
   }
 }
 
 // K3 in fp32 (kFusedDq = false): dk, dv for one (bh, 64-key tile).  K4 (kFusedDq =
 // true): the same, plus this tile's share of dq added atomically to dq_acc.
-template <typename T, int D, bool kFusedDq>
+template <int D, bool kFusedDq>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, const int* __restrict__ kv_start,
-                 const int* __restrict__ kv_end, float* __restrict__ dq_acc, T* __restrict__ dk,
-                 T* __restrict__ dv, int tq, int tk, float scale, int causal, int q_offset) {
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ kv_start, const int* __restrict__ kv_end,
+                 float* __restrict__ dq_acc, float* __restrict__ dk, float* __restrict__ dv, int tq,
+                 int tk, float scale, int causal, int q_offset) {
   constexpr int DH = D / 2;
   constexpr int kParts = kThreads / kKvRows;  // threads per query row in the dq pass
   constexpr int DP = D / kParts;
@@ -217,8 +210,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float kr[DH], vr[DH], dk_acc[DH], dv_acc[DH];
 #pragma unroll
   for (int i = 0; i < DH; ++i) {
-    kr[i] = key_ok ? to_float(k[koff + 2 * i + half]) : 0.f;
-    vr[i] = key_ok ? to_float(v[koff + 2 * i + half]) : 0.f;
+    kr[i] = key_ok ? k[koff + 2 * i + half] : 0.f;
+    vr[i] = key_ok ? v[koff + 2 * i + half] : 0.f;
     dk_acc[i] = 0.f;
     dv_acc[i] = 0.f;
   }
@@ -228,7 +221,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int c = e % D;
       const int kp = k0 + r;
       const bool ok = kp >= start && kp < stop;
-      kts[r][c] = ok ? to_float(k[((size_t)bh * tk + kp) * D + c]) : 0.f;
+      kts[r][c] = ok ? k[((size_t)bh * tk + kp) * D + c] : 0.f;
     }  // visible after the first barrier of the loop below
   }
 
@@ -248,8 +241,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int qi = i0 + r;
       const bool ok = qi < tq;
       const size_t off = ((size_t)bh * tq + (ok ? qi : 0)) * D + c;
-      qs[r][c] = ok ? to_float(q[off]) : 0.f;
-      dos[r][c] = ok ? to_float(dout[off]) : 0.f;
+      qs[r][c] = ok ? q[off] : 0.f;
+      dos[r][c] = ok ? dout[off] : 0.f;
     }
     if (tid < kKvRows) {
       const int qi = i0 + tid;
@@ -307,136 +300,20 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const size_t off = ((size_t)bh * tk + key) * D;
 #pragma unroll
     for (int i = 0; i < DH; ++i) {
-      dk[off + 2 * i + half] = from_float<T>(dk_acc[i]);
-      dv[off + 2 * i + half] = from_float<T>(dv_acc[i]);
+      dk[off + 2 * i + half] = dk_acc[i];
+      dv[off + 2 * i + half] = dv_acc[i];
     }
   }
 }
 
 // --- K2 and K3 in bf16: tensor cores ----------------------------------------
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kMmaThreads = 128;  // 4 warps of 16 rows
-constexpr int kTile = 64;         // rows a block owns; rows of each walked tile
-constexpr int kStages = 2;        // cp.async ring of the walked side
-constexpr int kPad = 8;           // bf16 padding per shared row: 16 bytes
 // resident blocks per SM that __launch_bounds__ asks registers for: K2 fits
-// 3 without spilling; K3 spills at 3, so it asks for 2
+// 3 without spilling; K3 spills at 3, so it asks for 2, and K4 (K3 plus dq)
+// as K3
 constexpr int kDqBlocksPerSm = 3;
 constexpr int kDkvBlocksPerSm = 2;
-constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kMmaThreads == 2 * kTile, "K3 loads a tile's lse and delta with one thread each");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes global -> shared without blocking; zero-filled when !ok
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 (.trans: each matrix transposed)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8 fp32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + kTile) of a (rows, D) bf16 matrix into a padded shared
-// tile, by cp.async; rows past `rows` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int rows, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
-    const int e = tid + i * kMmaThreads;
-    const int r = e / kChunks;
-    const int c = e % kChunks;
-    const int row = row0 + r;
-    const bool ok = row < rows;
-    cp_async_16(dst + r * (D + kPad) + c * 8, src + (size_t)(ok ? row : 0) * D + c * 8, ok);
-  }
-}
-
-// A fragments (16 rows x D) of a warp's rows of a padded shared tile
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const bf16* tile, int warp,
-                                             int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(f[kk], tile + (16 * warp + lane % 16) * (D + kPad) + 16 * kk + (lane / 16) * 8);
-}
-
-// acc[j] (16 x 8, columns = rows 8j.. of the tile) += a . tile^T over D: the
-// tile is stored row-major (rows x D), so its rows are B's columns
-template <int D>
-__device__ __forceinline__ void mma_a_tile_t(float (&acc)[kTile / 8][4],
-                                             const uint32_t (&a)[D / 16][4], const bf16* tile,
-                                             int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < kTile / 8; j += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, tile + (8 * j + lane % 8 + (lane / 16) * 8) * (D + kPad) + 16 * kk +
-                     ((lane / 8) % 2) * 8);
-      mma_16816(acc[j], a[kk], b[0], b[1]);
-      mma_16816(acc[j + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// acc[n] (16 x 8, columns 8n.. of D) += a . tile over the tile's 64 rows:
-// a is 16 x 64 (as 4 k-steps), the tile row-major (64 x D), read transposed
-template <int D>
-__device__ __forceinline__ void mma_a_tile(float (&acc)[D / 8][4],
-                                           const uint32_t (&a)[kTile / 16][4], const bf16* tile,
-                                           int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, tile + (16 * kk + lane % 8 + ((lane / 8) % 2) * 8) * (D + kPad) + 8 * n +
-                           (lane / 16) * 8);
-      mma_16816(acc[n], a[kk], b[0], b[1]);
-      mma_16816(acc[n + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
 
 // K2's scores -> ds as bf16 A fragments.  Accumulator element e of column
 // block j is (row h = e / 2 of {g, g + 8}, key 8j + 2*t4 + e % 2); the pairs
@@ -498,30 +375,44 @@ __device__ __forceinline__ void dkv_p_ds(const float (&sa)[kTile / 8][4],
   }
 }
 
-// Lets Kernel take `bytes` of dynamic shared memory (above 48 KB only when
-// asked for), once per device: the setting never changes, and a launch that
-// set it again would pay a CUDA runtime call each time.
-template <auto Kernel>
-cudaError_t allow_smem(int bytes) {
-  static std::atomic<uint64_t> done{0};  // one bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
-
 template <int D>
 constexpr int dq_mma_smem() {  // q, do, and the ring of k, v
   return (2 + 2 * kStages) * kTile * (D + kPad) * (int)sizeof(bf16);
 }
-template <int D>
-constexpr int dkv_mma_smem() {  // k, v, and the ring of q, do, lse, delta
+template <int D, bool kDq>
+constexpr int dkv_mma_smem() {  // k, v, the ring of q, do, lse, delta; K4: the ds tile
   return (2 + 2 * kStages) * kTile * (D + kPad) * (int)sizeof(bf16) +
-         2 * kStages * kTile * (int)sizeof(float);
+         2 * kStages * kTile * (int)sizeof(float) +
+         (kDq ? kTile * (kTile + kPad) * (int)sizeof(bf16) : 0);
+}
+
+// K4's dq for one query tile: the block's ds^T tile (64 keys x 64 queries,
+// bf16, stored by every warp for its keys) times the resident K tile; warp
+// w takes the query rows [16w, 16w + 16) of the tile, A by ldmatrix.trans,
+// and adds its 16 x D partial into the fp32 scratch `dst` (the tile's first
+// row) by float2 atomics (float4 adds, with lane pairs trading halves, were
+// slower: PERF.md), rows at or past `rows` left out.
+template <int D>
+__device__ __forceinline__ void dq_tile(float* dst, const bf16* dss, const bf16* kt, int rows,
+                                        int warp, int lane) {
+  constexpr int SD = kTile + kPad;
+  uint32_t af[kTile / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    ldsm_x4_trans(af[kk], dss + (16 * kk + lane % 8 + (lane / 16) * 8) * SD + 16 * warp +
+                              ((lane / 8) % 2) * 8);
+  float acc[D / 8][4] = {};
+  mma_a_tile<D>(acc, af, kt, lane);  // ds.k over the tile's 64 keys
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + lane / 4 + 8 * h;
+    if (r < rows) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        atomicAdd(reinterpret_cast<float2*>(dst + (size_t)r * D + 8 * n + 2 * (lane % 4)),
+                  make_float2(acc[n][2 * h], acc[n][2 * h + 1]));
+    }
+  }
 }
 
 // K2 in bf16: dq for one (bh, 64-row query tile); warp w owns the rows
@@ -629,16 +520,18 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K3 in bf16: dk, dv for one (bh, 64-key tile); warp w owns the keys
-// [k0 + 16w, k0 + 16w + 16).
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads, kDkvBlocksPerSm)
-flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ kv_start, const int* __restrict__ kv_end,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk, float scale,
-                     int causal, int q_offset) {
+// K3 (kDq = false) in bf16: dk, dv for one (bh, 64-key tile); warp w owns
+// the keys [k0 + 16w, k0 + 16w + 16).  K4 (kDq = true): the same, plus the
+// tile's share of dq, added into the zeroed fp32 scratch dq_acc.
+template <int D, bool kDq>
+__device__ __forceinline__ void dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        const int* __restrict__ kv_start,
+                                        const int* __restrict__ kv_end, float* __restrict__ dq_acc,
+                                        bf16* __restrict__ dk, bf16* __restrict__ dv, int tq,
+                                        int tk, float scale, int causal, int q_offset) {
   constexpr int S = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
@@ -647,6 +540,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dos = qs + kStages * kTile * S;  // [kStages][kTile][S]
   float* lse_s = reinterpret_cast<float*>(dos + kStages * kTile * S);  // [kStages][kTile]
   float* dlt_s = lse_s + kStages * kTile;                               // [kStages][kTile]
+  bf16* dss = reinterpret_cast<bf16*>(dlt_s + kStages * kTile);  // K4: [kTile][kTile + kPad]
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kTile;  // the first key tiles, the longest walks, first
@@ -735,8 +629,21 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dkv_p_ds<true>(sa, pa, pf, dsf, lse_s + s * kTile, dlt_s + s * kTile, qmin, tq - i0,
                        2 * t4, scale2, scale);
       }
+      if constexpr (kDq) {  // the warp's 16 keys of the ds^T tile, for dq below
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<uint32_t*>(dss + (16 * warp + g + 8 * h) * (kTile + kPad) + 8 * j +
+                                         2 * t4) = dsf[j / 2][2 * (j % 2) + h];
+        }
+      }
       mma_a_tile<D>(dva, pf, dot, lane);  // dv += p^T.do
       mma_a_tile<D>(dka, dsf, qt, lane);  // dk += ds^T.q
+      if constexpr (kDq) {
+        __syncthreads();  // the ds^T tile is complete
+        dq_tile<D>(dq_acc + (qbase + i0) * D, dss, ks, tq - i0, warp, lane);  // dq += ds.k
+      }
       __syncthreads();
     }
   }
@@ -757,6 +664,31 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+#define PARLER_MMA_BWD_PARAMS                                                                   \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,          \
+      const bf16 *__restrict__ dout, const float *__restrict__ lse,                             \
+      const float *__restrict__ delta, const int *__restrict__ kv_start,                        \
+      const int *__restrict__ kv_end
+
+// K3 in bf16
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kDkvBlocksPerSm)
+flash_dkv_mma_kernel(PARLER_MMA_BWD_PARAMS, bf16* __restrict__ dk, bf16* __restrict__ dv, int tq,
+                     int tk, float scale, int causal, int q_offset) {
+  dkv_mma<D, false>(q, k, v, dout, lse, delta, kv_start, kv_end, nullptr, dk, dv, tq, tk, scale,
+                    causal, q_offset);
+}
+
+// K4 in bf16
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kDkvBlocksPerSm)
+flash_dqkv_mma_kernel(PARLER_MMA_BWD_PARAMS, float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int tq, int tk, float scale, int causal,
+                      int q_offset) {
+  dkv_mma<D, true>(q, k, v, dout, lse, delta, kv_start, kv_end, dq_acc, dk, dv, tq, tk, scale,
+                   causal, q_offset);
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *kv_start, *kv_end;
   int bh, tq, tk;
@@ -764,6 +696,18 @@ struct Args {
   int causal, q_offset;
   cudaStream_t stream;
 };
+
+// Args' inputs, cast for a bf16 tensor-core kernel or an fp32 CUDA-core one
+#define PARLER_MMA_ARGS(a)                                                                       \
+  static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),  \
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),                       \
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),                  \
+      static_cast<const int*>(a.kv_end)
+#define PARLER_FP32_ARGS(a)                                                                      \
+  static_cast<const float*>(a.q), static_cast<const float*>(a.k),                               \
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),                        \
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),                     \
+      static_cast<const int*>(a.kv_start), static_cast<const int*>(a.kv_end)
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
@@ -773,54 +717,40 @@ cudaError_t launch_dq(const Args& a, void* dq) {
     const cudaError_t err = allow_smem<flash_dq_mma_kernel<D>>(smem);
     if (err != cudaSuccess) return err;
     flash_dq_mma_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-        static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
-        static_cast<const int*>(a.kv_end), static_cast<bf16*>(dq), a.tq, a.tk, a.scale, a.causal,
-        a.q_offset);
+        PARLER_MMA_ARGS(a), static_cast<bf16*>(dq), a.tq, a.tk, a.scale, a.causal, a.q_offset);
   } else {
     const dim3 grid(a.bh, (a.tq + kDqRows - 1) / kDqRows);
-    flash_dq_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
-        static_cast<const int*>(a.kv_end), static_cast<T*>(dq), a.tq, a.tk, a.scale, a.causal,
-        a.q_offset);
+    flash_dq_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+        PARLER_FP32_ARGS(a), static_cast<float*>(dq), a.tq, a.tk, a.scale, a.causal, a.q_offset);
   }
   return cudaSuccess;
 }
 
 template <typename T, int D, bool kFusedDq>
 cudaError_t launch_dkv(const Args& a, void* dq_acc, void* dk, void* dv) {
-  if constexpr (std::is_same_v<T, bf16> && !kFusedDq) {
+  if constexpr (std::is_same_v<T, bf16>) {
     const dim3 grid(a.bh, (a.tk + kTile - 1) / kTile);
-    constexpr int smem = dkv_mma_smem<D>();
-    const cudaError_t err = allow_smem<flash_dkv_mma_kernel<D>>(smem);
-    if (err != cudaSuccess) return err;
-    flash_dkv_mma_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-        static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
-        static_cast<const int*>(a.kv_end), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.tq,
-        a.tk, a.scale, a.causal, a.q_offset);
+    constexpr int smem = dkv_mma_smem<D, kFusedDq>();
+    if constexpr (kFusedDq) {
+      const cudaError_t err = allow_smem<flash_dqkv_mma_kernel<D>>(smem);
+      if (err != cudaSuccess) return err;
+      flash_dqkv_mma_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+          PARLER_MMA_ARGS(a), static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), a.tq, a.tk, a.scale, a.causal, a.q_offset);
+    } else {
+      const cudaError_t err = allow_smem<flash_dkv_mma_kernel<D>>(smem);
+      if (err != cudaSuccess) return err;
+      flash_dkv_mma_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+          PARLER_MMA_ARGS(a), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.tq, a.tk, a.scale,
+          a.causal, a.q_offset);
+    }
   } else {
     const dim3 grid(a.bh, (a.tk + kKvKeys - 1) / kKvKeys);
-    flash_dkv_kernel<T, D, kFusedDq><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<const int*>(a.kv_start),
-        static_cast<const int*>(a.kv_end), static_cast<float*>(dq_acc), static_cast<T*>(dk),
-        static_cast<T*>(dv), a.tq, a.tk, a.scale, a.causal, a.q_offset);
+    flash_dkv_kernel<D, kFusedDq><<<grid, kThreads, 0, a.stream>>>(
+        PARLER_FP32_ARGS(a), static_cast<float*>(dq_acc), static_cast<float*>(dk),
+        static_cast<float*>(dv), a.tq, a.tk, a.scale, a.causal, a.q_offset);
   }
   return cudaSuccess;
-}
-
-// The bf16 tensor-core kernels copy 16 bytes at a time: every (bh, T, D)
-// tensor must start on a 16-byte boundary (torch's allocations do).
-bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
 }
 
 // Runs CALL with T (the element type) and D (the head dim) bound; returns
@@ -851,10 +781,11 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 }  // namespace
 
 // Common interface: q/dout (bh, tq, d), k/v (bh, tk, d) contiguous, fp32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1); lse/delta (bh, tq) fp32;
-// kv_start/kv_end (bh,) int32; outputs in the input dtype except K4's dq_acc,
-// a zeroed fp32 (bh, tq, d) buffer.  Each launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched), or
+// (is_bf16 = 0) or bf16 (is_bf16 = 1, every tensor 16-byte aligned);
+// lse/delta (bh, tq) fp32; kv_start/kv_end (bh,) int32; outputs in the input
+// dtype except K4's dq_acc, a zeroed fp32 (bh, tq, d) buffer.  Each launches
+// on `stream` without synchronising and returns cudaGetLastError() (0 =
+// launched), cudaErrorMisalignedAddress for a misaligned bf16 tensor, or
 // cudaErrorInvalidValue for a head dim other than 32 or 64.
 #define PARLER_BWD_ARGS                                                                         \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,              \
@@ -894,7 +825,10 @@ extern "C" int flash_attention_dkv(PARLER_BWD_ARGS, void* dk, void* dv, PARLER_B
 extern "C" int flash_attention_dqkv(PARLER_BWD_ARGS, void* dq_acc, void* dk, void* dv,
                                     PARLER_BWD_TAIL) {
   if (bh <= 0 || tk <= 0) return 0;
+  if (is_bf16 && !aligned16({q, k, v, dout, dq_acc, dk, dv}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a = PARLER_BWD_PACK;
-  PARLER_DISPATCH(d, is_bf16, (launch_dkv<T, D, true>(a, dq_acc, dk, dv)));
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  PARLER_DISPATCH(d, is_bf16, (err = launch_dkv<T, D, true>(a, dq_acc, dk, dv)));
+  return launch_result(err);
 }

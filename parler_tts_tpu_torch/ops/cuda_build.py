@@ -2,14 +2,16 @@
 
 Each library is one source ``parler_tts_tpu_torch/csrc/<name>.cu`` whose
 kernels have a plain C interface (``flash_attention_fwd.cu`` holds K1,
-``flash_attention_bwd.cu`` K2-K4).  It is compiled at first use with ``nvcc``
-for ``sm_90a`` into a shared library and loaded with ``ctypes``.  Libraries live in
-``parler_tts_tpu_torch/_build/<hash>/``, where the hash covers the sources in
-``csrc/`` and the compiler flags, so an edited source is rebuilt and a stale
-library is never loaded; ``nvcc``'s output is kept beside each library as
-``lib<name>.log``.  ``build`` and ``library`` also take another source
-directory (a test builds a modified copy of a source that way).  Nothing is
-compiled when a module is imported.
+``flash_attention_bwd.cu`` K2-K4), plus the headers of ``csrc/`` it
+includes (``sm90_mma.cuh``, the tensor-core building blocks both share).  It
+is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
+and loaded with ``ctypes``.  Libraries live in
+``parler_tts_tpu_torch/_build/<hash>/``, where the hash covers the sources
+and headers in ``csrc/`` and the compiler flags, so an edited source is
+rebuilt and a stale library is never loaded; ``nvcc``'s output is kept
+beside each library as ``lib<name>.log``.  ``build`` and ``library`` also
+take another source directory (a test builds a modified copy of the sources
+that way).  Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations

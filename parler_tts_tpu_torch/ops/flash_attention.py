@@ -14,11 +14,12 @@ raises.
 * K3 ``flash_attention_dkv``: ``dk`` and ``dv``, key-major;
 * K4 ``flash_attention_dqkv``: all three in one pass.
 
-In bf16, K2 and K3 run on the tensor cores (``mma.sync`` bf16 -> fp32, tiles
-staged by ``cp.async``; p and ds are rounded to bf16 between the two
-products); in fp32 they, like K1 and K4, use fp32 FMAs on CUDA cores, which
-hold the fp32 checks' 1e-4 tolerance that TF32 tensor cores would not.  The
-source's header describes each design.
+In bf16 all four run on the tensor cores (``mma.sync`` bf16 -> fp32, tiles
+staged by ``cp.async``; p, and ds in the backward, are rounded to bf16
+between the two products; the building blocks are in
+``csrc/sm90_mma.cuh``); in fp32 they use fp32 FMAs on CUDA cores, which
+hold the fp32 checks' 1e-4 tolerance that TF32 tensor cores would not.  Each
+source's header describes its designs.
 
 :class:`FlashAttention` is the autograd function around them, the
 counterpart of the JAX ``custom_vjp``: forward saves q, k, v, the bounds,

@@ -9,6 +9,8 @@ JAX, where tests/conftest.py (which imports JAX) is left out:
 
 from __future__ import annotations
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -34,10 +36,17 @@ def cuda():
     ((4, 16, 257, 64), 70, True, torch.bfloat16),
     ((1, 2, 40, 32), 5, True, torch.float32),
     ((2, 2, 300, 64), 0, False, torch.float32),
+    ((3, 16, 903, 64), 20, True, torch.bfloat16),  # the 3 x 10 s training shape
+    ((3, 16, 903, 64), 20, True, torch.float32),
+    ((1, 16, 2623, 64), 12, True, torch.bfloat16),  # the 1 x 30 s training shape
+    ((2, 3, 333, 32), 9, True, torch.bfloat16),  # D = 32, T not a multiple of 64
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, shape, pad, causal, dtype):
     """Tolerances on ``out``: fp32 1e-4 (sums in another order), bf16 2e-2
-    (one output ulp); ``lse`` 1e-3."""
+    (one output ulp), and, scale-free, each 64-row tile's error within
+    ``TILE_TOL`` of that tile (a long walk's outputs are about as small as
+    2e-2); ``lse`` 1e-3, and bit for bit the plain version's on rows with no
+    valid key (the left padding), which the backward kernels read."""
     rng = np.random.default_rng(0)
     b, h, t, d = shape
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
@@ -54,7 +63,12 @@ def test_flash_attention_kernel_matches_plain_version(cuda, shape, pad, causal, 
                                                  causal=causal)
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ref_out.reshape(shape).float(), atol=atol, rtol=0)
-    torch.testing.assert_close(lse, ref_lse.reshape(b, h, t), atol=1e-3, rtol=0)
+    assert _tile_rel_err(out.reshape(b * h, t, d), ref_out) <= TILE_TOL[dtype]
+    ref_lse = ref_lse.reshape(b, h, t)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    empty = ref_lse < -1e8  # rows with no valid key
+    assert bool(empty.any()) == (causal and pad > 0)
+    assert torch.equal(lse[empty], ref_lse[empty])
 
 
 @pytest.mark.cuda
@@ -92,7 +106,8 @@ def _bwd_inputs(shape, pad, causal, dtype, tk=None, q_offset=0, bounds=None):
 
 def _tile_rel_err(got, ref):
     """The largest ||got - ref|| / ||ref|| over the 64-row tiles of (BH, T, D)
-    gradients; inf where a zero tile of the reference is not zero."""
+    outputs or gradients; inf where a zero tile of the reference is not
+    zero."""
     bh, t, d = ref.shape
     pad = (0, 0, 0, -t % TILE)
     err = torch.nn.functional.pad(got.float() - ref.float(), pad).reshape(bh, -1, TILE * d).norm(dim=-1)
@@ -169,46 +184,75 @@ def test_autograd_takes_k4_or_k2_and_k3(cuda, monkeypatch, dtype):
     _assert_grads_close(grads["0"], grads["1"], dtype)
 
 
-# bf16 K2, K3: one block of one head leaves tile 1 of its walk out of its sums,
-# a block in the second half of T = 2623, where the far tiles weigh as much as
-# the near ones (K2: query rows 1920-1983, keys 76-139; K3: keys 1984-2047,
-# query rows 2048-2111)
+# A copy of a kernel whose one block leaves one tile out: (source, library,
+# shape, left padding, text, replacement).  bf16 K2, K3 and K1 at the 1 x 30 s
+# shape, in its second half, where the far tiles weigh as much as the near
+# ones (K2: query rows 1920-1983 without keys 76-139; K3: keys 1984-2047
+# without query rows 2048-2111; K1: query rows 1920-1983 without keys
+# 76-139), K4 at the 3 x 10 s shape (query rows 832-895 without the dq of
+# keys 64-127).
 _SKIPPED_TILE = {
     "flash_attention_dq": (
+        "flash_attention_bwd.cu", "flash_attention_bwd", (1, 16, 2623, 64), 12,
         "      mma_a_tile<D>(dqa, dsf, kt, lane);  // dq += ds.k\n",
         "      if (!(bh == 0 && blockIdx.y == 10 && it == 1)) mma_a_tile<D>(dqa, dsf, kt, lane);\n"),
     "flash_attention_dkv": (
+        "flash_attention_bwd.cu", "flash_attention_bwd", (1, 16, 2623, 64), 12,
         "      mma_a_tile<D>(dva, pf, dot, lane);  // dv += p^T.do\n"
         "      mma_a_tile<D>(dka, dsf, qt, lane);  // dk += ds^T.q\n",
         "      if (!(bh == 0 && blockIdx.y == 31 && it == 1)) {\n"
         "        mma_a_tile<D>(dva, pf, dot, lane);\n"
         "        mma_a_tile<D>(dka, dsf, qt, lane);\n"
         "      }\n"),
+    "flash_attention_dqkv": (
+        "flash_attention_bwd.cu", "flash_attention_bwd", (3, 16, 903, 64), 20,
+        "        dq_tile<D>(dq_acc + (qbase + i0) * D, dss, ks, tq - i0, warp, lane);  // dq += ds.k\n",
+        "        if (!(bh == 0 && blockIdx.y == 1 && it == 12))\n"
+        "          dq_tile<D>(dq_acc + (qbase + i0) * D, dss, ks, tq - i0, warp, lane);\n"),
+    "flash_attention_fwd": (
+        "flash_attention_fwd.cu", "flash_attention_fwd", (1, 16, 2623, 64), 12,
+        "      if (k0 + kTile <= kv_stop && (!causal || k0 + kTile - 1 <= q_offset + w0))\n",
+        "      if (bh == 0 && blockIdx.y == 10 && it == 1) {\n"
+        "      } else if (k0 + kTile <= kv_stop && (!causal || k0 + kTile - 1 <= q_offset + w0))\n"),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(_SKIPPED_TILE))
 def test_tile_check_rejects_a_skipped_tile(cuda, monkeypatch, tmp_path, name):
-    """A copy of the backward source whose bf16 K2 or K3 skips one tile of
-    one long walk, built into its own library, fails the tile-wise check at
-    the 1 x 30 s shape.  Prints both checks' readings."""
-    old, new = _SKIPPED_TILE[name]
-    src = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
+    """A copy of the kernel sources whose bf16 K1, K2, K3 or K4 leaves one
+    tile of one walk out, built into its own library, fails the tile-wise
+    check.  Prints every check's reading."""
+    source, lib, shape, pad, old, new = _SKIPPED_TILE[name]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)  # the sources and the header they include
+    src = (csrc / source).read_text()
     assert src.count(old) == 1
-    (tmp_path / "flash_attention_bwd.cu").write_text(src.replace(old, new))
-    args = _bwd_inputs((1, 16, 2623, 64), 12, True, torch.bfloat16)  # K1 from the package's library
+    (csrc / source).write_text(src.replace(old, new))
+    args = _bwd_inputs(shape, pad, True, torch.bfloat16)  # K1 from the package's library
+    q, k, v, _, _, _, start, end = args
     kw = dict(scale=0.125, causal=True)
-    ref = pfa.flash_dqkv_plain(*args, **kw)
-    ref = ref[:1] if name == "flash_attention_dq" else ref[1:]
-    broken = cuda_build.library("flash_attention_bwd", tmp_path)
-    monkeypatch.setattr(cuda_build, "library", lambda lib: broken)
-    got = getattr(pfa, name)(*args, **kw)
-    got = got if isinstance(got, tuple) else (got,)
+    if name == "flash_attention_fwd":
+        ref_out, ref_lse = pfa.flash_attention_plain(q, k, v, start, end, **kw)
+        ref = (ref_out,)
+    else:
+        ref = pfa.flash_dqkv_plain(*args, **kw)
+        ref = ref[:1] if name == "flash_attention_dq" else ref[1:] if name == "flash_attention_dkv" else ref
+    broken = cuda_build.library(lib, csrc)
+    monkeypatch.setattr(cuda_build, "library", lambda _: broken)
+    note = ""
+    if name == "flash_attention_fwd":
+        out, lse = pfa.flash_attention_fwd(q, k, v, start, end, **kw)
+        got = (out,)
+        note = f", max_abs_err_lse {(lse - ref_lse).abs().max().item()} (tol 1e-3)"
+    else:
+        got = getattr(pfa, name)(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
     max_err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
-    max_tol = 2.0**-7 * max(1.0, max(r.float().abs().max().item() for r in ref))
+    max_tol = 2e-2 if name == "flash_attention_fwd" else 2.0**-7 * max(
+        1.0, max(r.float().abs().max().item() for r in ref))
     tile_err = max(_tile_rel_err(g, r) for g, r in zip(got, ref))
     print(f"{name} with a skipped tile: max_abs_err {max_err} (tol {max_tol}), "
-          f"max_tile_rel_err {tile_err} (tol {TILE_TOL[torch.bfloat16]})")
+          f"max_tile_rel_err {tile_err} (tol {TILE_TOL[torch.bfloat16]}){note}")
     assert tile_err > TILE_TOL[torch.bfloat16]
