@@ -36,7 +36,20 @@ Phases, in order; any failure exits non-zero before the result line:
    on one batch of 3 x 10 s (fused T = 903) launching K1 and K4 24 times per
    step, an eval step, one step under torch.profiler, then 2 steps at 1 x
    30 s (fused T = 2623) launching K2 and K3 24 times per step.  Losses must
-   be finite and the last of the 5 below the first.
+   be finite and the last of the 5 below the first;
+6. codec encode: the DAC encode side at Mini's codec (fp32) over 8 waveforms
+   of 2-10 s through ``tokenize_audio_batches``: frame counts, and one 1 s
+   clip's codes against the CPU's (differences only at near-ties, counted);
+7. training CLI: ``run_training.main`` at full Mini width on
+   ``synthetic://48``, 4 steps with checkpoints, rotation and an eval (loss
+   and generation passes), then a second ``main`` that resumes from
+   ``checkpoint-4-epoch-0`` (trainable parameters bit for bit) and runs
+   steps 5 and 6; K1 and K4 24 times per train step, and held against
+   their plain versions on the tensors of their first call at each of the
+   run's shapes (train step, eval loss batch, generation prefill);
+8. ``ParlerTTSPipeline.from_pretrained`` over the CLI's ``final/`` artifact:
+   one ``tts`` call with finite audio, and the artifact's tensors those of
+   the last checkpoint.  The CLI's temporary output directory is deleted.
 
 Output: a JSON line per phase, then the kernels line, then ``nvidia-smi``'s
 ``name, power.limit``, then the result line
@@ -47,11 +60,14 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,6 +101,10 @@ BWD_TILE = 64
 # relative, each gradient relative to its largest element (sums in another
 # order, K4's dq by atomics)
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-4}
+# DAC codes, card against CPU: the CPU's score of the card's code may fall
+# below its best by this much (scores of unit vectors lie in [-1, 3]; the
+# latents of the two devices differ by fp32 rounding), a near-tie
+CODE_TIE_TOL = 1e-4
 BWD_OPS_PER_PAIR = {"flash_attention_dq": 6, "flash_attention_dkv": 8, "flash_attention_dqkv": 10}  # x D
 BWD_OUTPUTS = {"flash_attention_dq": 1, "flash_attention_dkv": 2, "flash_attention_dqkv": 3}
 REPLACES = {
@@ -243,6 +263,8 @@ def check_kernels(fa) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [((4, 16, t, 64), pad, True, "main path") for t, pad in ((17, 5), (65, 20), (257, 70))]
+    # the training CLI's eval generation prefill: 2 rows (the eval batch), prompts left-padded to 16, + BOS
+    cases += [((2, 16, 17, 64), 10, True, "main path CLI eval generation")]
     cases += [((1, 2, 40, 32), 5, True, "odd shape"), ((2, 2, 300, 64), 0, False, "odd shape")]
     worst = 0.0
     per_shape = []
@@ -291,6 +313,23 @@ def tile_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return (err[norm > 0] / norm[norm > 0]).max().item() if bool((norm > 0).any()) else 0.0
 
 
+def check_bwd(name: str, got, ref, dtype, meta: dict) -> float:
+    """A backward kernel's gradients against its plain version's on the same
+    inputs: ``BWD_TOL`` relative to the largest |gradient| (at least 1), and
+    ``BWD_TILE_TOL`` tile by tile.  Emits a ``bwd_check`` line; returns the
+    max abs error."""
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    scale = max(1.0, max(r.float().abs().max().item() for r in ref))
+    tile_err = max(tile_rel_err(g, r) for g, r in zip(got, ref))
+    ok = math.isfinite(err) and err <= BWD_TOL[dtype] * scale and tile_err <= BWD_TILE_TOL[dtype]
+    emit({"phase": "bwd_check", "kernel": name, **meta, "dtype": str(dtype).removeprefix("torch."),
+          "max_abs_err": err, "tol": BWD_TOL[dtype] * scale, "max_tile_rel_err": tile_err,
+          "tile_tol": BWD_TILE_TOL[dtype], "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at {meta} {dtype}")
+    return err
+
+
 BWD_NAMES = ("flash_attention_dq", "flash_attention_dkv", "flash_attention_dqkv")
 # the training shape whose path launches each backward kernel: its row heads the kernels line
 MAIN_SHAPE = {"flash_attention_dq": "main path 30 s", "flash_attention_dkv": "main path 30 s",
@@ -300,7 +339,8 @@ MAIN_SHAPE = {"flash_attention_dq": "main path 30 s", "flash_attention_dkv": "ma
 def check_backward(fa) -> dict:
     """Phase 2, backward: K1, then K2, K3 and K4 against their plain
     versions at the training shapes (BH = 3*16, T = 903; BH = 16, T = 2623;
-    causal, one left-padded row), the CPU tests' odd shapes and a Tq < Tk
+    causal, one left-padded row), the training CLI's (BH = 3*16, T = 91,
+    prompts left-padded as its batches are), the CPU tests' odd shapes and a Tq < Tk
     case with ``q_offset`` > 0 (one batch row with no valid pair), in bf16
     and fp32;
     the two routes against each other; then, in bf16, the times of K4 at the
@@ -314,6 +354,7 @@ def check_backward(fa) -> dict:
     # Tq < Tk case pads batch row 0 past every query row's causal limit (no valid pair)
     cases = [((3, 16, 903, 64), 903, 0, (20,), True, "main path 10 s"),
              ((1, 16, 2623, 64), 2623, 0, (12,), True, "main path 30 s"),
+             ((3, 16, 91, 64), 91, 0, (10, 4, 0), True, "main path CLI"),
              ((1, 2, 40, 32), 40, 0, (5,), True, "odd shape"), ((2, 2, 300, 64), 300, 0, (0,), False, "odd shape"),
              ((3, 2, 200, 64), 456, 200, (420, 37, 0), True, "odd shape, Tq < Tk")]
     # each path's kernels, and at 10 s also the split route it was not given
@@ -345,16 +386,9 @@ def check_backward(fa) -> dict:
             torch.cuda.synchronize()
             refs = {"flash_attention_dq": ref[:1], "flash_attention_dkv": ref[1:], "flash_attention_dqkv": ref}
             for name in BWD_NAMES:
-                err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got[name], refs[name]))
-                scale = max(1.0, max(r.float().abs().max().item() for r in refs[name]))
-                tile_err = max(tile_rel_err(g, r) for g, r in zip(got[name], refs[name]))
-                ok = math.isfinite(err) and err <= BWD_TOL[dtype] * scale and tile_err <= BWD_TILE_TOL[dtype]
-                emit({"phase": "bwd_check", "kernel": name, "shape": [b, h, t, d], "tk": tk, "q_offset": q_offset,
-                      "pads": list(pads), "causal": causal, "dtype": str(dtype).removeprefix("torch."),
-                      "kind": kind, "max_abs_err": err, "tol": BWD_TOL[dtype] * scale,
-                      "max_tile_rel_err": tile_err, "tile_tol": BWD_TILE_TOL[dtype], "ok": ok})
-                if not ok:
-                    raise AssertionError(f"{name} disagrees with its plain version at {(b, h, t, d)} {dtype}")
+                err = check_bwd(name, got[name], refs[name], dtype,
+                                {"shape": [b, h, t, d], "tk": tk, "q_offset": q_offset, "pads": list(pads),
+                                 "causal": causal, "kind": kind})
                 if kind.startswith("main") and dtype == torch.bfloat16:
                     result[name]["max_abs_err"] = max(result[name]["max_abs_err"], err)
             if kind not in timed or dtype != torch.bfloat16:
@@ -722,6 +756,212 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
     return out
 
 
+def run_codec_encode(cfg_mod, codec_mod, data_mod, card: str) -> None:
+    """Phase 6: the DAC encode side at Mini's codec (random weights from
+    seed 0, fp32): 8 seeded waveforms of 2-10 s through
+    ``tokenize_audio_batches(batch_size=4)``, once to warm up and once timed;
+    each sample must get ``ceil(len / hop)`` frames of every codebook.  Then
+    one 1 s clip's codes on the card against the CPU's: a code may differ
+    only at a near-tie, where the CPU's score of the card's code is within
+    ``CODE_TIE_TOL`` of its best (``ResidualVQ.code_gaps``)."""
+    from parler_tts_tpu_torch.models.dac import pad_audio
+
+    cfg = cfg_mod.mini_600m_config().audio_encoder
+    with torch.device("cuda"):
+        codec = codec_mod.build(cfg)
+    codec.reset_parameters(torch.Generator(device="cuda").manual_seed(SEED))
+    sr, hop = cfg.sampling_rate, cfg.hop_length
+    rng = np.random.default_rng(SEED)
+    waves = []
+    for n in rng.integers(2 * sr, 10 * sr + 1, 8):
+        t = np.arange(n) / sr
+        waves.append((0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * t)
+                      + 0.05 * rng.standard_normal(n)).astype(np.float32))
+    data_mod.tokenize_audio_batches(codec, cfg, waves, batch_size=4)  # warm-up (cuDNN's choices)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    codes = data_mod.tokenize_audio_batches(codec, cfg, waves, batch_size=4)
+    wall = time.perf_counter() - t0
+    shapes_ok = all(c.shape == (cfg.num_codebooks, -(-len(w) // hop)) and c.dtype == np.int16
+                    for c, w in zip(codes, waves))
+    clip = torch.from_numpy(waves[0][:sr])[None]
+    cpu_codec = copy.deepcopy(codec).cpu()
+    with torch.no_grad():
+        card_codes = codec.encode(clip.cuda()).cpu()
+        cpu_codes = cpu_codec.encode(clip)
+        z = cpu_codec.encoder(pad_audio(clip, hop)[:, None]).transpose(1, 2)
+        gaps = cpu_codec.quantizer.code_gaps(z, card_codes)
+    differ = card_codes != cpu_codes
+    worst_gap = gaps.max().item()
+    ok = shapes_ok and worst_gap <= CODE_TIE_TOL
+    audio_s = sum(len(w) for w in waves) / sr
+    emit({"phase": "codec_encode", "config": "mini_600m_config DAC fp32, random weights (seed 0)", "card": card,
+          "waveforms": len(waves), "audio_s": audio_s, "batch_size": 4, "ms": 1e3 * wall,
+          "audio_s_per_wall_s": audio_s / wall, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "frames": [int(c.shape[1]) for c in codes], "shapes_ok": shapes_ok,
+          "clip_codes": list(card_codes.shape), "codes_differing_from_cpu": int(differ.sum()),
+          "frames_with_a_tie": int(differ.any(dim=1).sum()), "max_score_gap": worst_gap,
+          "tie_tol": CODE_TIE_TOL, "ok": ok})
+    if not ok:
+        raise AssertionError("the DAC encode side gives wrong shapes or codes that are not the CPU's")
+
+
+def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -> dict:
+    """Phase 7: ``run_training.main`` at full Mini width (the default model,
+    random weights from the default seed, bf16 compute) on ``synthetic://48``:
+    4 optimizer steps of batch 3 with a checkpoint every 2 (one kept), an
+    eval at step 4 (loss pass over 3 samples, generation of up to 100
+    positions), then a second ``main`` to step 6 that must resume from
+    ``checkpoint-4-epoch-0`` with its trainable parameters bit for bit and
+    log steps 5 and 6 only.  Each train step must launch K1 and K4 once per
+    layer.  The first call of K1 and of K4 at each shape, in the train steps
+    and in the eval (loss batches, generation prefill), keeps its inputs and
+    outputs, which are then held against the plain versions (no launch).
+    Returns the launches of both runs and the largest error of each kernel
+    so held."""
+    argv = ["--train_dataset_name", "synthetic://48", "--per_device_train_batch_size", "3", "--save_steps", "2",
+            "--save_total_limit", "1", "--logging_steps", "1", "--do_eval", "--eval_steps", "4",
+            "--max_eval_samples", "3", "--generation_max_length", "100", "--warmup_steps", "1",
+            "--output_dir", out_dir]
+    layers = cfg_mod.mini_600m_config().decoder.num_hidden_layers
+    per_step, restored, loaded = [], [], {}
+    make_train_step, load_train_state = step_mod.make_train_step, ck.load_train_state
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd, "flash_attention_dqkv": fa.flash_attention_dqkv}
+    captured, where = {}, ["eval"]
+
+    def kernel_spy(name):
+        def call(*args, **kw):
+            result = wrappers[name](*args, **kw)
+            key = (where[0], name, tuple(tuple(a.shape) for a in args[:3]), args[0].dtype)
+            if key not in captured:
+                captured[key] = ([a.detach().clone() for a in args], kw, [r.detach().clone() for r in result])
+            return result
+        return call
+
+    def load_spy(path):
+        payload, meta = load_train_state(path)
+        loaded.update(path=path, params=payload["params"])
+        return payload, meta
+
+    def make_spy(*args, **kwargs):
+        inner = make_train_step(*args, **kwargs)
+
+        def step(state, batch, timings=None):
+            if "params" in loaded:  # the first step after the resume
+                params = loaded.pop("params")
+                own = ck.trainable_state_dict(state.model)
+                restored.append({"path": os.path.basename(loaded["path"]), "step": state.step,
+                                 "tensors": len(params), "bit_exact": set(own) == set(params) and all(
+                                     torch.equal(own[k].cpu(), params[k]) for k in params)})
+            before = counts(fa)
+            where[0] = "train step"
+            try:
+                metrics = inner(state, batch, timings)
+            finally:
+                where[0] = "eval"
+            after = counts(fa)
+            per_step.append({k: after[k] - before[k] for k in after})
+            return metrics
+        return step
+
+    step_mod.make_train_step, ck.load_train_state = make_spy, load_spy
+    for name in wrappers:
+        setattr(fa, name, kernel_spy(name))
+    reset_counts(fa)
+    try:
+        first = run_mod.main(argv + ["--max_steps", "4"], device="cuda")
+        ckpts_first = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
+        launches_first = counts(fa)
+        second = run_mod.main(argv + ["--max_steps", "6"], device="cuda")
+    finally:
+        step_mod.make_train_step, ck.load_train_state = make_train_step, load_train_state
+        for name, wrapper in wrappers.items():
+            setattr(fa, name, wrapper)
+    launches = counts(fa)
+    errs = {name: 0.0 for name in wrappers}
+    for (place, name, shapes, dtype), (args, kw, result) in captured.items():
+        meta = {"kind": f"main path CLI {place}", "shape": list(shapes[0]), "tk": shapes[1][1], **kw,
+                "kv_starts": sorted(set(args[-2].tolist())), "kv_ends": sorted(set(args[-1].tolist()))}
+        if name == "flash_attention_fwd":
+            err = check_k1(fa, *args, *result, kw, meta)
+        else:
+            err = check_bwd(name, result, fa.flash_dqkv_plain(*args, **kw), dtype, meta)
+        errs[name] = max(errs[name], err)
+    held = sorted({(place, name, shapes[0]) for place, name, shapes, _ in captured})
+    records = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+    train = [r for r in records if "train/loss" in r]
+    evals = [r for r in records if "eval/loss" in r]
+    losses = [r["train/loss"] for r in train]
+    want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                 "flash_attention_dqkv": layers}
+    # K1 also runs in each eval loss batch and each eval generation prefill (2 + 2 of them)
+    want_first = {"flash_attention_fwd": layers * (4 + 2 + 2), "flash_attention_dqkv": layers * 4}
+    ckpts = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
+    t1, t2 = first["timings"], second["timings"]
+    summary = {
+        "config": "mini_600m_config, fp32 parameters, bf16 compute, random weights (seed 42)", "card": card,
+        "steps_logged": [r["step"] for r in train], "losses": losses,
+        "grad_norms": [r["train/grad_norm"] for r in train],
+        "eval": {k: v for k, v in evals[0].items() if k.startswith("eval/")} if evals else None,
+        "step_ms": t1["step_ms"] + t2["step_ms"], "save": t1["save"] + t2["save"], "load": t2["load"],
+        "eval_ms": t1["eval"], "artifact": [t1["artifact"], t2["artifact"]],
+        "checkpoints_after_first": ckpts_first, "checkpoints_after_second": ckpts, "restored": restored,
+        "launches_per_step": per_step, "launches_first_run": launches_first, "launches": launches,
+        "held_against_plain": held, "max_abs_err": errs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit({"phase": "train_cli", **summary})
+    ok = (all(math.isfinite(x) for x in losses) and summary["steps_logged"] == [1, 2, 3, 4, 5, 6]
+          and all(s == want_step for s in per_step) and len(per_step) == 6
+          and all(launches_first[k] == v for k, v in want_first.items())
+          and evals and "eval/gen_code_len_mean" in evals[0] and math.isfinite(evals[0]["eval/loss"])
+          and ckpts_first == ["checkpoint-4-epoch-0"] and ckpts == ["checkpoint-6-epoch-0"]
+          and restored == [{"path": "checkpoint-4-epoch-0", "step": 4, "tensors": restored[0]["tensors"],
+                            "bit_exact": True}]
+          and first["steps"] == 4 and second["steps"] == 6
+          # K1 and K4 of the train steps, K1 of the eval loss batches and of the generation prefill
+          and {(place, name) for place, name, _ in held} == {("train step", "flash_attention_fwd"), (
+              "train step", "flash_attention_dqkv"), ("eval", "flash_attention_fwd")}
+          and len({shape for place, _, shape in held if place == "eval"}) >= 2)
+    if not ok:
+        raise AssertionError("the training CLI's run on the card is not as it should be (see the train_cli line)")
+    return launches, errs
+
+
+def run_from_pretrained(cfg_mod, pipeline_mod, tokenizer_mod, ck, out_dir: str, card: str) -> None:
+    """Phase 8: ``ParlerTTSPipeline.from_pretrained`` over the CLI's
+    ``final/`` (bf16, the toy tokenizer), one ``tts`` call of 4 requests at
+    ``max_seconds=2.5`` (special-id LM-head columns zeroed and top-k 50, as
+    in phase 4, so that the six-step model decodes full length): finite
+    audio.  The
+    artifact's fp32 tensors must equal ``checkpoint-6``'s trainable tensors
+    bit for bit."""
+    final = os.path.join(out_dir, "final")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = tokenizer_mod.ToyTokenizer(vocab_size=cfg_mod.ParlerTTSConfig.load(os.path.join(final, "config.json")).vocab_size)
+    pipe = pipeline_mod.ParlerTTSPipeline.from_pretrained(final, tokenizer=tok, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    zero_special_heads(pipe.model)
+    pipe.gen = dataclasses.replace(pipe.gen, top_k=50)  # phase 4's sampler
+    t0 = time.perf_counter()
+    sr, wavs = pipe.tts(DESCRIPTIONS, _prompts(10), seed=SEED, max_seconds=2.5)
+    wall = time.perf_counter() - t0
+    finite = all(w.size > 0 and bool(np.isfinite(w).all()) for w in wavs)
+    weights = torch.load(os.path.join(final, ck.WEIGHTS_FILE), map_location="cpu", weights_only=True)
+    saved = torch.load(os.path.join(out_dir, "checkpoint-6-epoch-0", ck.STATE_FILE), map_location="cpu",
+                       weights_only=True)["params"]
+    equal = all(weights[k].dtype == torch.float32 and torch.equal(weights[k], v) for k, v in saved.items())
+    emit({"phase": "from_pretrained", "card": card, "load_ms": load_ms, "artifact_gb": sum(
+        os.path.getsize(os.path.join(final, f)) for f in os.listdir(final)) / 1e9, "tts_wall_s": wall,
+        "samples": [int(w.size) for w in wavs], "sampling_rate": sr, "finite": finite,
+        "trainable_tensors": len(saved), "artifact_tensors": len(weights), "equal_to_checkpoint_6": equal,
+        "ok": finite and equal})
+    if not (finite and equal):
+        raise AssertionError("from_pretrained's model does not speak, or the artifact is not checkpoint-6's")
+
+
 def time_phases(model, pipe, prompts, max_seconds) -> dict:
     """One more tts call with each phase synchronised and host-timed: T5
     encode, decoder prefill, each decode step, DAC vocode."""
@@ -777,9 +1017,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from parler_tts_tpu_torch import pipeline as pipeline_mod
+    from parler_tts_tpu_torch.core import checkpoint as ck
     from parler_tts_tpu_torch.core import config as cfg_mod
     from parler_tts_tpu_torch.core import from_jax
     from parler_tts_tpu_torch.generation import generate as generate_mod
+    from parler_tts_tpu_torch.models import codec as codec_mod
     from parler_tts_tpu_torch.models import parler
     from parler_tts_tpu_torch.ops import cuda_build
     from parler_tts_tpu_torch.ops import flash_attention as fa
@@ -815,16 +1057,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card)
     train_launches = train["launches"]
+    del train
+    torch.cuda.empty_cache()
+    run_codec_encode(cfg_mod, codec_mod, data_mod, card)
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="parler_train_cli_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cli_launches, cli_errs = run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_from_pretrained(cfg_mod, pipeline_mod, tokenizer_mod, ck, out_dir, card)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
 
     head = next(r for r in k1["per_shape"] if r["shape"][2] == 257)
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "parler_tts_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": REPLACES["flash_attention_fwd"],
-        "launches": tts_launches["flash_attention_fwd"] + train_launches["flash_attention_fwd"],
+        "launches": sum(p["flash_attention_fwd"] for p in (tts_launches, train_launches, cli_launches)),
         "launches_by_path": {"tts": tts_launches["flash_attention_fwd"],
-                             "train": train_launches["flash_attention_fwd"]},
-        "max_abs_err": k1["max_abs_err"],
+                             "train": train_launches["flash_attention_fwd"],
+                             "train_cli": cli_launches["flash_attention_fwd"]},
+        "max_abs_err": max(k1["max_abs_err"], cli_errs["flash_attention_fwd"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": head["shape"], "per_shape": k1["per_shape"] + bwd["flash_attention_fwd"]["per_shape"],
@@ -833,9 +1089,10 @@ def main() -> int:
         row = next(r for r in bwd[name]["per_shape"] if r["path"])
         kernels.append({
             "name": name, "route": "cuda", "source": "parler_tts_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": REPLACES[name], "launches": train_launches[name],
-            "launches_by_path": {"tts": tts_launches[name], "train": train_launches[name]},
-            "max_abs_err": bwd[name]["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "replaces": REPLACES[name], "launches": train_launches[name] + cli_launches[name],
+            "launches_by_path": {"tts": tts_launches[name], "train": train_launches[name],
+                                 "train_cli": cli_launches[name]},
+            "max_abs_err": max(bwd[name]["max_abs_err"], cli_errs.get(name, 0.0)), "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": row["library_call"], "shape": row["shape"], "per_shape": bwd[name]["per_shape"],
         })

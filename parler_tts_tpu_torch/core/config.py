@@ -87,7 +87,7 @@ def _codec_from_dict(d: dict) -> DACConfig:
     if d.get("codec_type") == "encodec":
         raise NotImplementedError(
             "the EnCodec codec family is not ported yet (ROADMAP.md queue 1, "
-            "'Codec encode side + EnCodec'); only DAC configs load in parler_tts_tpu_torch"
+            "'EnCodec'); only DAC configs load in parler_tts_tpu_torch"
         )
     return DACConfig.from_dict(d)
 

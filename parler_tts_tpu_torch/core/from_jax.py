@@ -7,11 +7,10 @@ tree's keys, so most leaves copy as they are.  The layout changes:
 
 * decoder layers are stacked on a leading ``L`` axis in the tree and are
   separate ``layers.{i}`` modules here;
-* codec conv kernels are WIO and become torch ``Conv1d`` weights, and the
-  ``conv_up`` kernels, stored time-flipped and in/out-swapped, become
-  ``ConvTranspose1d`` weights (``ops/conv.py`` holds both converters);
-* the codec's encode side (``encoder``, ``quantizer.in_proj``) is not ported
-  and is skipped.
+* codec conv kernels (encoder and decoder) are WIO and become torch
+  ``Conv1d`` weights, and the ``conv_up`` kernels, stored time-flipped and
+  in/out-swapped, become ``ConvTranspose1d`` weights (``ops/conv.py`` holds
+  both converters).
 
 Every other leaf must match a parameter, and every parameter a leaf.
 
@@ -58,9 +57,7 @@ def _decoder_entries(tree) -> Iterator[Entry]:
 
 def _dac_entries(tree) -> Iterator[Entry]:
     for path, t in _flatten(tree):
-        if path[0] == "encoder" or path[:2] == ("quantizer", "in_proj"):
-            continue
-        if path[0] == "decoder" and path[-1] == "kernel":
+        if path[0] in ("encoder", "decoder") and path[-1] == "kernel":
             if path[-2] == "conv_up":
                 t = conv_ops.torch_conv_transpose1d_weight(t)
             else:

@@ -1,11 +1,17 @@
-"""Descript Audio Codec, decode side (codes -> waveform).
+"""Descript Audio Codec: encode (waveform -> codes) and decode (codes ->
+waveform).
 
-Port of ``parler_tts_tpu/models/dac.py``: the residual vector quantizer's
-``from_codes`` and the transposed-conv Snake stack that upsamples 86 Hz
-latents by ``prod(upsampling_ratios)`` to the waveform, final tanh in fp32.
-The convolutions are ``nn.Conv1d`` / ``nn.ConvTranspose1d`` on NCW
-activations.  At bf16 the Snake activation is the polynomial ``snake_fast``;
-at fp32 it is the exact one.  The encode side waits for a later slice.
+Port of ``parler_tts_tpu/models/dac.py``.  Decode: the residual vector
+quantizer's ``from_codes`` and the transposed-conv Snake stack that
+upsamples 86 Hz latents by ``prod(upsampling_ratios)`` to the waveform,
+final tanh in fp32.  Encode, for the training data's offline audio
+tokenization: the strided Snake/conv stack that downsamples the waveform by
+the hop (``prod(downsampling_ratios)``, 512 at 44.1 kHz) to latents, then
+the residual nearest-codebook walk (``ResidualVQ.encode``) in fp32.  The
+convolutions are ``nn.Conv1d`` / ``nn.ConvTranspose1d`` on NCW activations;
+these and the quantizer's small matmuls are XLA ops in the JAX package, not
+Pallas kernels.  At bf16 the Snake activation is the polynomial
+``snake_fast``; at fp32 it is the exact one.
 """
 
 from __future__ import annotations
@@ -77,6 +83,43 @@ class ResUnit(nn.Module):
         return x + self.conv2(self.snake2(self.conv1(self.snake1(x))))
 
 
+class EncoderBlock(nn.Module):
+    """Three residual units at ``dim // 2``, Snake, then the strided
+    ``conv_down`` to ``dim`` channels."""
+
+    def __init__(self, dim: int, stride: int):
+        super().__init__()
+        self.res1, self.res2, self.res3 = (ResUnit(dim // 2, d) for d in _DILATIONS)
+        self.snake = Snake(dim // 2)
+        self.conv_down = nn.Conv1d(dim // 2, dim, 2 * stride, stride=stride, padding=math.ceil(stride / 2))
+
+    def forward(self, x):
+        return self.conv_down(self.snake(self.res3(self.res2(self.res1(x)))))
+
+
+class DACEncoder(nn.Module):
+    """(B, 1, T) waveform -> (B, latent_dim, T / hop) latents; widths double
+    from ``encoder_hidden_size`` at each block."""
+
+    def __init__(self, cfg: DACConfig):
+        super().__init__()
+        d = cfg.encoder_hidden_size
+        self.conv_in = nn.Conv1d(1, d, 7, padding=3)
+        blocks = []
+        for stride in cfg.downsampling_ratios:
+            d *= 2
+            blocks.append(EncoderBlock(d, stride))
+        self.blocks = nn.ModuleList(blocks)
+        self.snake_out = Snake(d)
+        self.conv_out = nn.Conv1d(d, cfg.latent_dim, 3, padding=1)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(audio)
+        for block in self.blocks:
+            x = block(x)
+        return self.conv_out(self.snake_out(x))
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, dim: int, stride: int):
         super().__init__()
@@ -114,7 +157,8 @@ class DACDecoder(nn.Module):
 
 
 class ResidualVQ(nn.Module):
-    """Decode side of the residual vector quantizer."""
+    """The residual vector quantizer: factorised ``codebook_dim``-wide
+    codebooks with per-codebook in and out projections."""
 
     def __init__(self, cfg: DACConfig):
         super().__init__()
@@ -123,6 +167,45 @@ class ResidualVQ(nn.Module):
         self.out_proj = nn.Module()
         self.out_proj.kernel = nn.Parameter(torch.empty(k, d, l))
         self.out_proj.bias = nn.Parameter(torch.zeros(k, l))
+        self.in_proj = nn.Module()
+        self.in_proj.kernel = nn.Parameter(torch.empty(k, l, d))
+        self.in_proj.bias = nn.Parameter(torch.zeros(k, d))
+
+    def _walk(self, z: torch.Tensor, n: int, forced: torch.Tensor | None):
+        """The residual walk over the first ``n`` codebooks in fp32: yields
+        each codebook's scores (B, T, N) and the code taken, its argmax or,
+        given ``forced`` (B, K, T), that code."""
+        residual = z.float()
+        for k in range(n):
+            latents = residual @ self.in_proj.kernel[k].float() + self.in_proj.bias[k].float()
+            enc = latents / latents.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            cb = self.codebooks[k].float()
+            cbn = cb / cb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            # the JAX function's 2 e.c - |e|^2 + |c|^2; |c|^2 is 1 for every
+            # normalised code, so the argmax is the nearest code
+            scores = (2.0 * torch.einsum("btd,nd->btn", enc, cbn) - enc.square().sum(-1, keepdim=True)
+                      + cbn.square().sum(-1))
+            idx = scores.argmax(dim=-1) if forced is None else forced[:, k].long()
+            yield scores, idx
+            residual = residual - (cb[idx] @ self.out_proj.kernel[k].float() + self.out_proj.bias[k].float())
+
+    @torch.no_grad()
+    def encode(self, z: torch.Tensor, n_quantizers: int | None = None) -> torch.Tensor:
+        """(B, T, latent_dim) latents -> (B, K, T) int32 codes by the
+        residual nearest-neighbour walk over L2-normalised codes."""
+        n = n_quantizers or self.codebooks.shape[0]
+        return torch.stack([idx for _, idx in self._walk(z, n, None)], dim=1).to(torch.int32)
+
+    @torch.no_grad()
+    def code_gaps(self, z: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+        """For codes computed elsewhere (another device, another package):
+        walk ``z`` taking those codes and return, per (B, K, T), how far each
+        code's score falls below the best score there, 0 where it is the
+        argmax.  Codes that differ at a near-tie have a gap at the level of
+        the latents' rounding."""
+        gaps = [scores.amax(-1) - scores.gather(-1, idx[..., None])[..., 0]
+                for scores, idx in self._walk(z, codes.shape[1], codes)]
+        return torch.stack(gaps, dim=1)
 
     def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """(B, K, T) codes -> (B, T, latent_dim) fp32 summed latents: gather
@@ -134,15 +217,35 @@ class ResidualVQ(nn.Module):
         return z + self.out_proj.bias.float().sum(dim=0)
 
 
+def pad_audio(audio: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """Right-pad (..., T) waveforms with zeros to a multiple of the hop."""
+    pad = (-audio.shape[-1]) % hop_length
+    return torch.nn.functional.pad(audio, (0, pad)) if pad else audio
+
+
+def _encode_side(name: str) -> bool:
+    return name.startswith(("encoder.", "quantizer.in_proj."))
+
+
 class DAC(nn.Module):
-    """Codes -> waveform.  Parameter names follow the JAX tree
-    (``quantizer.*``, ``decoder.*``)."""
+    """Waveform <-> codes.  Parameter names follow the JAX tree
+    (``quantizer.*``, ``decoder.*``, ``encoder.*``)."""
 
     def __init__(self, cfg: DACConfig):
         super().__init__()
         self.cfg = cfg
         self.quantizer = ResidualVQ(cfg)
         self.decoder = DACDecoder(cfg)
+        self.encoder = DACEncoder(cfg)
+
+    @torch.no_grad()
+    def encode(self, audio: torch.Tensor, n_quantizers: int | None = None) -> torch.Tensor:
+        """(B, T) waveform -> (B, K, ceil(T / hop)) int32 codes: right-padded
+        to a multiple of the hop, the conv stack in the module's dtype, the
+        quantizer walk in fp32."""
+        x = pad_audio(audio, self.cfg.hop_length).to(self.encoder.conv_in.weight.dtype)
+        z = self.encoder(x[:, None])
+        return self.quantizer.encode(z.transpose(1, 2), n_quantizers)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """(B, K, T86) codes -> (B, T86 * hop) fp32 waveform; the convs run
@@ -153,9 +256,11 @@ class DAC(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Conv kernels 0.02 * truncnormal(-2, 2), zero biases, unit Snake
-        alphas, codebooks normal(0, 0.02), as the JAX ``init``."""
-        for name, p in self.named_parameters():
+        """Conv kernels and projections 0.02 * truncnormal(-2, 2), zero
+        biases, unit Snake alphas, codebooks normal(0, 0.02), as the JAX
+        ``init``.  The encode side draws last, so the decode side's weights
+        are those of a codec without it."""
+        for name, p in sorted(self.named_parameters(), key=lambda item: _encode_side(item[0])):
             if name.endswith("alpha"):
                 p.fill_(1.0)
             elif name.endswith("bias"):

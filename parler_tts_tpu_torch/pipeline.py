@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from parler_tts_tpu_torch.core import checkpoint as ck
 from parler_tts_tpu_torch.core.config import GenerationConfig, ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
 from parler_tts_tpu_torch.generation.generate import generate
@@ -32,7 +33,8 @@ def _bucket(n: int, sizes=(16, 32, 64, 128, 256)) -> int:
 class ParlerTTSPipeline:
     """``model`` is moved to ``device`` and cast to ``dtype`` in place.
     ``pcm16=True`` returns int16 waveforms, the truncating cast a WAV body
-    holds, instead of float32 in [-1, 1]."""
+    holds, instead of float32 in [-1, 1].  ``from_pretrained`` builds one from
+    a model artifact directory."""
 
     model: ParlerTTSModel
     cfg: ParlerTTSConfig
@@ -46,6 +48,16 @@ class ParlerTTSPipeline:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.model = self.model.to(device=self.device, dtype=self.dtype)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, *, tokenizer: Any = None, dtype: torch.dtype = torch.bfloat16,
+                        pcm16: bool = False, device: str | torch.device = "cuda") -> "ParlerTTSPipeline":
+        """Load a model artifact that ``core/checkpoint.save_model`` wrote
+        (the training CLI's ``final/``), cast to ``dtype`` on ``device``.
+        ``tokenizer`` (an object with the HF call shape) serves descriptions
+        and prompts: the port reads no tokenizer from the artifact."""
+        model, cfg, gen = ck.load_model(model_dir, device=device, dtype=dtype)
+        return cls(model, cfg, gen, tokenizer, tokenizer, dtype=dtype, pcm16=pcm16, device=device)
 
     def tts(self, description: str | list[str], prompt: str | list[str], *, seed: int = 0,
             max_seconds: float | None = None) -> tuple[int, list[np.ndarray]]:

@@ -1,20 +1,133 @@
-"""Label construction and static-shape batching for training.
+"""Training data: dataset specs, offline audio tokenization, the codes
+cache, labels and static-shape batching.
 
-The port's own copy of ``build_labels``, ``Collator`` and ``batches`` from
-``parler_tts_tpu/training/data.py`` (plain numpy): left-padded prompts,
-right-padded descriptions, delay-pattern labels padded with -100.  Dataset
-loading and offline codec tokenization are not ported yet.
+The port's own copy of ``parse_dataset_spec``, ``tokenize_audio_batches``,
+``CodesCache``, ``build_labels``, ``Collator`` and ``batches`` from
+``parler_tts_tpu/training/data.py``: left-padded prompts, right-padded
+descriptions, delay-pattern labels padded with -100; waveforms padded to a
+multiple of the hop, ``ceil(len / hop)`` frames of int16 codes per sample;
+the cache's part files have the JAX names and keys, so each package reads
+the other's.  Loading HF datasets (``load_multiple_datasets``) waits for
+ROADMAP.md queue 1 ("HF dataset loading").
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
 import numpy as np
 import torch
 
+from parler_tts_tpu_torch.core.config import DACConfig
+from parler_tts_tpu_torch.models import codec as codec_mod
+from parler_tts_tpu_torch.models.dac import DAC
 from parler_tts_tpu_torch.models.delay_pattern import build_delay_pattern_labels
+
+
+@dataclass
+class DatasetSpec:
+    """One entry of a `+`-separated multi-dataset string."""
+
+    name: str
+    config: str | None = None
+    split: str = "train"
+    metadata_name: str | None = None
+    samples: int | None = None
+
+
+def parse_dataset_spec(names: str, configs: str | None = None, splits: str | None = None,
+                       metadata_names: str | None = None, samples_counts: str | None = None) -> list[DatasetSpec]:
+    """Split the `+`-separated fields and zip them; a single value applies
+    to every dataset, other lengths must match."""
+
+    def split_plus(s: str | None) -> list[str | None]:
+        if not s:
+            return []
+        return [x if x else None for x in s.split("+")]
+
+    name_list = split_plus(names)
+    n = len(name_list)
+
+    def norm(s, default=None):
+        vals = split_plus(s)
+        if not vals:
+            return [default] * n
+        if len(vals) == 1:
+            return vals * n
+        if len(vals) != n:
+            raise ValueError(f"spec length mismatch: {s!r} vs {names!r}")
+        return vals
+
+    return [
+        DatasetSpec(name=nm, config=cf, split=sp or "train", metadata_name=md, samples=int(sc) if sc else None)
+        for nm, cf, sp, md, sc in zip(name_list, norm(configs), norm(splits, "train"), norm(metadata_names),
+                                      norm(samples_counts))
+    ]
+
+
+@torch.no_grad()
+def tokenize_audio_batches(codec: DAC, dac_cfg: DACConfig, audio_arrays: Sequence[np.ndarray], *,
+                           batch_size: int = 8, pad_to_seconds: float | None = None) -> list[np.ndarray]:
+    """Encode waveforms to codec codes with the frozen ``codec`` on its
+    device, ``batch_size`` at a time, each batch zero-padded to its longest
+    waveform (or to ``pad_to_seconds``) rounded up to a multiple of the hop.
+    Returns per-sample ``(K, ceil(len / hop))`` int16 codes."""
+    hop = dac_cfg.hop_length
+    device = next(codec.parameters()).device
+    out: list[np.ndarray] = []
+    for i in range(0, len(audio_arrays), batch_size):
+        chunk = [np.asarray(a, np.float32) for a in audio_arrays[i : i + batch_size]]
+        lens = [len(a) for a in chunk]
+        pad_len = int(pad_to_seconds * dac_cfg.sampling_rate) if pad_to_seconds is not None else max(lens)
+        pad_len = ((pad_len + hop - 1) // hop) * hop
+        batch = np.zeros((len(chunk), pad_len), np.float32)
+        for j, a in enumerate(chunk):
+            batch[j, : len(a)] = a[:pad_len]
+        codes = codec_mod.encode(codec, torch.from_numpy(batch).to(device)).cpu().numpy()
+        for j, ln in enumerate(lens):
+            t = min((ln + hop - 1) // hop, codes.shape[-1])
+            out.append(codes[j, :, :t].astype(np.int16))
+    return out
+
+
+class CodesCache:
+    """On-disk cache of codec codes keyed by global raw row index, appended
+    in ``.npz`` part files ``{split}_codes/h{i}of{n}_part{k:06d}.npz`` with
+    keys ``i{row}`` (int16), as the JAX package writes them.  Every part on
+    disk is read, whichever process wrote it."""
+
+    def __init__(self, root: str, *, split: str, process_index: int = 0, process_count: int = 1):
+        self.dir = os.path.join(root, f"{split}_codes")
+        os.makedirs(self.dir, exist_ok=True)
+        self.prefix = f"h{process_index}of{process_count}"
+        self._known: dict[int, np.ndarray] = {}
+        self._part = 0
+        for f in sorted(os.listdir(self.dir)):
+            if not f.endswith(".npz"):
+                continue
+            if f.startswith(self.prefix + "_part"):
+                self._part += 1
+            with np.load(os.path.join(self.dir, f)) as z:
+                for k in z.files:
+                    self._known[int(k[1:])] = z[k]
+        self._new: dict[int, np.ndarray] = {}
+
+    def get(self, idx: int) -> np.ndarray | None:
+        return self._known.get(idx)
+
+    def put(self, idx: int, codes: np.ndarray) -> None:
+        self._new[idx] = codes.astype(np.int16)
+
+    def flush(self) -> None:
+        if not self._new:
+            return
+        path = os.path.join(self.dir, f"{self.prefix}_part{self._part:06d}.npz")
+        np.savez(path, **{f"i{k}": v for k, v in self._new.items()})
+        self._known.update(self._new)
+        self._new = {}
+        self._part += 1
 
 
 def build_labels(codes_list: Sequence[np.ndarray], *, bos_token_id: int, eos_token_id: int,

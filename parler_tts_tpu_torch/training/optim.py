@@ -117,6 +117,23 @@ class Optimizer:
         self.count += 1
         return True
 
+    def state_dict(self) -> dict:
+        """AdamW's ``state_dict`` (keyed by the index in ``params``), the
+        update count, the accumulation position and, mid-accumulation, the
+        running mean of the grads."""
+        return {"adamw": self._adamw.state_dict(), "count": self.count, "mini_step": self.mini_step,
+                "acc": None if self._acc is None else list(self._acc)}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` over the same ``params`` (in the same
+        order); tensors move to the parameters' devices."""
+        acc = state["acc"]
+        if acc is not None and [a.shape for a in acc] != [p.shape for p in self.params]:
+            raise ValueError("the accumulation buffer does not match the parameters")
+        self._adamw.load_state_dict(state["adamw"])
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        self._acc = None if acc is None else [a.to(p.device, p.dtype) for a, p in zip(acc, self.params)]
+
 
 def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float = 9.5e-4, *,
                    schedule: str = "constant_with_warmup", warmup_steps: int = 20000,

@@ -1,12 +1,58 @@
-"""Training data preparation.  Of ``parler_tts_tpu/training/run_training.py``
-only the synthetic dataset is ported; the CLI, dataset loading, checkpoints
-and evaluation come later."""
+"""The training CLI, single-process, on one card.
+
+Port of ``parler_tts_tpu/training/run_training.py``::
+
+    python -m parler_tts_tpu_torch.training.run_training recipe.json
+    python -m parler_tts_tpu_torch.training.run_training --train_dataset_name synthetic://256 ...
+
+``main(argv, device="cuda")`` runs the JAX ``main``'s stages: arguments (one
+JSON recipe or flags, ``training/args.py``); the model (a port artifact
+directory, else ``dummy_config()`` for ``"dummy"``, else
+``mini_600m_config()``, random weights from ``seed``); data
+(``synthetic://N`` samples, with the ``save_to_disk`` cache keyed by a
+fingerprint of the arguments that change them); the optimizer with its
+``total_steps``; resume from the newest checkpoint (parameters, optimizer
+state, the step that seeds dropout, the batch cursor inside the epoch); the
+memory plan (``training/autotune.py``); the epoch and step loop, where
+saving, evaluating, logging and ``max_steps`` count optimizer steps under
+gradient accumulation; the eval loss pass and the eval generation pass
+(``generate`` with ``vocode=True``, then WER/CLAP and the logged
+predictions); the final artifact under ``output_dir/final``.
+
+``device`` is a keyword for callers (the tests pass ``"cpu"``), not a flag,
+so that the argument dataclasses stay the JAX package's.  What waits, and
+raises: HF datasets (``prepare_hf``, ROADMAP.md queue 1 "HF dataset
+loading"), ``model_parallel_size > 1`` (queue 1 item 8), ``push_to_hub``
+(the card's machine has no network).
+"""
 
 from __future__ import annotations
 
-import numpy as np
+import copy
+import dataclasses
+import hashlib
+import json
+import math
+import os
+import sys
+import time
 
-from parler_tts_tpu_torch.training.data import build_labels
+import numpy as np
+import torch
+
+from parler_tts_tpu_torch.core import checkpoint as ck
+from parler_tts_tpu_torch.core.config import GenerationConfig, dummy_config, mini_600m_config
+from parler_tts_tpu_torch.core.device import resolve_device
+from parler_tts_tpu_torch.generation.generate import generate
+from parler_tts_tpu_torch.models import parler
+from parler_tts_tpu_torch.training import step as tstep
+from parler_tts_tpu_torch.training.args import parse_args
+from parler_tts_tpu_torch.training.autotune import resolve_train_plan
+from parler_tts_tpu_torch.training.data import Collator, batches, build_labels
+from parler_tts_tpu_torch.training.eval_metrics import ClapMetric, WerMetric
+from parler_tts_tpu_torch.training.logging_utils import MetricLogger
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def prepare_synthetic(n: int, cfg, *, seed: int = 0, desc_len: int = 24, prompt_len: int = 16,
@@ -31,3 +77,309 @@ def prepare_synthetic(n: int, cfg, *, seed: int = 0, desc_len: int = 24, prompt_
             "description_text": f"synthetic description {i}",
         })
     return samples
+
+
+def _prepare_fingerprint(data_args, model_args, cfg) -> str:
+    """Hash of every argument that changes the prepared samples (dataset
+    specs, columns, filters, tokenizers, length caps, the codec config): the
+    JAX function's payload and hash, so both name a cache file alike."""
+    data = dataclasses.asdict(data_args)
+    for k in ("save_to_disk", "temporary_save_to_disk", "preprocessing_only",
+              "preprocessing_num_workers", "audio_encoder_batch_size"):
+        data.pop(k, None)
+    payload = {
+        "data": data,
+        "tokenizers": [model_args.description_tokenizer_name, model_args.prompt_tokenizer_name,
+                       model_args.model_name_or_path],
+        "audio_encoder": dataclasses.asdict(cfg.audio_encoder),
+        "num_codebooks": cfg.decoder.num_codebooks,
+    }
+    blob = json.dumps(payload, sort_keys=True, default=str).encode()
+    return hashlib.sha256(blob).hexdigest()[:12]
+
+
+def _load_or_prepare(data_args, model_args, cfg, *, split: str, make=None) -> list[dict]:
+    """The prepared samples of ``split``: loaded from
+    ``save_to_disk/{split}_prepared_{fingerprint}.npy`` when it exists, else
+    made by ``make()`` and saved there (when ``save_to_disk`` is set).
+    Without ``make`` the samples would come from HF datasets, which waits
+    for ROADMAP.md queue 1 ("HF dataset loading")."""
+    cache = None
+    if data_args.save_to_disk:
+        os.makedirs(data_args.save_to_disk, exist_ok=True)
+        fp = _prepare_fingerprint(data_args, model_args, cfg)
+        cache = os.path.join(data_args.save_to_disk, f"{split}_prepared_{fp}.npy")
+        if os.path.exists(cache):
+            samples = list(np.load(cache, allow_pickle=True))
+            print(f"[data] loaded {len(samples)} prepared samples from {cache}")
+            return samples
+    if make is None:
+        raise NotImplementedError(
+            "HF dataset loading (prepare_hf, load_multiple_datasets) is not ported: it needs `datasets` and "
+            "a T5 tokenizer (ROADMAP.md queue 1, 'HF dataset loading'); use train_dataset_name synthetic://N")
+    samples = make()
+    if cache:
+        np.save(cache, np.asarray(samples, dtype=object), allow_pickle=True)
+        print(f"[data] saved {len(samples)} prepared samples to {cache}")
+    return samples
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs) / 1e9
+
+
+def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") -> dict:
+    """Train as the arguments say; returns ``steps`` (optimizer steps done),
+    ``output_dir`` and ``timings`` (synchronised ms of each optimizer step,
+    of each checkpoint save with its GB, of the resume load, of each eval's
+    loss and generation passes, and of the final artifact with its GB)."""
+    model_args, data_args, train_args = parse_args(argv)
+    device = resolve_device(device)
+    if train_args.model_parallel_size > 1:
+        raise NotImplementedError("model_parallel_size > 1: multi-process placement is ROADMAP.md queue 1 item 8")
+    if train_args.push_to_hub:
+        raise NotImplementedError("push_to_hub: the port does not push to the hub (no network on the card's machine)")
+    if train_args.scan_unroll != "auto":
+        print(f"[plan] scan_unroll={train_args.scan_unroll} ignored: an XLA knob, the port's layers are a loop")
+    np.random.seed(train_args.seed)
+    timings: dict = {"step_ms": [], "save": [], "load": None, "eval": [], "artifact": None}
+
+    # ----- model -----
+    gen_cfg = GenerationConfig()
+    if model_args.model_name_or_path and os.path.isdir(model_args.model_name_or_path):
+        model, cfg, gen_cfg = ck.load_model(model_args.model_name_or_path, device=device)
+    else:
+        cfg = dummy_config() if model_args.model_name_or_path == "dummy" else mini_600m_config()
+        model = parler.init(train_args.seed, cfg, device=device)
+
+    # ----- data -----
+    # a dataset other than synthetic://N loads only from a save_to_disk cache
+    # (which the JAX package may have written); preparing it raises
+    synthetic = data_args.train_dataset_name.startswith("synthetic://")
+    if synthetic:
+        n = int(data_args.train_dataset_name.split("://", 1)[1])
+        samples = _load_or_prepare(data_args, model_args, cfg, split="train",
+                                   make=lambda: prepare_synthetic(n, cfg, seed=train_args.seed))
+    else:
+        samples = _load_or_prepare(data_args, model_args, cfg, split="train")
+    if data_args.max_train_samples:
+        samples = samples[: data_args.max_train_samples]
+    eval_samples: list[dict] = []
+    if train_args.do_eval:
+        if synthetic:
+            n_eval = data_args.max_eval_samples or 16
+            eval_samples = _load_or_prepare(data_args, model_args, cfg, split="eval",
+                                            make=lambda: prepare_synthetic(n_eval, cfg, seed=train_args.seed + 1))
+        elif data_args.eval_dataset_name:
+            eval_samples = _load_or_prepare(data_args, model_args, cfg, split="eval")
+        else:
+            eval_samples = samples[: data_args.max_eval_samples or 16]
+        if data_args.max_eval_samples:
+            eval_samples = eval_samples[: data_args.max_eval_samples]
+    if data_args.preprocessing_only:
+        print(f"preprocessing_only: prepared {len(samples)} samples")
+        return {"samples": len(samples)}
+
+    all_samples = samples + eval_samples
+    label_len = max(s["labels"].shape[1] for s in all_samples)
+    desc_len = max(len(s["input_ids"]) for s in all_samples)
+    prompt_len = max(len(s["prompt_input_ids"]) for s in all_samples)
+    if data_args.pad_to_max_length:
+        label_len = (int(data_args.max_duration_in_seconds * cfg.audio_encoder.frame_rate)
+                     + cfg.decoder.num_codebooks + 2)
+        if data_args.max_description_token_length:
+            desc_len = data_args.max_description_token_length
+        if data_args.max_prompt_token_length:
+            prompt_len = data_args.max_prompt_token_length
+    collator = Collator(description_pad_id=0, prompt_pad_id=0, max_description_len=desc_len,
+                        max_prompt_len=prompt_len, label_len=label_len)
+
+    # ----- optimizer and state -----
+    accum = max(1, train_args.gradient_accumulation_steps)
+    per_step = train_args.per_device_train_batch_size
+    micro_per_epoch = len(samples) // per_step
+    steps_per_epoch = micro_per_epoch // accum
+    total_steps = (train_args.max_steps if train_args.max_steps > 0
+                   else int(train_args.num_train_epochs * max(1, steps_per_epoch)))
+    opt_kwargs = dict(learning_rate=train_args.learning_rate, schedule=train_args.lr_scheduler_type,
+                      warmup_steps=train_args.warmup_steps, total_steps=total_steps, b1=train_args.adam_beta1,
+                      b2=train_args.adam_beta2, eps=train_args.adam_epsilon, weight_decay=train_args.weight_decay,
+                      max_grad_norm=train_args.max_grad_norm,
+                      grad_accum_steps=train_args.gradient_accumulation_steps)
+    state = tstep.create_state(model, **opt_kwargs)
+
+    # ----- resume: optimizer steps done, epoch, micro-batches of that epoch done -----
+    start_epoch, done_steps, skip_micro = 0, 0, 0
+    resume = train_args.resume_from_checkpoint or ck.latest_checkpoint(train_args.output_dir)
+    if resume and os.path.isdir(resume):
+        t0 = time.perf_counter()
+        payload, meta = ck.load_train_state(resume)
+        ck.restore_params(model, payload["params"])
+        try:
+            state.optimizer.load_state_dict(payload["opt_state"])
+        except (KeyError, ValueError, RuntimeError) as e:
+            print(f"[resume] optimizer state not restored ({e!r}); parameters restored, optimizer state "
+                  f"reinitialised", file=sys.stderr)
+            state = tstep.create_state(model, **opt_kwargs)
+        _sync(device)
+        timings["load"] = {"ms": 1e3 * (time.perf_counter() - t0), "gb": _gb(resume)}
+        done_steps = int(meta.get("step", 0))
+        start_epoch = int(meta.get("epoch", 0))
+        skip_micro = int(meta.get("micro_in_epoch", 0))
+        state.step = done_steps * accum  # seeds dropout as a straight run would
+        del payload
+        print(f"resumed from {resume} at optimizer step {done_steps}, epoch {start_epoch}, "
+              f"skipping {skip_micro} micro-batches")
+
+    dtype = DTYPES[train_args.dtype]
+    remat = resolve_train_plan(cfg, per_device_batch=per_step, fused_len=prompt_len + label_len,
+                               gradient_checkpointing=train_args.gradient_checkpointing,
+                               gradient_checkpointing_policy=train_args.gradient_checkpointing_policy,
+                               device=device)
+    print(f"[plan] remat={remat} (batch {per_step} x fused {prompt_len + label_len})")
+    train_step = tstep.make_train_step(cfg, dtype=dtype, dropout_seed=train_args.seed, remat=remat)
+    eval_step = tstep.make_eval_step(cfg, dtype=dtype)
+    logger = MetricLogger(train_args.output_dir, report_to=train_args.report_to,
+                          config={"total_steps": total_steps, "per_step_batch": per_step})
+
+    # ----- eval -----
+    per_eval = max(1, train_args.per_device_eval_batch_size)
+    egen = dataclasses.replace(gen_cfg, max_length=train_args.generation_max_length or gen_cfg.max_length,
+                               decoder_start_token_id=cfg.decoder.bos_token_id,
+                               pad_token_id=cfg.decoder.pad_token_id, bos_token_id=cfg.decoder.bos_token_id,
+                               eos_token_id=cfg.decoder.eos_token_id)
+    metric_hooks: list = []
+
+    def pad_eval_batch(ebatch: dict, n: int) -> dict:
+        """Pad a partial eval batch to ``n`` rows that repeat real rows with
+        all-(-100) labels: they add nothing to the loss sum or the count."""
+        b = next(iter(ebatch.values())).shape[0]
+        if b >= n:
+            return ebatch
+        reps = np.arange(n - b) % b
+        return {k: np.concatenate([v, np.full_like(v[reps], -100) if k == "labels" else v[reps]], axis=0)
+                for k, v in ebatch.items()}
+
+    def run_eval_generation(opt_step: int, emetrics: dict) -> None:
+        """Generation over the eval split in chunks of the eval batch, in the
+        compute dtype; code lengths, WER/CLAP, and up to 100 predictions."""
+        gen_model = model if dtype == torch.float32 else copy.deepcopy(model).to(dtype)
+        gsize = min(per_eval, len(eval_samples))
+        code_lens: list[float] = []
+        all_audio: list[np.ndarray] = []
+        all_texts: list = []
+        all_descs: list = []
+        for ci in range(0, len(eval_samples), gsize):
+            chunk = eval_samples[ci : ci + gsize]
+            nvalid = len(chunk)
+            gbatch = collator(chunk + [chunk[-1]] * (gsize - nvalid))
+            out = generate(gen_model, egen, input_ids=gbatch["input_ids"], attention_mask=gbatch["attention_mask"],
+                           prompt_input_ids=gbatch["prompt_input_ids"],
+                           prompt_attention_mask=gbatch["prompt_attention_mask"],
+                           generator=torch.Generator(device=device).manual_seed(opt_step * 100003 + ci),
+                           vocode=True, device=device)
+            code_lens.extend(out.code_lengths.cpu()[:nvalid].tolist())
+            audio, alen = out.audio.float().cpu().numpy(), out.audio_lengths.cpu().numpy()
+            all_audio.extend(audio[i, : int(alen[i])] for i in range(nvalid))
+            all_texts.extend(s.get("prompt_text") for s in chunk)
+            all_descs.extend(s.get("description_text") for s in chunk)
+        del gen_model
+        emetrics["gen_code_len_mean"] = float(np.mean(code_lens))
+        if all_audio and all(t is not None for t in all_texts):
+            if not metric_hooks:
+                metric_hooks.extend([WerMetric(model_args.asr_model_name_or_path),
+                                     ClapMetric(model_args.clap_model_name_or_path)])
+            sr = cfg.audio_encoder.sampling_rate
+            emetrics.update(metric_hooks[0](all_texts, all_audio, sr))
+            if all(d is not None for d in all_descs):
+                emetrics.update(metric_hooks[1](all_descs, all_audio, sr))
+        logger.log_predictions(step=opt_step, prompts=all_texts[:100], descriptions=all_descs[:100],
+                               audio=all_audio[:100], sampling_rate=cfg.audio_encoder.sampling_rate)
+
+    def run_eval(opt_step: int) -> None:
+        t0 = time.perf_counter()
+        losses = []
+        for lo in range(0, len(eval_samples), per_eval):
+            ebatch = pad_eval_batch(collator(eval_samples[lo : lo + per_eval]), per_eval)
+            losses.append(float(eval_step(model, ebatch)["loss"]))
+        emetrics = {"loss": float(np.mean(losses))} if losses else {}
+        t1 = time.perf_counter()
+        if train_args.generation_max_length and eval_samples:
+            run_eval_generation(opt_step, emetrics)
+        _sync(device)
+        timings["eval"].append({"step": opt_step, "loss_ms": 1e3 * (t1 - t0),
+                                "generation_ms": 1e3 * (time.perf_counter() - t1)})
+        if emetrics:
+            logger.log(emetrics, step=opt_step, prefix="eval")
+
+    # ----- loop: save, eval, log and max_steps count optimizer steps -----
+    micro = 0
+    opt_step = done_steps
+    t_start = time.time()
+    stop = False
+    if train_args.max_steps > 0:
+        remaining = max(1, train_args.max_steps - done_steps)
+        first_epoch_steps = max(0, steps_per_epoch - skip_micro // accum)
+        extra_epochs = math.ceil(max(0, remaining - first_epoch_steps) / max(1, steps_per_epoch))
+        last_epoch = start_epoch + 1 + extra_epochs
+    else:
+        last_epoch = math.ceil(train_args.num_train_epochs)
+    for epoch in range(start_epoch, last_epoch):
+        epoch_iter = batches(samples, collator, per_step, seed=train_args.seed + epoch,
+                             group_by_length=train_args.group_by_length)
+        micro_in_epoch = 0
+        if epoch == start_epoch and skip_micro:
+            # the same seed replays the epoch's order; skip what was consumed
+            for _ in range(skip_micro):
+                if next(epoch_iter, None) is None:
+                    break
+                micro_in_epoch += 1
+        t_step = time.perf_counter()
+        for batch in epoch_iter:
+            metrics = train_step(state, batch)
+            micro += 1
+            micro_in_epoch += 1
+            if micro % accum:
+                continue
+            opt_step += 1
+            _sync(device)
+            timings["step_ms"].append(1e3 * (time.perf_counter() - t_step))
+            if opt_step % train_args.logging_steps == 0:
+                logger.log({"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+                            "steps_per_sec": (opt_step - done_steps) / max(1e-9, time.time() - t_start)},
+                           step=opt_step)
+            if train_args.save_steps and opt_step % train_args.save_steps == 0:
+                path = os.path.join(train_args.output_dir, ck.checkpoint_name(opt_step, epoch))
+                t0 = time.perf_counter()
+                ck.save_train_state(path, params=ck.trainable_state_dict(model),
+                                    opt_state=state.optimizer.state_dict(), step=opt_step, epoch=epoch,
+                                    extra={"micro_in_epoch": micro_in_epoch})
+                timings["save"].append({"step": opt_step, "ms": 1e3 * (time.perf_counter() - t0),
+                                        "gb": _gb(path)})
+                ck.rotate_checkpoints(train_args.output_dir, train_args.save_total_limit)
+            if train_args.do_eval and train_args.eval_steps and opt_step % train_args.eval_steps == 0:
+                run_eval(opt_step)
+            if train_args.max_steps > 0 and opt_step >= train_args.max_steps:
+                stop = True
+                break
+            t_step = time.perf_counter()
+        if stop:
+            break
+
+    # ----- final artifact -----
+    final_dir = os.path.join(train_args.output_dir, "final")
+    t0 = time.perf_counter()
+    ck.save_model(final_dir, model, cfg, gen_cfg)
+    timings["artifact"] = {"ms": 1e3 * (time.perf_counter() - t0), "gb": _gb(final_dir)}
+    logger.log({"final_step": opt_step, "wall_s": time.time() - t_start}, step=opt_step)
+    logger.close()
+    return {"steps": opt_step, "output_dir": train_args.output_dir, "timings": timings}
+
+
+if __name__ == "__main__":
+    main()
