@@ -21,15 +21,27 @@ Phases, in order; any failure exits non-zero before the result line:
    one PyTorch call computing the same function (timed as a yardstick only,
    never called by the port);
 3. reference: a small config (``dummy_config``) at fp32 on the card (kernel
-   path) and on the CPU (plain path): greedy generation must give the same
-   tokens and waveforms, and one training step the same loss, gradient norm
-   and gradients;
+   path) and on the CPU (plain path): greedy generation (composite,
+   decoder-only continuation, int8 KV cache and weights, and a stream whose
+   codes must also be ``generate``'s) must give the same tokens and
+   waveforms, and one training step the same loss, gradient norm and
+   gradients.  Phases 2-3 run with TF32 off; every later phase runs under
+   the defaults a user gets (the DAC pins its own fp32 convolutions);
 4. inference path: ``ParlerTTSPipeline.tts`` at full Parler-TTS Mini v0.1
    width (random weights from a seed, bf16), three calls of four requests
    whose prompt buckets give prefill lengths 17, 65 and 257; each call must
    launch K1 once per decoder layer.  Then one more call with each phase
    synchronised and timed, and a short call under torch.profiler for the
-   device's busy time;
+   device's busy time.  On the same model, each path with the counts set
+   to 0 just before it and read just after, K1 once per layer per prefill
+   and held against its plain version on each prefill's own tensors:
+   decoder-only continuation of two DAC-encoded 2 s waveforms and composite
+   ``generate(input_values=...)`` (batch 2, CFG 3.0); the int8 KV cache and
+   int8 weights beside bf16 (decode ms/step, KV bytes, first-step logits);
+   ``stream_generate`` (batch 4, 2.5 s, chunks of 86, lookback 48: codes
+   equal ``generate``'s, each fp32 chunk a one-shot vocode of the frames so
+   far); ``BatchingEngine`` (warmup, a burst of 6 requests from threads,
+   each batch replayed as a direct ``tts``);
 5. training path: ``make_train_step`` on Mini at full width and depth, fp32
    parameters with bf16 compute, the Mini recipe (AdamW lr 9.5e-4, beta
    (0.9, 0.99), wd 0.01, clip 1.0, dropout 0.1, one warmup update): 5 steps
@@ -39,7 +51,8 @@ Phases, in order; any failure exits non-zero before the result line:
    be finite and the last of the 5 below the first;
 6. codec encode: the DAC encode side at Mini's codec (fp32) over 8 waveforms
    of 2-10 s through ``tokenize_audio_batches``: frame counts, and one 1 s
-   clip's codes against the CPU's (differences only at near-ties, counted);
+   clip's codes against the CPU's (differences only at near-ties, counted;
+   also counted, not gated, for the conv stack outside the fp32 pin);
 7. training CLI: ``run_training.main`` at full Mini width on
    ``synthetic://48``, 4 steps with checkpoints, rotation and an eval (loss
    and generation passes), then a second ``main`` that resumes from
@@ -58,6 +71,7 @@ Output: a JSON line per phase, then the kernels line, then ``nvidia-smi``'s
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -136,6 +150,19 @@ def _prompts(n_words: int) -> list[str]:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """TF32 off for fp32 matmuls and cuDNN convolutions inside the block
+    (the fp32 comparisons of phases 2-3); the flags are restored after it, so
+    the later phases run as a user's program does."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def nvidia_smi() -> str:
@@ -462,14 +489,21 @@ def check_routes(fa) -> None:
             raise AssertionError(f"the backward's fused and split routes disagree in {dtype}")
 
 
-def check_reference(cfg_mod, parler, generate_mod) -> None:
+def check_reference(cfg_mod, parler, generate_mod, streaming_mod) -> None:
     """Phase 3: dummy_config (4-layer 512-wide decoder, head dim 64, the full
-    DAC) greedy at fp32: the card (kernel path) against the CPU (plain path)."""
+    DAC) greedy at fp32, the card (kernel path) against the CPU (plain
+    path): composite generation, decoder-only continuation of 5 frames of
+    codes, the int8 KV cache with int8 weights, and a stream (chunks of 8
+    frames, lookback 48) whose codes must also be the card's ``generate``'s.
+    The same tokens, and waveforms within 1e-3."""
+    from parler_tts_tpu_torch.models.delay_pattern import undelay_pattern
+
     cfg = cfg_mod.dummy_config()
     cpu_model = parler.init(SEED, cfg, device="cpu")
     zero_special_heads(cpu_model)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     gen = cfg_mod.GenerationConfig(max_length=30, do_sample=False)
+    int8 = dataclasses.replace(gen, kv_cache_dtype="int8", int8_weights=True)
     rng = torch.Generator().manual_seed(SEED)
     batch = dict(
         input_ids=torch.randint(3, 1000, (2, 11), generator=rng),
@@ -477,16 +511,38 @@ def check_reference(cfg_mod, parler, generate_mod) -> None:
         prompt_input_ids=torch.randint(3, 1000, (2, 9), generator=rng),
         prompt_attention_mask=torch.tensor([[0] * 3 + [1] * 6, [1] * 9]),
     )
-    ref = generate_mod.generate(cpu_model, gen, device="cpu", **batch)
-    out = generate_mod.generate(gpu_model, gen, device="cuda", **batch)
-    same_tokens = bool((out.tokens.cpu() == ref.tokens).all())
-    audio_err = (out.audio.cpu() - ref.audio).abs().max().item()
-    ok = same_tokens and audio_err <= 1e-3 and bool(torch.isfinite(out.audio).all())
-    emit({"phase": "reference", "config": "dummy_config fp32", "same_tokens": same_tokens,
-          "code_lengths": out.code_lengths.tolist(), "max_abs_err_audio": audio_err, "tol_audio": 1e-3,
-          "ok": ok})
+    codes = torch.randint(0, cfg.audio_encoder.codebook_size, (2, cfg.decoder.num_codebooks, 5), generator=rng)
+    cases = {
+        "composite": lambda model, device: generate_mod.generate(model, gen, device=device, **batch),
+        "decoder_only": lambda model, device: generate_mod.generate_decoder_only(
+            model, gen, decoder_input_codes=codes, device=device),
+        "int8 kv and weights": lambda model, device: generate_mod.generate(model, int8, device=device, **batch),
+    }
+    for case, run in cases.items():
+        ref, out = run(cpu_model, "cpu"), run(gpu_model, "cuda")
+        same_tokens = bool((out.tokens.cpu() == ref.tokens).all())
+        audio_err = (out.audio.cpu() - ref.audio).abs().max().item()
+        ok = same_tokens and audio_err <= 1e-3 and bool(torch.isfinite(out.audio).all())
+        emit({"phase": "reference", "case": case, "config": "dummy_config fp32", "same_tokens": same_tokens,
+              "code_lengths": out.code_lengths.tolist(), "max_abs_err_audio": audio_err, "tol_audio": 1e-3,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"the card and the CPU disagree on the small config ({case})")
+    streams = {device: list(streaming_mod.stream_generate(model, gen, chunk_frames=8, device=device, **batch))
+               for device, model in (("cpu", cpu_model), ("cuda", gpu_model))}
+    s_codes = {d: np.concatenate([c.codes for c in chunks], axis=2) for d, chunks in streams.items()}
+    s_audio = {d: np.concatenate([c.audio for c in chunks], axis=1) for d, chunks in streams.items()}
+    offline = undelay_pattern(generate_mod.generate(gpu_model, gen, vocode=False, device="cuda", **batch).tokens[
+        :, :, 1:]).cpu().numpy()[:, :, : s_codes["cuda"].shape[2]]
+    same = bool(np.array_equal(s_codes["cuda"], s_codes["cpu"]))
+    as_generate = bool(np.array_equal(s_codes["cuda"], offline))
+    audio_err = float(np.abs(s_audio["cuda"] - s_audio["cpu"]).max())
+    ok = same and as_generate and audio_err <= 1e-3 and len(streams["cuda"]) == len(streams["cpu"]) > 1
+    emit({"phase": "reference", "case": "stream", "config": "dummy_config fp32", "chunks": len(streams["cuda"]),
+          "same_codes": same, "codes_equal_generate": as_generate, "max_abs_err_audio": audio_err,
+          "tol_audio": 1e-3, "ok": ok})
     if not ok:
-        raise AssertionError("the card and the CPU disagree on the small config")
+        raise AssertionError("the card's stream is not the CPU's, or not generate's")
 
 
 def check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax) -> None:
@@ -549,9 +605,10 @@ def zero_special_heads(model) -> None:
         model.decoder.lm_heads.kernel[..., model.cfg.audio_encoder.codebook_size:] = 0
 
 
-def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str) -> int:
+def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
     """Phase 4: tts at full Mini width.  Returns the kernel launches of the
-    counted calls."""
+    counted calls, the model and its pipeline (the later inference phases
+    run them)."""
     cfg = cfg_mod.mini_600m_config()
     model = parler.init(SEED, cfg, device="cuda", dtype=torch.bfloat16)
     zero_special_heads(model)
@@ -600,7 +657,7 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str) -
     # a short call: the profiler's event processing costs seconds per 100k kernels
     emit({"phase": "profile", "card": card, "max_seconds": 0.5,
           **profile_call(lambda: pipe.tts(DESCRIPTIONS, _prompts(50), seed=SEED, max_seconds=0.5))})
-    return launches
+    return launches, model, pipe
 
 
 def profile_call(fn) -> dict:
@@ -763,7 +820,10 @@ def run_codec_encode(cfg_mod, codec_mod, data_mod, card: str) -> None:
     each sample must get ``ceil(len / hop)`` frames of every codebook.  Then
     one 1 s clip's codes on the card against the CPU's: a code may differ
     only at a near-tie, where the CPU's score of the card's code is within
-    ``CODE_TIE_TOL`` of its best (``ResidualVQ.code_gaps``)."""
+    ``CODE_TIE_TOL`` of its best (``ResidualVQ.code_gaps``).  The same clip
+    through the conv stack outside ``DAC.encode``'s fp32 pin, under the
+    run's default flags (cuDNN's TF32 on), is counted the same way and
+    reported, not gated."""
     from parler_tts_tpu_torch.models.dac import pad_audio
 
     cfg = cfg_mod.mini_600m_config().audio_encoder
@@ -792,6 +852,9 @@ def run_codec_encode(cfg_mod, codec_mod, data_mod, card: str) -> None:
         cpu_codes = cpu_codec.encode(clip)
         z = cpu_codec.encoder(pad_audio(clip, hop)[:, None]).transpose(1, 2)
         gaps = cpu_codec.quantizer.code_gaps(z, card_codes)
+        # the conv stack as DAC.encode ran it before it pinned fp32: under this run's flags, the defaults
+        unpinned = codec.quantizer.encode(codec.encoder(pad_audio(clip.cuda(), hop)[:, None]).transpose(1, 2)).cpu()
+        unpinned_gaps = cpu_codec.quantizer.code_gaps(z, unpinned)
     differ = card_codes != cpu_codes
     worst_gap = gaps.max().item()
     ok = shapes_ok and worst_gap <= CODE_TIE_TOL
@@ -802,9 +865,56 @@ def run_codec_encode(cfg_mod, codec_mod, data_mod, card: str) -> None:
           "frames": [int(c.shape[1]) for c in codes], "shapes_ok": shapes_ok,
           "clip_codes": list(card_codes.shape), "codes_differing_from_cpu": int(differ.sum()),
           "frames_with_a_tie": int(differ.any(dim=1).sum()), "max_score_gap": worst_gap,
-          "tie_tol": CODE_TIE_TOL, "ok": ok})
+          "tie_tol": CODE_TIE_TOL, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "unpinned_codes_differing_from_cpu": int((unpinned != cpu_codes).sum()),
+          "unpinned_frames_differing": int((unpinned != cpu_codes).any(dim=1).sum()),
+          "unpinned_max_score_gap": unpinned_gaps.max().item(), "ok": ok})
     if not ok:
         raise AssertionError("the DAC encode side gives wrong shapes or codes that are not the CPU's")
+
+
+class KernelSpy:
+    """While active, the first call of each wrapped kernel wrapper (by
+    name, in ``fa``) at each (place, input shapes, dtype) keeps its inputs
+    and outputs; the calls and their launch counts are the wrappers' own.
+    The caller sets ``place`` to name where the calls come from.  ``hold``
+    then checks every kept call against its plain version (no launch)."""
+
+    def __init__(self, fa, names=("flash_attention_fwd",), place: str = ""):
+        self.fa, self.place, self.captured = fa, place, {}
+        self.wrappers = {name: getattr(fa, name) for name in names}
+
+    def __enter__(self) -> "KernelSpy":
+        for name, wrapper in self.wrappers.items():
+            setattr(self.fa, name, self._spy(name, wrapper))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for name, wrapper in self.wrappers.items():
+            setattr(self.fa, name, wrapper)
+
+    def _spy(self, name, wrapper):
+        def call(*args, **kw):
+            result = wrapper(*args, **kw)
+            key = (self.place, name, tuple(tuple(a.shape) for a in args[:3]), args[0].dtype)
+            if key not in self.captured:
+                self.captured[key] = ([a.detach().clone() for a in args], kw, [r.detach().clone() for r in result])
+            return result
+        return call
+
+    def hold(self, kind: str) -> dict[str, float]:
+        """Every kept call against its plain version (``check_k1``,
+        ``check_bwd``); the largest error of each kernel."""
+        errs = {name: 0.0 for name in self.wrappers}
+        for (place, name, shapes, dtype), (args, kw, result) in self.captured.items():
+            meta = {"kind": f"{kind} {place}".strip(), "shape": list(shapes[0]), "tk": shapes[1][1], **kw,
+                    "kv_starts": sorted(set(args[-2].tolist())), "kv_ends": sorted(set(args[-1].tolist()))}
+            if name == "flash_attention_fwd":
+                err = check_k1(self.fa, *args, *result, kw, meta)
+            else:
+                err = check_bwd(name, result, self.fa.flash_dqkv_plain(*args, **kw), dtype, meta)
+            errs[name] = max(errs[name], err)
+        return errs
 
 
 def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -> dict:
@@ -827,17 +937,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
     layers = cfg_mod.mini_600m_config().decoder.num_hidden_layers
     per_step, restored, loaded = [], [], {}
     make_train_step, load_train_state = step_mod.make_train_step, ck.load_train_state
-    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd, "flash_attention_dqkv": fa.flash_attention_dqkv}
-    captured, where = {}, ["eval"]
-
-    def kernel_spy(name):
-        def call(*args, **kw):
-            result = wrappers[name](*args, **kw)
-            key = (where[0], name, tuple(tuple(a.shape) for a in args[:3]), args[0].dtype)
-            if key not in captured:
-                captured[key] = ([a.detach().clone() for a in args], kw, [r.detach().clone() for r in result])
-            return result
-        return call
+    spy = KernelSpy(fa, ("flash_attention_fwd", "flash_attention_dqkv"), place="eval")
 
     def load_spy(path):
         payload, meta = load_train_state(path)
@@ -855,40 +955,29 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
                                  "tensors": len(params), "bit_exact": set(own) == set(params) and all(
                                      torch.equal(own[k].cpu(), params[k]) for k in params)})
             before = counts(fa)
-            where[0] = "train step"
+            spy.place = "train step"
             try:
                 metrics = inner(state, batch, timings)
             finally:
-                where[0] = "eval"
+                spy.place = "eval"
             after = counts(fa)
             per_step.append({k: after[k] - before[k] for k in after})
             return metrics
         return step
 
     step_mod.make_train_step, ck.load_train_state = make_spy, load_spy
-    for name in wrappers:
-        setattr(fa, name, kernel_spy(name))
     reset_counts(fa)
     try:
-        first = run_mod.main(argv + ["--max_steps", "4"], device="cuda")
-        ckpts_first = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
-        launches_first = counts(fa)
-        second = run_mod.main(argv + ["--max_steps", "6"], device="cuda")
+        with spy:
+            first = run_mod.main(argv + ["--max_steps", "4"], device="cuda")
+            ckpts_first = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
+            launches_first = counts(fa)
+            second = run_mod.main(argv + ["--max_steps", "6"], device="cuda")
     finally:
         step_mod.make_train_step, ck.load_train_state = make_train_step, load_train_state
-        for name, wrapper in wrappers.items():
-            setattr(fa, name, wrapper)
     launches = counts(fa)
-    errs = {name: 0.0 for name in wrappers}
-    for (place, name, shapes, dtype), (args, kw, result) in captured.items():
-        meta = {"kind": f"main path CLI {place}", "shape": list(shapes[0]), "tk": shapes[1][1], **kw,
-                "kv_starts": sorted(set(args[-2].tolist())), "kv_ends": sorted(set(args[-1].tolist()))}
-        if name == "flash_attention_fwd":
-            err = check_k1(fa, *args, *result, kw, meta)
-        else:
-            err = check_bwd(name, result, fa.flash_dqkv_plain(*args, **kw), dtype, meta)
-        errs[name] = max(errs[name], err)
-    held = sorted({(place, name, shapes[0]) for place, name, shapes, _ in captured})
+    errs = spy.hold("main path CLI")
+    held = sorted({(place, name, shapes[0]) for place, name, shapes, _ in spy.captured})
     records = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
     train = [r for r in records if "train/loss" in r]
     evals = [r for r in records if "eval/loss" in r]
@@ -962,6 +1051,338 @@ def run_from_pretrained(cfg_mod, pipeline_mod, tokenizer_mod, ck, out_dir: str, 
         raise AssertionError("from_pretrained's model does not speak, or the artifact is not checkpoint-6's")
 
 
+def k1_row(fa, q, k, v, start, end, kw) -> dict:
+    """Device times of K1, its plain version and SDPA with the same mask on
+    one kept call's inputs (BH, T, D), and the bound for the pairs its
+    bounds and causality leave valid."""
+    import torch.nn.functional as F
+
+    bh, t, d = q.shape
+    keys = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    valid = (keys >= start[:, None, None].long()) & (keys < end[:, None, None].long())
+    if kw.get("causal", True):
+        valid = valid & (keys <= torch.arange(t, device=q.device)[None, :, None] + kw.get("q_offset", 0))
+    row = {"shape": [bh, t, d], "ms": graph_ms(lambda: fa.flash_attention_fwd(q, k, v, start, end, **kw)),
+           "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v, start, end, **kw)),
+           "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid,
+                                                                         scale=kw["scale"]))}
+    nbytes = 4 * bh * t * d * q.element_size() + bh * t * 4 + 2 * bh * 4
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * d * int(valid.sum()), H100_BF16_FLOPS)
+    return row
+
+
+def counted(fa, layers: int, fn, *, place: str, calls=1):
+    """``fn()`` with the kernel counts set to 0 just before it and read just
+    after.  K1 must have launched once per layer per prefill (``calls``, or
+    ``calls()`` after ``fn``) and no backward kernel at all.  The first K1
+    call at each shape keeps its tensors, which are then held against the
+    plain version.  Returns (fn's result, K1's launches, the spy, the
+    largest error held)."""
+    spy = KernelSpy(fa, place=place)
+    reset_counts(fa)
+    with spy:
+        result = fn()
+    launched = counts(fa)
+    want = layers * (calls() if callable(calls) else calls)
+    if launched["flash_attention_fwd"] != want or any(launched[name] for name in BWD_NAMES):
+        raise AssertionError(f"{place} launched {launched}, want K1 {want} times and no backward")
+    return result, launched["flash_attention_fwd"], spy, spy.hold("main path")["flash_attention_fwd"]
+
+
+def sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def run_decoder_only(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int, float, dict]:
+    """Mini's DAC (bf16) encodes two seeded 2 s waveforms; then, at batch 2,
+    CFG 3.0 and top-k 50, ``generate_decoder_only`` continues their codes
+    with two embedded prompts as ``prompt_hidden_states`` (their null rows
+    zeroed), and composite ``generate(input_values=...)`` continues the
+    waveforms from two descriptions and prompts.  ``max_length`` holds the
+    audio prompt's frames plus 2.5 s of new audio.  Each call launches K1
+    once per layer; the first K1 call of each prefill is held against its
+    plain version, and the decoder-only one timed.  Returns K1's launches,
+    its largest error held and its time row."""
+    layers, hop, sr = cfg.decoder.num_hidden_layers, cfg.audio_encoder.hop_length, cfg.sampling_rate
+    rng = np.random.default_rng(SEED + 6)
+    t = np.arange(2 * sr) / sr
+    waves = np.stack([0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal(t.size)
+                      for f in (140.0, 220.0)]).astype(np.float32)
+    codes, encode_s = sync_time(lambda: model.audio_encoder.encode(torch.from_numpy(waves).cuda()))
+    frames = codes.shape[2]
+    gen = dataclasses.replace(pipe.gen, guidance_scale=3.0)
+    max_length = frames + pipe.max_length(2.5)
+    ids = pipe.tokenize(DESCRIPTIONS[:2], _prompts(10)[:2])
+    with torch.no_grad():
+        prompt_hidden = model.embed_prompts(torch.from_numpy(ids["prompt_input_ids"]).cuda())
+    runs = {
+        "generate_decoder_only": lambda: generate_mod.generate_decoder_only(
+            model, gen, decoder_input_codes=codes, prompt_hidden_states=prompt_hidden,
+            prompt_attention_mask=ids["prompt_attention_mask"], max_length=max_length,
+            generator=torch.Generator(device="cuda").manual_seed(SEED)),
+        "generate(input_values)": lambda: generate_mod.generate(
+            model, gen, input_values=waves, max_length=max_length,
+            generator=torch.Generator(device="cuda").manual_seed(SEED), **ids),
+    }
+    launches, rows, errs, spies = 0, [], [], {}
+    for name, run in runs.items():
+        (out, wall), launched, spies[name], err = counted(fa, layers, lambda: sync_time(run), place=name)
+        launches, errs = launches + launched, errs + [err]
+        new_s = (out.code_lengths - frames).clamp(min=0).sum().item() * hop / sr
+        ok = (bool((out.codes[:, :, :frames] == codes).all()) and bool(torch.isfinite(out.audio).all())
+              and int(out.code_lengths.min()) > frames)
+        rows.append({"call": name, "batch": 2, "cfg": 3.0, "prompt_frames": frames, "max_length": max_length,
+                     "prefill_T": ids["prompt_input_ids"].shape[1] + 1 + frames, "wall_s": wall,
+                     "new_audio_s": new_s, "code_lengths": out.code_lengths.tolist(), "k1_launches": launched,
+                     "prompt_codes_kept": ok})
+        emit({"phase": "decoder_only", **rows[-1]})
+        if not ok:
+            raise AssertionError(f"{name} lost its audio prompt or gave non-finite audio")
+    (args, kw, _), = spies["generate_decoder_only"].captured.values()
+    k1 = {"kernel": "flash_attention_fwd", "path": "decoder_only prefill", **k1_row(fa, *args, kw)}
+    emit({"phase": "k1_time", **k1})
+    emit({"phase": "decoder_only_summary", "config": "mini_600m_config bf16, random weights (seed 0)", "card": card,
+          "dac_encode_s": encode_s, "audio_prompt_s": waves.shape[1] / sr, "calls": rows,
+          "k1_max_abs_err": max(errs), "k1_launches": launches})
+    return launches, max(errs), k1
+
+
+def run_int8(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int, float]:
+    """The main path's tts config (4 requests, 2.5 s, prompt bucket 64) with
+    ``kv_cache_dtype="int8"`` and ``int8_weights`` beside the bf16 config,
+    in turns (bf16, int8, int8, bf16), each call synchronised and timed
+    phase by phase; the KV cache's bytes of each; and, greedy from one
+    prefill's inputs, the max abs difference of the first decode step's
+    logits, int8 against bf16.  Returns K1's launches and its largest
+    error held."""
+    layers = cfg.decoder.num_hidden_layers
+    pipes = {"bf16": pipe, "int8": dataclasses.replace(pipe, gen=dataclasses.replace(
+        pipe.gen, kv_cache_dtype="int8", int8_weights=True))}
+    caches, real_init = {}, generate_mod.init_cache
+
+    def keep_cache(*args, **kw):
+        cache = real_init(*args, **kw)
+        caches["int8" if kw.get("kv_dtype") else "bf16"] = cache.nbytes
+        return cache
+
+    timings = {"bf16": [], "int8": []}
+    generate_mod.init_cache = keep_cache
+    try:
+        def calls():
+            for name in ("bf16", "int8", "int8", "bf16"):
+                timings[name].append(time_phases(model, pipes[name], _prompts(50), 2.5))
+        _, launches, _, err = counted(fa, layers, calls, place="int8 and bf16 tts", calls=4)
+    finally:
+        generate_mod.init_cache = real_init
+    tensors = {key: torch.from_numpy(value).cuda() for key, value in pipe.tokenize(DESCRIPTIONS, _prompts(50)).items()}
+    greedy = dataclasses.replace(pipe.gen, do_sample=False, max_length=pipe.max_length(2.5))
+    logits = {}
+    for name, gen in (("bf16", greedy), ("int8", dataclasses.replace(greedy, kv_cache_dtype="int8",
+                                                                     int8_weights=True))):
+        state = generate_mod.prefill(model, gen, max_length=gen.max_length, **tensors)
+        generate_mod.decode_step(model, gen, state)
+        logits[name] = state.logits.float()
+    diff = (logits["int8"] - logits["bf16"]).abs().max().item()
+    summary = {
+        "config": "mini_600m_config bf16, random weights (seed 0), 4 requests x 2.5 s, prefill T = 65",
+        "card": card, "k1_launches": launches, "k1_max_abs_err": err,
+        **{f"{name}_decode_ms_per_step": [t["decode_ms_per_step"] for t in runs] for name, runs in timings.items()},
+        **{f"{name}_decode_ms_per_step_median": [t["decode_ms_per_step_median"] for t in runs]
+           for name, runs in timings.items()},
+        **{f"{name}_synced_wall_s": [t["synced_wall_s"] for t in runs] for name, runs in timings.items()},
+        "decode_steps": timings["bf16"][0]["decode_steps"], "kv_cache_bytes": caches,
+        "first_step_logits_max_abs_diff": diff, "first_step_logits_max_abs": logits["bf16"].abs().max().item(),
+    }
+    emit({"phase": "int8", **summary})
+    if not (math.isfinite(diff) and caches["int8"] < caches["bf16"]):
+        raise AssertionError(f"int8 decode gave non-finite logits or a cache no smaller than bf16's: {summary}")
+    return launches, err
+
+
+def stream_run(model, streaming_mod, gen, ids) -> dict:
+    """One stream of 86-frame chunks with a lookback of 48, timed."""
+    chunks, first = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for chunk in streaming_mod.stream_generate(model, gen, chunk_frames=86, lookback=48,
+                                               generator=torch.Generator(device="cuda").manual_seed(SEED), **ids):
+        if first is None:
+            first = time.perf_counter() - t0
+        chunks.append(chunk)
+    return {"chunks": chunks, "first_chunk_s": first, "wall_s": time.perf_counter() - t0}
+
+
+def stream_vs_one_shot(codec, chunks) -> tuple[float, float, float]:
+    """Each chunk's audio against a one-shot vocode of every frame ready so
+    far, and the whole stream against a one-shot vocode of all its frames
+    (codes cleaned as the stream cleans them, audio zeroed past each
+    sample's end): the max abs differences, and the one-shot's peak."""
+    codes = np.concatenate([c.codes for c in chunks], axis=2)
+    cb, hop = codec.cfg.codebook_size, codec.cfg.hop_length
+
+    def one_shot(n, lengths):
+        frames = np.arange(n)
+        clean = np.where((frames[None, None] < lengths[:, None, None]) & (codes[:, :, :n] < cb), codes[:, :, :n], 0)
+        with torch.no_grad():
+            audio = codec.decode(torch.from_numpy(clean).cuda()).float().cpu().numpy()
+        return np.where(np.arange(audio.shape[1])[None] < lengths[:, None] * hop, audio, 0.0)
+
+    prefix = 0.0
+    for c in chunks:
+        ready = c.frame_offset + c.codes.shape[2]
+        ref = one_shot(ready, np.minimum(c.valid_lengths, ready))[:, c.frame_offset * hop:]
+        prefix = max(prefix, float(np.abs(ref - c.audio).max()))
+    whole = one_shot(codes.shape[2], chunks[-1].valid_lengths)
+    audio = np.concatenate([c.audio for c in chunks], axis=1)
+    return prefix, float(np.abs(whole - audio).max()), float(np.abs(whole).max())
+
+
+def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, card: str) -> tuple[int, float]:
+    """``stream_generate`` at Mini, batch 4, 2.5 s, chunks of 86 frames,
+    lookback 48 (bf16, top-k 50, one generator seed): first-chunk latency,
+    wall, audio s per wall s; its codes must be ``generate``'s with the same
+    seed.  Then the same stream with an fp32 copy of the codec: each chunk
+    must equal a one-shot fp32 vocode of the frames ready so far within
+    1e-4; the difference from a one-shot vocode of the whole utterance (the
+    chunks lack right context) and the bf16 codec's differences are
+    reported.  Returns K1's launches and its largest error held."""
+    from parler_tts_tpu_torch.models.delay_pattern import undelay_pattern
+
+    layers, sr = cfg.decoder.num_hidden_layers, cfg.sampling_rate
+    ids = pipe.tokenize(DESCRIPTIONS, _prompts(10))
+    gen = dataclasses.replace(pipe.gen, max_length=pipe.max_length(2.5))
+    run, launches, _, err = counted(fa, layers, lambda: stream_run(model, streaming_mod, gen, ids), place="stream")
+    chunks = run["chunks"]
+    codes = np.concatenate([c.codes for c in chunks], axis=2)
+    lengths = chunks[-1].valid_lengths
+    out = generate_mod.generate(model, gen, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                                vocode=False, **ids)
+    offline = undelay_pattern(out.tokens[:, :, 1:]).cpu().numpy()[:, :, : codes.shape[2]]
+    as_generate = bool(np.array_equal(codes, offline)) and np.array_equal(lengths, out.code_lengths.cpu().numpy())
+    bf16 = stream_vs_one_shot(model.audio_encoder, chunks)
+    bf16_codec = model.audio_encoder
+    model.audio_encoder = copy.deepcopy(bf16_codec).float()
+    try:
+        fp32_run = stream_run(model, streaming_mod, gen, ids)
+        fp32 = stream_vs_one_shot(model.audio_encoder, fp32_run["chunks"])
+    finally:
+        model.audio_encoder = bf16_codec
+    fp32_codes = np.concatenate([c.codes for c in fp32_run["chunks"]], axis=2)
+    audio_s = float(lengths.sum()) * cfg.audio_encoder.hop_length / sr
+    summary = {
+        "config": "mini_600m_config bf16, random weights (seed 0), 4 requests x 2.5 s", "card": card,
+        "chunk_frames": 86, "lookback": 48, "chunks": len(chunks), "chunk_frames_emitted": [
+            int(c.codes.shape[2]) for c in chunks], "first_chunk_s": run["first_chunk_s"], "wall_s": run["wall_s"],
+        "audio_s": audio_s, "audio_s_per_wall_s": audio_s / run["wall_s"], "k1_launches": launches,
+        "k1_max_abs_err": err,
+        "codes_equal_generate": as_generate, "fp32_codec_same_codes": bool(np.array_equal(codes, fp32_codes)),
+        "fp32_max_abs_diff_vs_one_shot_so_far": fp32[0], "tol": 1e-4,
+        "fp32_max_abs_diff_vs_one_shot_whole": fp32[1], "fp32_one_shot_peak": fp32[2],
+        "bf16_max_abs_diff_vs_one_shot_so_far": bf16[0], "bf16_max_abs_diff_vs_one_shot_whole": bf16[1],
+        "bf16_one_shot_peak": bf16[2], "fp32_first_chunk_s": fp32_run["first_chunk_s"],
+        "fp32_wall_s": fp32_run["wall_s"],
+    }
+    # fp32: each chunk equal to the one-shot vocode of the frames so far, absolutely and relative to the peak
+    ok = (as_generate and summary["fp32_codec_same_codes"] and fp32[0] <= 1e-4 and fp32[0] <= 1e-4 * fp32[2]
+          and len(chunks) > 1)
+    emit({"phase": "stream", **summary, "ok": ok})
+    if not ok:
+        raise AssertionError("the stream's codes are not generate's, or its fp32 audio is not a one-shot vocode's")
+    return launches, err
+
+
+def run_serving(cfg, model, pipe, fa, serving_mod, card: str) -> tuple[int, float]:
+    """``BatchingEngine`` over the Mini pipeline (batch buckets 1, 2, 4, 8;
+    length buckets 1 s and 2.5 s): ``warmup()``, then a burst of 6 requests
+    from 6 threads, 4 of at most 1 s and 2 of 2.5 s.  Each engine call is
+    replayed as a direct ``tts`` on the same padded rows with the same folded
+    seed: the waveforms must agree within 1e-5.  Reports per-request
+    latency, the batches and the pad rows.  Returns K1's launches and its
+    largest error held."""
+    import threading
+
+    layers = cfg.decoder.num_hidden_layers
+    calls = []
+
+    class Recorder:
+        """The pipeline, recording each call the engine makes."""
+        cfg, gen = pipe.cfg, pipe.gen
+
+        def tts(self, descs, prompts, *, seed=0, max_seconds=None):
+            out = pipe.tts(descs, prompts, seed=seed, max_seconds=max_seconds)
+            calls.append((list(descs), list(prompts), seed, max_seconds, out))
+            return out
+
+    def serve():
+        engine = serving_mod.BatchingEngine(Recorder(), max_batch=8, batch_buckets=(1, 2, 4, 8),
+                                            length_bucket_seconds=(1.0, 2.5))
+        try:
+            warm = engine.warmup(description=DESCRIPTIONS[3], prompt=_prompts(10)[0], timeout=600)
+            n_warm = len(calls)
+            requests = [(DESCRIPTIONS[i % 4], _prompts(10)[i % 4], 1.0 if i < 4 else 2.5, SEED + i)
+                        for i in range(6)]
+            latency, failed = [None] * 6, []
+            barrier = threading.Barrier(6)
+
+            def client(i):
+                desc, prompt, seconds, seed = requests[i]
+                barrier.wait(timeout=60)
+                t0 = time.perf_counter()
+                try:
+                    sr, wav = engine.tts(desc, prompt, max_seconds=seconds, seed=seed, timeout=600)
+                except Exception as e:  # re-raised below, on the main thread
+                    failed.append(e)
+                    return
+                latency[i] = {"max_seconds": seconds, "latency_s": time.perf_counter() - t0,
+                              "audio_s": wav.size / sr}
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(6)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            if failed:
+                raise failed[0]
+            if any(th.is_alive() for th in threads) or None in latency:
+                raise AssertionError("a serving request did not complete")
+            return warm, n_warm, latency, engine.stats()
+        finally:
+            engine.shutdown()
+
+    def replay(n_warm):
+        errs = []
+        for descs, prompts, seed, max_seconds, (sr, waves) in calls[n_warm:]:
+            _, direct = pipe.tts(descs, prompts, seed=seed, max_seconds=max_seconds)
+            errs.append(max(float(np.abs(a - b).max(initial=0.0)) if a.shape == b.shape else math.inf
+                            for a, b in zip(waves, direct)))
+        return errs
+
+    replays = []
+
+    def serve_and_replay():
+        result = serve()
+        replays.extend(replay(result[1]))
+        return result
+
+    (warm, n_warm, latency, stats), launches, _, err = counted(
+        fa, layers, serve_and_replay, place="serving", calls=lambda: len(calls) + len(replays))
+    batches = [{"rows": len(descs), "max_seconds": max_seconds, "seed": seed}
+               for descs, _, seed, max_seconds, _ in calls[n_warm:]]
+    summary = {"config": "mini_600m_config bf16, random weights (seed 0), top-k 50", "card": card,
+               "warmup_s": warm, "requests": latency, "batches": batches, "stats": stats,
+               "max_abs_diff_vs_direct_tts": replays, "tol": 1e-5, "k1_launches": launches, "k1_max_abs_err": err}
+    ok = (all(e <= 1e-5 for e in replays) and stats["requests"] == 6 and stats["batched_requests"] == 6 + len(warm)
+          and stats["padded_rows"] == stats["bucket_rows"] - stats["batched_requests"])
+    emit({"phase": "serving", **summary, "ok": ok})
+    if not ok:
+        raise AssertionError("the batching engine's results are not those of direct tts calls on its rows")
+    return launches, err
+
+
 def time_phases(model, pipe, prompts, max_seconds) -> dict:
     """One more tts call with each phase synchronised and host-timed: T5
     encode, decoder prefill, each decode step, DAC vocode."""
@@ -1017,10 +1438,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from parler_tts_tpu_torch import pipeline as pipeline_mod
+    from parler_tts_tpu_torch import serving as serving_mod
     from parler_tts_tpu_torch.core import checkpoint as ck
     from parler_tts_tpu_torch.core import config as cfg_mod
     from parler_tts_tpu_torch.core import from_jax
     from parler_tts_tpu_torch.generation import generate as generate_mod
+    from parler_tts_tpu_torch.generation import streaming as streaming_mod
     from parler_tts_tpu_torch.models import codec as codec_mod
     from parler_tts_tpu_torch.models import parler
     from parler_tts_tpu_torch.ops import cuda_build
@@ -1030,12 +1453,12 @@ def main() -> int:
     from parler_tts_tpu_torch.training import step as step_mod
     from parler_tts_tpu_torch.utils import toy_tokenizer as tokenizer_mod
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 comparisons below are exact-fp32
-    torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     card = nvidia_smi()
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "tf32_defaults": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                            "cudnn": torch.backends.cudnn.allow_tf32}})
 
     t0 = time.perf_counter()
     logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd"])
@@ -1049,11 +1472,21 @@ def main() -> int:
     if spills or missing:
         raise AssertionError(f"ptxas reports spills in the tensor-core kernels ({spills}) or misses {missing}")
 
-    k1 = check_kernels(fa)
-    bwd = check_backward(fa)
-    check_reference(cfg_mod, parler, generate_mod)
-    check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax)
-    tts_launches = run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card)
+    with exact_fp32():
+        k1 = check_kernels(fa)
+        bwd = check_backward(fa)
+        check_reference(cfg_mod, parler, generate_mod, streaming_mod)
+        check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax)
+    # from here on, the flags a user gets (the DAC pins its own fp32 convolutions)
+    tts_launches, model, pipe = run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card)
+    new_paths = {
+        "decoder_only": run_decoder_only(model.cfg, model, pipe, fa, generate_mod, card),
+        "int8": run_int8(model.cfg, model, pipe, fa, generate_mod, card),
+        "stream": run_stream(model.cfg, model, pipe, fa, generate_mod, streaming_mod, card),
+        "serving": run_serving(model.cfg, model, pipe, fa, serving_mod, card),
+    }
+    del model, pipe
+    gc.collect()
     torch.cuda.empty_cache()
     train = run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card)
     train_launches = train["launches"]
@@ -1076,23 +1509,27 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "parler_tts_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": REPLACES["flash_attention_fwd"],
-        "launches": sum(p["flash_attention_fwd"] for p in (tts_launches, train_launches, cli_launches)),
+        "launches": sum(p["flash_attention_fwd"] for p in (tts_launches, train_launches, cli_launches))
+        + sum(path[0] for path in new_paths.values()),
         "launches_by_path": {"tts": tts_launches["flash_attention_fwd"],
+                             **{name: path[0] for name, path in new_paths.items()},
                              "train": train_launches["flash_attention_fwd"],
                              "train_cli": cli_launches["flash_attention_fwd"]},
-        "max_abs_err": max(k1["max_abs_err"], cli_errs["flash_attention_fwd"]),
+        "max_abs_err": max(k1["max_abs_err"], cli_errs["flash_attention_fwd"],
+                           *(path[1] for path in new_paths.values())),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": head["shape"], "per_shape": k1["per_shape"] + bwd["flash_attention_fwd"]["per_shape"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
+        "per_shape": k1["per_shape"] + [new_paths["decoder_only"][2]] + bwd["flash_attention_fwd"]["per_shape"],
     }]
     for name in BWD_NAMES:
         row = next(r for r in bwd[name]["per_shape"] if r["path"])
         kernels.append({
             "name": name, "route": "cuda", "source": "parler_tts_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": REPLACES[name], "launches": train_launches[name] + cli_launches[name],
-            "launches_by_path": {"tts": tts_launches[name], "train": train_launches[name],
-                                 "train_cli": cli_launches[name]},
-            "max_abs_err": max(bwd[name]["max_abs_err"], cli_errs.get(name, 0.0)), "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "launches_by_path": {"tts": tts_launches[name], **{path: 0 for path in new_paths},  # checked 0
+                                 "train": train_launches[name], "train_cli": cli_launches[name]},
+            "max_abs_err": max(bwd[name]["max_abs_err"], cli_errs.get(name, 0.0)), "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": row["library_call"], "shape": row["shape"], "per_shape": bwd[name]["per_shape"],
         })

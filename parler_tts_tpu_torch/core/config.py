@@ -179,9 +179,10 @@ class ParlerTTSConfig:
 
 @dataclass(frozen=True)
 class GenerationConfig:
-    """Decode-time defaults.  ``kv_cache_dtype="int8"`` and
-    ``int8_weights`` are read from the JSON so that such a config is refused
-    by ``generate`` rather than silently run in the compute dtype."""
+    """Decode-time defaults.  ``kv_cache_dtype="int8"`` stores the decode
+    KV cache as int8 with per-position scales; ``int8_weights`` runs the
+    decode steps' matmuls and LM heads on int8 weights with per-channel
+    scales (the prefill keeps the model's own weights)."""
 
     max_length: int = 2580  # 30 s x 86 Hz
     do_sample: bool = True

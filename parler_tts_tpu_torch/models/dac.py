@@ -11,11 +11,15 @@ the residual nearest-codebook walk (``ResidualVQ.encode``) in fp32.  The
 convolutions are ``nn.Conv1d`` / ``nn.ConvTranspose1d`` on NCW activations;
 these and the quantizer's small matmuls are XLA ops in the JAX package, not
 Pallas kernels.  At bf16 the Snake activation is the polynomial
-``snake_fast``; at fp32 it is the exact one.
+``snake_fast``; at fp32 it is the exact one.  cuDNN runs fp32 convolutions
+in TF32 unless told otherwise (``torch.backends.cudnn.allow_tf32`` defaults
+to True), so encode and decode turn TF32 off around their conv stacks: an
+fp32 codec is fp32, as the JAX package's offline tokenizer is.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -223,6 +227,19 @@ def pad_audio(audio: torch.Tensor, hop_length: int) -> torch.Tensor:
     return torch.nn.functional.pad(audio, (0, pad)) if pad else audio
 
 
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN's fp32 convolutions in full fp32, not TF32, for the block;
+    the flag is restored after it.  No effect on bf16 convolutions or on
+    the CPU."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 def _encode_side(name: str) -> bool:
     return name.startswith(("encoder.", "quantizer.in_proj."))
 
@@ -244,7 +261,8 @@ class DAC(nn.Module):
         to a multiple of the hop, the conv stack in the module's dtype, the
         quantizer walk in fp32."""
         x = pad_audio(audio, self.cfg.hop_length).to(self.encoder.conv_in.weight.dtype)
-        z = self.encoder(x[:, None])
+        with fp32_convolutions():
+            z = self.encoder(x[:, None])
         return self.quantizer.encode(z.transpose(1, 2), n_quantizers)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
@@ -252,7 +270,8 @@ class DAC(nn.Module):
         in the module's dtype."""
         dtype = self.decoder.conv_in.weight.dtype
         z = self.quantizer.from_codes(codes).to(dtype)
-        return self.decoder(z.transpose(1, 2))
+        with fp32_convolutions():
+            return self.decoder(z.transpose(1, 2))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -10,8 +10,11 @@ Port of ``parler_tts_tpu/models/decoder.py``:
 * the full/prefill forward runs its causal self-attention through the
   flash-attention kernels (``ops/flash_attention.py``: K1 forward, K4 or
   K2 + K3 backward) whenever T > 1;
+* without encoder states (decoder-only generation) every layer skips its
+  whole cross-attention block, ``ln_cross`` included;
 * cross-attention K/V are computed once at prefill and cached; the cached
-  single-token decode runs plain PyTorch attention;
+  single-token decode runs plain PyTorch attention over the decode
+  parameter view (``decode_params``: fused q/k/v, optionally int8);
 * the forward takes a compute dtype apart from the parameters' (fp32
   parameters, bf16 activations in training) and, in train mode, dropout at
   the JAX sites (embedded sequence, residual branches, FFN activation and,
@@ -27,12 +30,16 @@ JAX's: masks agree in distribution, not value.
 The KV cache is not the JAX package's: its time-minor ``(L, B, H, D, T)``
 buffers, staged flushes and growing buckets exist for the TPU's tiling.
 Here the self K/V is one ``(L, B, H, T_max, D)`` pair allocated once at
-``prompt_len + max_length`` and written in place at ``index``.
+``prompt_len + max_length`` and written in place at ``index``.  With
+``kv_dtype="int8"`` every K/V row is stored as int8 with a per-position
+bf16 scale (JAX ``_store_kv``); the decode folds the scales out of both
+products and attends to its own position unquantized, as JAX does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -43,13 +50,16 @@ from parler_tts_tpu_torch.core.config import DecoderConfig
 from parler_tts_tpu_torch.ops.flash_attention import flash_attention_bhtd
 from parler_tts_tpu_torch.ops.nn import (
     ACTIVATIONS,
+    NEG_INF,
     Dense,
+    DenseWeight,
     LayerNorm,
     attention_scores,
     dropout,
     merge_heads,
     split_heads,
 )
+from parler_tts_tpu_torch.ops.quantization import quantize_kv
 
 
 def sinusoidal_positions(num_positions: int, dim: int) -> torch.Tensor:
@@ -73,23 +83,89 @@ def _layer_out(layer: DecoderLayer, *args) -> torch.Tensor:
 class KVCache:
     """Decode cache.  ``self_k``/``self_v`` ``(L, B, H, T_max, D)`` hold the
     keys/values of fused positions ``[0, index)`` and are updated in place;
-    ``cross_k``/``cross_v`` ``(L, B, H, S, D)`` are written once at prefill."""
+    ``cross_k``/``cross_v`` ``(L, B, H, S, D)`` are written once at prefill,
+    or are None when the decoder runs without cross-attention.  In an int8
+    cache the ``*_scale`` buffers ``(L, B, H, T)`` hold each row's bf16
+    scale; they are None otherwise."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
-    cross_k: torch.Tensor
-    cross_v: torch.Tensor
+    cross_k: torch.Tensor | None
+    cross_v: torch.Tensor | None
+    self_k_scale: torch.Tensor | None = None
+    self_v_scale: torch.Tensor | None = None
+    cross_k_scale: torch.Tensor | None = None
+    cross_v_scale: torch.Tensor | None = None
     index: int = 0
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every buffer the cache holds."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.self_k, self.self_v, self.cross_k, self.cross_v, self.self_k_scale, self.self_v_scale,
+            self.cross_k_scale, self.cross_v_scale) if t is not None)
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *,
-               dtype: torch.dtype, device: torch.device) -> KVCache:
+               dtype: torch.dtype, device: torch.device, kv_dtype: str | None = None) -> KVCache:
+    """An empty cache for ``max_len`` fused positions and ``enc_len`` encoder
+    positions (0: no cross-attention).  ``kv_dtype``: None stores K/V in
+    ``dtype``; ``"int8"`` stores int8 rows with bf16 per-position scales."""
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
     l, h, d = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
+    quant = kv_dtype == "int8"
 
     def buf(t):
-        return torch.zeros((l, batch, h, t, d), dtype=dtype, device=device)
+        return torch.zeros((l, batch, h, t, d), dtype=torch.int8 if quant else dtype, device=device)
 
-    return KVCache(buf(max_len), buf(max_len), buf(enc_len), buf(enc_len))
+    def scales(t):
+        return torch.zeros((l, batch, h, t), dtype=torch.bfloat16, device=device) if quant else None
+
+    cross = enc_len > 0
+    return KVCache(buf(max_len), buf(max_len), buf(enc_len) if cross else None, buf(enc_len) if cross else None,
+                   scales(max_len), scales(max_len), scales(enc_len) if cross else None,
+                   scales(enc_len) if cross else None)
+
+
+def _put(buf: torch.Tensor, scales: torch.Tensor | None, layer: int, pos, values: torch.Tensor) -> None:
+    """Write K or V ``values`` ((B, H, t, D), or (B, H, D) for one position)
+    at positions ``pos`` of layer ``layer``: as they are, or int8 with bf16
+    scales (rounded to bf16 before they are stored, as JAX does) when the
+    cache is int8."""
+    if scales is None:
+        buf[layer, :, :, pos] = values
+        return
+    q, s = quantize_kv(values)
+    buf[layer, :, :, pos] = q
+    scales[layer, :, :, pos] = s.to(scales.dtype)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
+            k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+            current: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """Single-query attention over cached (B, H, S, D) K/V; ``mask`` (B, S).
+    With ``k_scale``/``v_scale`` (B, H, S) the K/V are int8 and the scales
+    fold out of both products: the key scale multiplies the fp32 scores, the
+    value scale the fp32 probabilities, which are then cast to the compute
+    dtype (JAX ``_self_attention_decode`` / ``_cross_attention_decode``).
+    ``current`` = (k, v) of the query's own position (B, H, 1, D) adds that
+    position unquantized, as one more key after the cached ones."""
+    dtype = q.dtype
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if k_scale is not None:
+        scores = scores * k_scale.float()[:, :, None, :]
+    scores = scores.masked_fill(~mask[:, None, None, :].bool(), NEG_INF)
+    if current is not None:
+        scores = torch.cat([scores, (q.float() * current[0].float()).sum(-1, keepdim=True)], dim=-1)
+    probs = torch.softmax(scores, dim=-1)
+    p_cached = probs[..., : k.shape[2]]
+    if v_scale is not None:
+        p_cached = p_cached * v_scale.float()[:, :, None, :]
+    out = torch.matmul(p_cached.to(dtype), v.to(dtype))
+    if current is not None:
+        out = out + probs[..., -1:].to(dtype) * current[1].to(dtype)
+    return out
 
 
 class DecoderAttention(nn.Module):
@@ -106,9 +182,24 @@ class DecoderAttention(nn.Module):
         return split_heads(self.q(x), n) * self.scale, split_heads(self.k(x), n), split_heads(self.v(x), n)
 
 
-def _attend(q, k, v, mask):
-    """Single-query attention over cached (B, H, S, D) K/V; ``mask`` (B, S)."""
-    return attention_scores(q, k, v, mask=mask[:, None, None, :].bool())
+class DecodeLayer(NamedTuple):
+    """One layer's decode weights (JAX ``prepare_decode_params``)."""
+
+    qkv: DenseWeight  # self q, k, v fused: (H, 3H)
+    o: DenseWeight
+    cross_q: DenseWeight
+    cross_o: DenseWeight
+    fc1: DenseWeight
+    fc2: DenseWeight
+
+
+class DecodeParams(NamedTuple):
+    """The decode loop's view of the decoder's weights, built once per
+    generation (``ParlerDecoder.decode_params``); layer norms and the
+    embedding tables are read from the module."""
+
+    layers: list[DecodeLayer]
+    lm_heads: DenseWeight
 
 
 class DecoderLayer(nn.Module):
@@ -131,9 +222,16 @@ class DecoderLayer(nn.Module):
         h = dropout(self.act(self.fc1(self.ln_ffn(x))), self.activation_dropout, gen)
         return x + dropout(self.fc2(h), self.dropout, gen)
 
+    def decode_weights(self, int8: bool) -> DecodeLayer:
+        sa, ca = self.self_attn, self.cross_attn
+        qkv = torch.cat([sa.q.kernel, sa.k.kernel, sa.v.kernel], dim=-1)
+        return DecodeLayer(*(DenseWeight.of(w, int8) for w in (
+            qkv, sa.o.kernel, ca.q.kernel, ca.o.kernel, self.fc1.kernel, self.fc2.kernel)))
+
     def forward_full(self, x, flash_mask, self_mask, enc, enc_mask, seed: int | None = None):
-        """Full-sequence layer.  Returns (x, self K/V, cross K/V).  ``seed``
-        (train mode) seeds this layer's dropout generator."""
+        """Full-sequence layer.  Returns (x, self K/V, cross K/V or None when
+        ``enc`` is None).  ``seed`` (train mode) seeds this layer's dropout
+        generator."""
         gen = None if seed is None else torch.Generator(device=x.device).manual_seed(seed)
         q, k, v = self.self_attn.project(self.ln_self(x))
         attn_drop = self.attention_dropout if gen is not None else 0.0
@@ -143,30 +241,45 @@ class DecoderLayer(nn.Module):
             out = attention_scores(q, k, v, mask=self_mask, dropout_rate=attn_drop, generator=gen)
         x = x + dropout(self.self_attn.o(merge_heads(out)), self.dropout, gen)
 
-        ca = self.cross_attn
-        cq = split_heads(ca.q(self.ln_cross(x)), ca.num_heads) * ca.scale
-        ck, cv = split_heads(ca.k(enc), ca.num_heads), split_heads(ca.v(enc), ca.num_heads)
-        out = attention_scores(cq, ck, cv, mask=enc_mask[:, None, None, :].bool(), dropout_rate=attn_drop,
-                               generator=gen)
-        x = x + dropout(ca.o(merge_heads(out)), self.dropout, gen)
-        return self._ffn(x, gen), (k, v), (ck, cv)
+        cross_kv = None
+        if enc is not None:
+            ca = self.cross_attn
+            cq = split_heads(ca.q(self.ln_cross(x)), ca.num_heads) * ca.scale
+            cross_kv = split_heads(ca.k(enc), ca.num_heads), split_heads(ca.v(enc), ca.num_heads)
+            out = attention_scores(cq, *cross_kv, mask=enc_mask[:, None, None, :].bool(),
+                                   dropout_rate=attn_drop, generator=gen)
+            x = x + dropout(ca.o(merge_heads(out)), self.dropout, gen)
+        return self._ffn(x, gen), (k, v), cross_kv
 
-    def forward_decode(self, x, cache: KVCache, layer: int, kv_mask, enc_mask):
-        """One cached token: writes its K/V at ``cache.index`` (in place) and
-        attends over positions ``[0, index]``."""
-        i = cache.index
-        q, k, v = self.self_attn.project(self.ln_self(x))
-        cache.self_k[layer, :, :, i] = k[:, :, 0]
-        cache.self_v[layer, :, :, i] = v[:, :, 0]
-        out = _attend(q, cache.self_k[layer, :, :, : i + 1], cache.self_v[layer, :, :, : i + 1],
-                      kv_mask[:, : i + 1])
-        x = x + self.self_attn.o(merge_heads(out))
+    def forward_decode(self, x, cache: KVCache, layer: int, kv_mask, enc_mask, p: DecodeLayer):
+        """One cached token at ``cache.index`` with the decode weights ``p``.
+        An unquantized cache is written first and read over ``[0, index]``;
+        an int8 cache is read over ``[0, index)`` with the new position
+        attended unquantized, then written."""
+        i, n = cache.index, self.self_attn.num_heads
+        q, k, v = (split_heads(t, n) for t in p.qkv(self.ln_self(x)).chunk(3, dim=-1))
+        q = q * self.self_attn.scale
+        if cache.self_k_scale is None:
+            _put(cache.self_k, None, layer, i, k[:, :, 0])
+            _put(cache.self_v, None, layer, i, v[:, :, 0])
+            out = _attend(q, cache.self_k[layer, :, :, : i + 1], cache.self_v[layer, :, :, : i + 1],
+                          kv_mask[:, : i + 1])
+        else:
+            out = _attend(q, cache.self_k[layer, :, :, :i], cache.self_v[layer, :, :, :i], kv_mask[:, :i],
+                          k_scale=cache.self_k_scale[layer, :, :, :i], v_scale=cache.self_v_scale[layer, :, :, :i],
+                          current=(k, v))
+            _put(cache.self_k, cache.self_k_scale, layer, i, k[:, :, 0])
+            _put(cache.self_v, cache.self_v_scale, layer, i, v[:, :, 0])
+        x = x + p.o(merge_heads(out))
 
-        ca = self.cross_attn
-        cq = split_heads(ca.q(self.ln_cross(x)), ca.num_heads) * ca.scale
-        out = _attend(cq, cache.cross_k[layer], cache.cross_v[layer], enc_mask)
-        x = x + ca.o(merge_heads(out))
-        return self._ffn(x)
+        if cache.cross_k is not None:
+            ca = self.cross_attn
+            cq = split_heads(p.cross_q(self.ln_cross(x)), ca.num_heads) * ca.scale
+            scales = {} if cache.cross_k_scale is None else dict(
+                k_scale=cache.cross_k_scale[layer], v_scale=cache.cross_v_scale[layer])
+            out = _attend(cq, cache.cross_k[layer], cache.cross_v[layer], enc_mask, **scales)
+            x = x + p.cross_o(merge_heads(out))
+        return x + p.fc2(self.act(p.fc1(self.ln_ffn(x))))
 
 
 class ParlerDecoder(nn.Module):
@@ -206,8 +319,8 @@ class ParlerDecoder(nn.Module):
             )
         return self.positions[start : start + length].to(dtype or self.dtype)
 
-    def forward(self, input_ids: torch.Tensor, *, encoder_hidden_states: torch.Tensor,
-                encoder_attention_mask: torch.Tensor,
+    def forward(self, input_ids: torch.Tensor, *, encoder_hidden_states: torch.Tensor | None = None,
+                encoder_attention_mask: torch.Tensor | None = None,
                 prompt_hidden_states: torch.Tensor | None = None,
                 attention_mask: torch.Tensor | None = None,
                 cache: KVCache | None = None,
@@ -217,13 +330,16 @@ class ParlerDecoder(nn.Module):
         """Full-sequence forward over the fused (prompt + codes) sequence.
 
         ``input_ids`` (B, K, T); ``attention_mask`` (B, >= T_fused) covers the
-        fused sequence, 1 = valid (None = all valid).  With a ``cache`` at
-        index 0 this is the prefill: every layer's self K/V and cross K/V are
-        written to it and its index advances to ``T_fused``.  ``dtype`` is
-        the compute dtype (None = the parameters').  Without a cache,
-        ``generator`` turns on train mode (dropout and layerdrop; see the
-        module docstring) and ``remat`` recomputes each layer in the
-        backward.  Returns the final-normed hidden states (B, T_fused, H)."""
+        fused sequence, 1 = valid (None = all valid).  Without
+        ``encoder_hidden_states`` no layer runs cross-attention.  With a
+        ``cache`` at index 0 this is the prefill: every layer's self K/V and
+        cross K/V are written to it (int8 when the cache is; the layers
+        themselves attend over unquantized K/V) and its index advances to
+        ``T_fused``.  ``dtype`` is the compute dtype (None = the
+        parameters').  Without a cache, ``generator`` turns on train mode
+        (dropout and layerdrop; see the module docstring) and ``remat``
+        recomputes each layer in the backward.  Returns the final-normed
+        hidden states (B, T_fused, H)."""
         dtype = dtype or self.dtype
         x = self.embed_codebooks(input_ids, dtype)
         if prompt_hidden_states is not None:
@@ -238,18 +354,21 @@ class ParlerDecoder(nn.Module):
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
         self_mask = causal[None, None] & flash_mask[:, None, None, :].bool()
 
-        enc = encoder_hidden_states.to(dtype)
+        enc = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
         if cache is not None:
             if cache.index != 0:
                 raise ValueError("prefill needs an empty cache (index 0)")
             if generator is not None or remat:
                 raise ValueError("train mode and remat run without a cache")
+            if (enc is None) != (cache.cross_k is None):
+                raise ValueError("the cache's cross K/V and the encoder states must come together")
             for layer_idx, layer in enumerate(self.layers):
-                x, (k, v), (ck, cv) = layer.forward_full(x, flash_mask, self_mask, enc, encoder_attention_mask)
-                cache.self_k[layer_idx, :, :, :t] = k
-                cache.self_v[layer_idx, :, :, :t] = v
-                cache.cross_k[layer_idx] = ck
-                cache.cross_v[layer_idx] = cv
+                x, (k, v), cross_kv = layer.forward_full(x, flash_mask, self_mask, enc, encoder_attention_mask)
+                _put(cache.self_k, cache.self_k_scale, layer_idx, slice(0, t), k)
+                _put(cache.self_v, cache.self_v_scale, layer_idx, slice(0, t), v)
+                if cross_kv is not None:
+                    _put(cache.cross_k, cache.cross_k_scale, layer_idx, slice(None), cross_kv[0])
+                    _put(cache.cross_v, cache.cross_v_scale, layer_idx, slice(None), cross_kv[1])
             cache.index = t
             return self.final_ln(x)
 
@@ -273,24 +392,45 @@ class ParlerDecoder(nn.Module):
                 x = _layer_out(layer, *args)
         return self.final_ln(x)
 
-    def decode_step(self, input_ids: torch.Tensor, cache: KVCache, *,
-                    encoder_attention_mask: torch.Tensor,
-                    attention_mask: torch.Tensor) -> torch.Tensor:
-        """One cached step: ``input_ids`` (B, K, 1) at fused position
-        ``cache.index``; ``attention_mask`` (B, >= index+1) is the fused mask.
-        Returns (B, 1, H) and advances the cache index."""
+    @torch.no_grad()
+    def decode_params(self, int8: bool = False) -> DecodeParams:
+        """The decode loop's weights (JAX ``prepare_decode_params``): each
+        layer's self q/k/v kernels fused into one ``(H, 3H)`` projection and,
+        with ``int8``, int8 copies of the fused qkv, self ``o``, cross ``q``
+        and ``o``, ``fc1``, ``fc2`` and the LM heads with per-output-channel
+        scales.  Embedding tables and layer norms stay as they are.  Build it
+        once per generation: it copies every decode weight."""
+        return DecodeParams([layer.decode_weights(int8) for layer in self.layers],
+                            DenseWeight.of(self.lm_heads.kernel, int8))
+
+    def decode_step(self, input_ids: torch.Tensor, cache: KVCache, *, params: DecodeParams,
+                    attention_mask: torch.Tensor,
+                    encoder_attention_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """One cached step with the decode view ``params``: ``input_ids``
+        (B, K, 1) at fused position ``cache.index``; ``attention_mask``
+        (B, >= index+1) is the fused mask.  Cross-attention runs when the
+        cache holds cross K/V.  Returns (B, 1, H) and advances the cache
+        index."""
         x = self.embed_codebooks(input_ids) + self._positions(cache.index, 1)[None]
-        for layer_idx, layer in enumerate(self.layers):
-            x = layer.forward_decode(x, cache, layer_idx, attention_mask, encoder_attention_mask)
+        for layer_idx, (layer, p) in enumerate(zip(self.layers, params.layers)):
+            x = layer.forward_decode(x, cache, layer_idx, attention_mask, encoder_attention_mask, p)
         cache.index += 1
         return self.final_ln(x)
 
-    def logits(self, hidden: torch.Tensor, num_labels: int | None = None) -> torch.Tensor:
+    def logits(self, hidden: torch.Tensor, num_labels: int | None = None,
+               heads: DenseWeight | None = None) -> torch.Tensor:
         """Fused K heads: (B, T, H) -> (B, K, T', V), projecting only the last
-        ``num_labels`` positions when given."""
+        ``num_labels`` positions when given.  ``heads`` (the decode view's)
+        may be int8: the per-(codebook, vocab) scale folds out of the H
+        product."""
         if num_labels is not None:
             hidden = hidden[:, -num_labels:]
-        return torch.einsum("bth,khv->bktv", hidden, self.lm_heads.kernel.to(hidden.dtype))
+        if heads is None:
+            heads = DenseWeight(self.lm_heads.kernel)
+        out = torch.einsum("bth,khv->bktv", hidden, heads.kernel.to(hidden.dtype))
+        if heads.scale is not None:
+            out = out * heads.scale.to(hidden.dtype)[None, :, None, :]
+        return out
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

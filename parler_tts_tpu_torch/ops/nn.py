@@ -15,10 +15,13 @@ take their statistics in fp32.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from parler_tts_tpu_torch.ops.quantization import quantize_dense
 
 NEG_INF = -1e9  # finite additive mask: a fully masked row is uniform, not NaN
 
@@ -34,9 +37,16 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-    """``x @ kernel (+ bias)`` with an ``(in, out)`` kernel."""
+def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None, *,
+          scale: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ kernel (+ bias)`` with an ``(in, out)`` kernel.  With ``scale``
+    (per output channel) the kernel is int8 storage (``ops/quantization.
+    quantize_dense``): ``(x @ kernel.to(x.dtype)) * scale.to(x.dtype)``, the
+    scale cast to the compute dtype before the multiply, as the JAX
+    package does."""
     y = torch.matmul(x, kernel.to(x.dtype))
+    if scale is not None:
+        y = y * scale.to(x.dtype)
     if bias is not None:
         y = y + bias.to(x.dtype)
     return y
@@ -113,6 +123,21 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.kernel, self.bias)
+
+
+class DenseWeight(NamedTuple):
+    """An inference copy of a bias-free ``(in, out)`` kernel: as stored
+    (``scale`` None), or int8 with per-output-channel ``scale``."""
+
+    kernel: torch.Tensor
+    scale: torch.Tensor | None = None
+
+    @classmethod
+    def of(cls, kernel: torch.Tensor, int8: bool = False) -> "DenseWeight":
+        return cls(*quantize_dense(kernel)) if int8 else cls(kernel)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.kernel, scale=self.scale)
 
 
 class LayerNorm(nn.Module):

@@ -59,6 +59,25 @@ class ParlerTTSPipeline:
         model, cfg, gen = ck.load_model(model_dir, device=device, dtype=dtype)
         return cls(model, cfg, gen, tokenizer, tokenizer, dtype=dtype, pcm16=pcm16, device=device)
 
+    def tokenize(self, descriptions: list[str], prompts: list[str]) -> dict[str, np.ndarray]:
+        """``generate``'s ids and masks: descriptions padded on the right and
+        prompts on the LEFT, each to a length bucket."""
+        d = self.description_tokenizer(descriptions, padding=True, return_tensors="np")
+        p = self.prompt_tokenizer(prompts, padding=True, return_tensors="np")
+        dl, pl = _bucket(d.input_ids.shape[1]), _bucket(p.input_ids.shape[1])
+        desc_pad = ((0, 0), (0, dl - d.input_ids.shape[1]))
+        prompt_pad = ((0, 0), (pl - p.input_ids.shape[1], 0))
+        return dict(input_ids=np.pad(d.input_ids, desc_pad), attention_mask=np.pad(d.attention_mask, desc_pad),
+                    prompt_input_ids=np.pad(p.input_ids, prompt_pad),
+                    prompt_attention_mask=np.pad(p.attention_mask, prompt_pad))
+
+    def max_length(self, max_seconds: float | None) -> int:
+        """Token positions for ``max_seconds`` of audio, the delay pattern's
+        tail included; the generation config's with None."""
+        if max_seconds is None:
+            return self.gen.max_length
+        return int(max_seconds * self.cfg.frame_rate) + self.cfg.decoder.num_codebooks
+
     def tts(self, description: str | list[str], prompt: str | list[str], *, seed: int = 0,
             max_seconds: float | None = None) -> tuple[int, list[np.ndarray]]:
         """-> (sampling_rate, [waveform per sample]).  ``seed`` seeds the
@@ -70,21 +89,9 @@ class ParlerTTSPipeline:
         if len(descs) != len(prompts):
             raise ValueError(f"{len(descs)} descriptions but {len(prompts)} prompts")
 
-        d = self.description_tokenizer(descs, padding=True, return_tensors="np")
-        p = self.prompt_tokenizer(prompts, padding=True, return_tensors="np")
-        dl, pl = _bucket(d.input_ids.shape[1]), _bucket(p.input_ids.shape[1])
-        desc_pad = ((0, 0), (0, dl - d.input_ids.shape[1]))
-        prompt_pad = ((0, 0), (pl - p.input_ids.shape[1], 0))  # prompts pad LEFT
-
-        max_len = self.gen.max_length
-        if max_seconds is not None:
-            max_len = int(max_seconds * self.cfg.frame_rate) + self.cfg.decoder.num_codebooks
         out = generate(
-            self.model, dataclasses.replace(self.gen, max_length=max_len),
-            input_ids=np.pad(d.input_ids, desc_pad),
-            attention_mask=np.pad(d.attention_mask, desc_pad),
-            prompt_input_ids=np.pad(p.input_ids, prompt_pad),
-            prompt_attention_mask=np.pad(p.attention_mask, prompt_pad),
+            self.model, dataclasses.replace(self.gen, max_length=self.max_length(max_seconds)),
+            **self.tokenize(descs, prompts),
             generator=torch.Generator(device=self.device).manual_seed(seed),
             device=self.device,
         )

@@ -12,7 +12,7 @@ Three fields only tune XLA and are kept so that recipes parse:
 it ignores it), ``gradient_checkpointing_policy`` (``"dots"`` and ``"full"``
 both mean the port's per-layer recompute, ``remat=True``) and
 ``model_parallel_size`` (``main`` raises above 1; multi-process placement
-is ROADMAP.md queue 1, item 8).
+is ROADMAP.md queue 1, "Multi-process placement").
 """
 
 from __future__ import annotations

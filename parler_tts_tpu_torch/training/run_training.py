@@ -141,7 +141,7 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
     model_args, data_args, train_args = parse_args(argv)
     device = resolve_device(device)
     if train_args.model_parallel_size > 1:
-        raise NotImplementedError("model_parallel_size > 1: multi-process placement is ROADMAP.md queue 1 item 8")
+        raise NotImplementedError("model_parallel_size > 1: ROADMAP.md queue 1, 'Multi-process placement'")
     if train_args.push_to_hub:
         raise NotImplementedError("push_to_hub: the port does not push to the hub (no network on the card's machine)")
     if train_args.scan_unroll != "auto":

@@ -203,3 +203,23 @@ def test_codec_encode_refuses_encodec_and_runs_tiny():
     assert jcodec.is_encodec(jcfg.EncodecConfig())
     with pytest.raises(NotImplementedError, match="EnCodec"):
         pcodec.build(jcfg.EncodecConfig())
+
+
+@pytest.mark.parametrize("side", ["encode", "decode"])
+def test_codec_convolutions_run_with_tf32_off_and_restore_the_flag(codecs, side, monkeypatch):
+    """cuDNN runs fp32 convolutions in TF32 by default; the codec turns it
+    off around its conv stacks (an fp32 codec is fp32, as JAX's offline
+    tokenizer is) and leaves the caller's flag as it found it."""
+    _, codec = codecs
+    seen = []
+    stack = codec.encoder if side == "encode" else codec.decoder
+    real = stack.forward
+    monkeypatch.setattr(stack, "forward", lambda x: seen.append(torch.backends.cudnn.allow_tf32) or real(x))
+    for flag in (True, False):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", flag)
+        if side == "encode":
+            codec.encode(T(_audio(1, 1024)))
+        else:
+            codec.decode(torch.zeros((1, 9, 3), dtype=torch.int64))
+        assert torch.backends.cudnn.allow_tf32 is flag
+    assert seen == [False, False]

@@ -72,10 +72,11 @@ def test_prefill_and_cached_decode_match_jax(jax_flash_interpret):
     assert pcache.index == P_LEN + 1
     close(jdecoder.logits(jp, ref_hidden, num_labels=1), decoder.logits(hidden, num_labels=1), 1e-4)
 
+    view = decoder.decode_params()
     for ids in steps:
         ref_hidden, cache = jdecoder.forward(jp, jc.decoder, ids, cache=cache, encoder_attention_mask=enc_mask,
                                              attention_mask=jnp.asarray(fused_mask))
-        hidden = decoder.decode_step(T(ids), pcache, encoder_attention_mask=T(enc_mask),
+        hidden = decoder.decode_step(T(ids), pcache, params=view, encoder_attention_mask=T(enc_mask),
                                      attention_mask=T(fused_mask))
         close(jdecoder.logits(jp, ref_hidden), decoder.logits(hidden), 1e-4)
     assert pcache.index == fused_mask.shape[1]

@@ -33,4 +33,6 @@ def test_port_imports_no_jax_and_no_jax_package(path):
 
 def test_the_walk_sees_the_whole_port():
     assert len(SOURCES) > 15 and (REPO / "chip_smoke.py").exists()
+    port = REPO / "parler_tts_tpu_torch"
+    assert {port / "serving" / "batcher.py", port / "generation" / "streaming.py"} <= set(SOURCES)
     assert _imported_roots(REPO / "tests" / "test_torch_blocks.py") >= {"jax", "parler_tts_tpu", "torch"}

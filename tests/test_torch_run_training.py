@@ -483,5 +483,5 @@ def test_main_refuses_without_cuda_and_what_is_not_ported(tmp_path, monkeypatch)
         _main(art, tmp_path / "o1", "--train_dataset_name", "parler-tts/libritts_r_filtered")
     with pytest.raises(NotImplementedError, match="hub"):
         _main(art, tmp_path / "o2", "--push_to_hub", "true", "--hub_model_id", "me/model")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="Multi-process placement"):
         _main(art, tmp_path / "o3", "--model_parallel_size", "2")
