@@ -25,8 +25,12 @@ Phases, in order; any failure exits non-zero before the result line:
    decoder-only continuation, int8 KV cache and weights, and a stream whose
    codes must also be ``generate``'s) must give the same tokens and
    waveforms, and one training step the same loss, gradient norm and
-   gradients.  Phases 2-3 run with TF32 off; every later phase runs under
-   the defaults a user gets (the DAC pins its own fp32 convolutions);
+   gradients; the same decoder over ``facebook/encodec_24khz``'s codec
+   (composite and ``generate(input_values=...)``: the same tokens, waveforms
+   within 1e-4) and a small chunked 48 kHz-style EnCodec (the same codes,
+   scales and overlap-added waveform).  Phases 2-3 run with TF32 off; every
+   later phase runs under the defaults a user gets (the codecs pin their own
+   fp32 convolutions);
 4. inference path: ``ParlerTTSPipeline.tts`` at full Parler-TTS Mini v0.1
    width (random weights from a seed, bf16), three calls of four requests
    whose prompt buckets give prefill lengths 17, 65 and 257; each call must
@@ -42,27 +46,37 @@ Phases, in order; any failure exits non-zero before the result line:
    equal ``generate``'s, each fp32 chunk a one-shot vocode of the frames so
    far); ``BatchingEngine`` (warmup, a burst of 6 requests from threads,
    each batch replayed as a direct ``tts``);
-5. training path: ``make_train_step`` on Mini at full width and depth, fp32
+5. EnCodec: Mini's decoder over 8 codebooks of ``facebook/encodec_24khz``'s
+   codec (bf16, the same counts and holds): two ``tts`` calls, one timed
+   phase by phase, and ``generate(input_values=...)`` on two 2 s waveforms;
+   then the EnCodec encode side at fp32 as phase 8 runs the DAC's;
+6. reference import: a seeded random Mini written as an HF-format
+   checkpoint directory (two safetensors shards, the DAC weight-normed),
+   ``from_reference_pretrained`` on the card (every tensor its source's bit
+   for bit), one ``tts`` call with the source's tokens, then the converter
+   to a port artifact and ``from_pretrained`` with the same tokens; the
+   directory is deleted;
+7. training path: ``make_train_step`` on Mini at full width and depth, fp32
    parameters with bf16 compute, the Mini recipe (AdamW lr 9.5e-4, beta
    (0.9, 0.99), wd 0.01, clip 1.0, dropout 0.1, one warmup update): 5 steps
    on one batch of 3 x 10 s (fused T = 903) launching K1 and K4 24 times per
    step, an eval step, one step under torch.profiler, then 2 steps at 1 x
    30 s (fused T = 2623) launching K2 and K3 24 times per step.  Losses must
    be finite and the last of the 5 below the first;
-6. codec encode: the DAC encode side at Mini's codec (fp32) over 8 waveforms
+8. codec encode: the DAC encode side at Mini's codec (fp32) over 8 waveforms
    of 2-10 s through ``tokenize_audio_batches``: frame counts, and one 1 s
    clip's codes against the CPU's (differences only at near-ties, counted;
    also counted, not gated, for the conv stack outside the fp32 pin);
-7. training CLI: ``run_training.main`` at full Mini width on
+9. training CLI: ``run_training.main`` at full Mini width on
    ``synthetic://48``, 4 steps with checkpoints, rotation and an eval (loss
    and generation passes), then a second ``main`` that resumes from
    ``checkpoint-4-epoch-0`` (trainable parameters bit for bit) and runs
    steps 5 and 6; K1 and K4 24 times per train step, and held against
    their plain versions on the tensors of their first call at each of the
    run's shapes (train step, eval loss batch, generation prefill);
-8. ``ParlerTTSPipeline.from_pretrained`` over the CLI's ``final/`` artifact:
-   one ``tts`` call with finite audio, and the artifact's tensors those of
-   the last checkpoint.  The CLI's temporary output directory is deleted.
+10. ``ParlerTTSPipeline.from_pretrained`` over the CLI's ``final/`` artifact:
+    one ``tts`` call with finite audio, and the artifact's tensors those of
+    the last checkpoint.  The CLI's temporary output directory is deleted.
 
 Output: a JSON line per phase, then the kernels line, then ``nvidia-smi``'s
 ``name, power.limit``, then the result line
@@ -741,7 +755,7 @@ def mini_batch(cfg, data_mod, *, seconds: int, prompt_lens, desc_lens, seed: int
 
 
 def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
-    """Phase 5: the training path at full Mini width.  Returns the kernel
+    """Phase 7: the training path at full Mini width.  Returns the kernel
     launches of the whole phase."""
     cfg = cfg_mod.mini_600m_config()
     layers = cfg.decoder.num_hidden_layers
@@ -813,53 +827,53 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
     return out
 
 
-def run_codec_encode(cfg_mod, codec_mod, data_mod, card: str) -> None:
-    """Phase 6: the DAC encode side at Mini's codec (random weights from
-    seed 0, fp32): 8 seeded waveforms of 2-10 s through
+def run_codec_encode(codec_cfg, label: str, codec_mod, data_mod, card: str) -> None:
+    """Phases 8 and 5: a codec's encode side (random weights
+    from seed 0, fp32): 8 seeded waveforms of 2-10 s through
     ``tokenize_audio_batches(batch_size=4)``, once to warm up and once timed;
-    each sample must get ``ceil(len / hop)`` frames of every codebook.  Then
-    one 1 s clip's codes on the card against the CPU's: a code may differ
-    only at a near-tie, where the CPU's score of the card's code is within
-    ``CODE_TIE_TOL`` of its best (``ResidualVQ.code_gaps``).  The same clip
-    through the conv stack outside ``DAC.encode``'s fp32 pin, under the
+    each sample must get ``ceil(len / hop)`` frames of every codebook the
+    composite models.  Then one 1 s clip's codes on the card against the
+    CPU's: a code may differ only at a near-tie, where the CPU's score of the
+    card's code is within ``CODE_TIE_TOL`` of its best (``code_gaps``).  The
+    same clip through the conv stack outside the codec's fp32 pin, under the
     run's default flags (cuDNN's TF32 on), is counted the same way and
     reported, not gated."""
     from parler_tts_tpu_torch.models.dac import pad_audio
 
-    cfg = cfg_mod.mini_600m_config().audio_encoder
     with torch.device("cuda"):
-        codec = codec_mod.build(cfg)
+        codec = codec_mod.build(codec_cfg)
     codec.reset_parameters(torch.Generator(device="cuda").manual_seed(SEED))
-    sr, hop = cfg.sampling_rate, cfg.hop_length
+    sr, hop, k = codec_cfg.sampling_rate, codec_cfg.hop_length, codec_cfg.num_codebooks
+    # the conv stack's input: the DAC pads to a multiple of its hop, EnCodec's convs pad themselves
+    prep = (lambda a: a[:, None]) if codec_mod.is_encodec(codec_cfg) else (lambda a: pad_audio(a, hop)[:, None])
     rng = np.random.default_rng(SEED)
     waves = []
     for n in rng.integers(2 * sr, 10 * sr + 1, 8):
         t = np.arange(n) / sr
         waves.append((0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * t)
                       + 0.05 * rng.standard_normal(n)).astype(np.float32))
-    data_mod.tokenize_audio_batches(codec, cfg, waves, batch_size=4)  # warm-up (cuDNN's choices)
+    data_mod.tokenize_audio_batches(codec, codec_cfg, waves, batch_size=4)  # warm-up (cuDNN's choices)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    codes = data_mod.tokenize_audio_batches(codec, cfg, waves, batch_size=4)
+    codes = data_mod.tokenize_audio_batches(codec, codec_cfg, waves, batch_size=4)
     wall = time.perf_counter() - t0
-    shapes_ok = all(c.shape == (cfg.num_codebooks, -(-len(w) // hop)) and c.dtype == np.int16
-                    for c, w in zip(codes, waves))
+    shapes_ok = all(c.shape == (k, -(-len(w) // hop)) and c.dtype == np.int16 for c, w in zip(codes, waves))
     clip = torch.from_numpy(waves[0][:sr])[None]
     cpu_codec = copy.deepcopy(codec).cpu()
     with torch.no_grad():
-        card_codes = codec.encode(clip.cuda()).cpu()
-        cpu_codes = cpu_codec.encode(clip)
-        z = cpu_codec.encoder(pad_audio(clip, hop)[:, None]).transpose(1, 2)
+        card_codes = codec_mod.encode(codec, clip.cuda()).cpu()
+        cpu_codes = codec_mod.encode(cpu_codec, clip)
+        z = cpu_codec.encoder(prep(clip)).transpose(1, 2)
         gaps = cpu_codec.quantizer.code_gaps(z, card_codes)
-        # the conv stack as DAC.encode ran it before it pinned fp32: under this run's flags, the defaults
-        unpinned = codec.quantizer.encode(codec.encoder(pad_audio(clip.cuda(), hop)[:, None]).transpose(1, 2)).cpu()
+        # the conv stack as the codec ran it before it pinned fp32: under this run's flags, the defaults
+        unpinned = codec.quantizer.encode(codec.encoder(prep(clip.cuda())).transpose(1, 2), k).cpu()
         unpinned_gaps = cpu_codec.quantizer.code_gaps(z, unpinned)
     differ = card_codes != cpu_codes
     worst_gap = gaps.max().item()
     ok = shapes_ok and worst_gap <= CODE_TIE_TOL
     audio_s = sum(len(w) for w in waves) / sr
-    emit({"phase": "codec_encode", "config": "mini_600m_config DAC fp32, random weights (seed 0)", "card": card,
+    emit({"phase": "codec_encode", "codec": label, "config": f"{label} fp32, random weights (seed 0)", "card": card,
           "waveforms": len(waves), "audio_s": audio_s, "batch_size": 4, "ms": 1e3 * wall,
           "audio_s_per_wall_s": audio_s / wall, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "frames": [int(c.shape[1]) for c in codes], "shapes_ok": shapes_ok,
@@ -870,7 +884,7 @@ def run_codec_encode(cfg_mod, codec_mod, data_mod, card: str) -> None:
           "unpinned_frames_differing": int((unpinned != cpu_codes).any(dim=1).sum()),
           "unpinned_max_score_gap": unpinned_gaps.max().item(), "ok": ok})
     if not ok:
-        raise AssertionError("the DAC encode side gives wrong shapes or codes that are not the CPU's")
+        raise AssertionError(f"the {label} encode side gives wrong shapes or codes that are not the CPU's")
 
 
 class KernelSpy:
@@ -918,7 +932,7 @@ class KernelSpy:
 
 
 def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -> dict:
-    """Phase 7: ``run_training.main`` at full Mini width (the default model,
+    """Phase 9: ``run_training.main`` at full Mini width (the default model,
     random weights from the default seed, bf16 compute) on ``synthetic://48``:
     4 optimizer steps of batch 3 with a checkpoint every 2 (one kept), an
     eval at step 4 (loss pass over 3 samples, generation of up to 100
@@ -1018,7 +1032,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
 
 
 def run_from_pretrained(cfg_mod, pipeline_mod, tokenizer_mod, ck, out_dir: str, card: str) -> None:
-    """Phase 8: ``ParlerTTSPipeline.from_pretrained`` over the CLI's
+    """Phase 10: ``ParlerTTSPipeline.from_pretrained`` over the CLI's
     ``final/`` (bf16, the toy tokenizer), one ``tts`` call of 4 requests at
     ``max_seconds=2.5`` (special-id LM-head columns zeroed and top-k 50, as
     in phase 4, so that the six-step model decodes full length): finite
@@ -1108,10 +1122,7 @@ def run_decoder_only(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
     plain version, and the decoder-only one timed.  Returns K1's launches,
     its largest error held and its time row."""
     layers, hop, sr = cfg.decoder.num_hidden_layers, cfg.audio_encoder.hop_length, cfg.sampling_rate
-    rng = np.random.default_rng(SEED + 6)
-    t = np.arange(2 * sr) / sr
-    waves = np.stack([0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal(t.size)
-                      for f in (140.0, 220.0)]).astype(np.float32)
+    waves = sine_waves((140.0, 220.0), 2.0, sr, SEED + 6)
     codes, encode_s = sync_time(lambda: model.audio_encoder.encode(torch.from_numpy(waves).cuda()))
     frames = codes.shape[2]
     gen = dataclasses.replace(pipe.gen, guidance_scale=3.0)
@@ -1383,6 +1394,370 @@ def run_serving(cfg, model, pipe, fa, serving_mod, card: str) -> tuple[int, floa
     return launches, err
 
 
+def encodec_mini_config(cfg_mod):
+    """Mini with ``facebook/encodec_24khz``'s geometry as its codec (32
+    filters, ratios 8/5/4/2, a 2-layer 512-wide LSTM, 32 codebooks of 1024 x
+    128, 24 kHz, 75 frames/s) and the decoder over 8 of its codebooks, as the
+    reference's EnCodec assembly."""
+    cfg = cfg_mod.mini_600m_config()
+    return dataclasses.replace(cfg, audio_encoder=cfg_mod.EncodecConfig(num_codebooks=8),
+                               decoder=dataclasses.replace(cfg.decoder, num_codebooks=8))
+
+
+# a small 48 kHz-style EnCodec: stereo, normalized, time group norm, non-causal,
+# chunks of 0.2 s overlapping by 10 %
+SMALL_CHUNKED_ENCODEC = dict(target_bandwidths=(1.5, 3.0), sampling_rate=4800, audio_channels=2, normalize=True,
+                             chunk_length_s=0.2, overlap=0.1, hidden_size=32, num_filters=8,
+                             upsampling_ratios=(4, 4, 2), norm_type="time_group_norm", use_causal_conv=False,
+                             codebook_size=64)
+
+
+def sine_waves(freqs, seconds: float, sr: int, seed: int) -> np.ndarray:
+    """(len(freqs), seconds * sr) seeded tones with a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    return np.stack([0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal(t.size)
+                     for f in freqs]).astype(np.float32)
+
+
+def check_encodec_reference(cfg_mod, parler, generate_mod, codec_mod) -> None:
+    """Phase 3, EnCodec: ``dummy_config``'s decoder over 8 codebooks with
+    ``facebook/encodec_24khz``'s codec, greedy at fp32, the card against the
+    CPU: composite generation and ``generate(input_values=...)`` from two
+    1 s waveforms must give the same tokens and waveforms within 1e-4.  Then
+    ``SMALL_CHUNKED_ENCODEC``: ``encode_chunked`` of 1 s of stereo (codes,
+    the last chunk's pad, scales within 1e-5 relative) and
+    ``decode_chunked`` (within 1e-4)."""
+    base = cfg_mod.dummy_config(num_codebooks=8)
+    cfg = dataclasses.replace(base, audio_encoder=cfg_mod.EncodecConfig(num_codebooks=8))
+    cpu_model = parler.init(SEED, cfg, device="cpu")
+    zero_special_heads(cpu_model)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    gen = cfg_mod.GenerationConfig(max_length=30, do_sample=False)
+    rng = torch.Generator().manual_seed(SEED + 3)
+    batch = dict(input_ids=torch.randint(3, 1000, (2, 11), generator=rng),
+                 prompt_input_ids=torch.randint(3, 1000, (2, 9), generator=rng))
+    waves = sine_waves((150.0, 230.0), 1.0, cfg.sampling_rate, SEED + 3)
+    frames = -(-waves.shape[1] // cfg.audio_encoder.hop_length)
+    cases = {"encodec composite": {}, "encodec generate(input_values)": dict(input_values=waves,
+                                                                            max_length=frames + 30)}
+    for case, extra in cases.items():
+        ref = generate_mod.generate(cpu_model, gen, device="cpu", **batch, **extra)
+        out = generate_mod.generate(gpu_model, gen, device="cuda", **batch, **extra)
+        same_tokens = bool((out.tokens.cpu() == ref.tokens).all())
+        audio_err = (out.audio.cpu() - ref.audio).abs().max().item()
+        ok = same_tokens and audio_err <= 1e-4 and bool(torch.isfinite(out.audio).all())
+        emit({"phase": "reference", "case": case, "config": "dummy_config + encodec_24khz (8 codebooks) fp32",
+              "same_tokens": same_tokens, "code_lengths": out.code_lengths.tolist(), "max_abs_err_audio": audio_err,
+              "tol_audio": 1e-4, "ok": ok})
+        if not ok:
+            raise AssertionError(f"the card and the CPU disagree on the small EnCodec composite ({case})")
+
+    small = cfg_mod.EncodecConfig(**SMALL_CHUNKED_ENCODEC)
+    cpu_codec = codec_mod.build(small)
+    cpu_codec.reset_parameters(torch.Generator().manual_seed(SEED))
+    gpu_codec = copy.deepcopy(cpu_codec).cuda()
+    sr = small.sampling_rate
+    stereo = torch.from_numpy(np.stack([sine_waves((170.0, 260.0), 1.0, sr, SEED + 4),
+                                        sine_waves((120.0, 310.0), 1.0, sr, SEED + 5)]).transpose(0, 2, 1).copy())
+    ref_codes, ref_scales, ref_pad = cpu_codec.encode_chunked(stereo, bandwidth=3.0)
+    codes, scales, pad = gpu_codec.encode_chunked(stereo.cuda(), bandwidth=3.0)
+    ref_wav = cpu_codec.decode_chunked(ref_codes, scales=ref_scales, last_frame_pad_length=ref_pad)
+    wav = gpu_codec.decode_chunked(codes, scales=scales, last_frame_pad_length=pad).cpu()
+    same = bool(torch.equal(codes.cpu(), ref_codes)) and pad == ref_pad > 0
+    scale_err = ((scales.cpu() - ref_scales).abs() / ref_scales.abs()).max().item()
+    wav_err = (wav - ref_wav).abs().max().item()
+    ok = same and scale_err <= 1e-5 and wav_err <= 1e-4 and bool(torch.isfinite(wav).all())
+    emit({"phase": "reference", "case": "encodec chunked 48 kHz-style", "config": SMALL_CHUNKED_ENCODEC,
+          "chunks": int(codes.shape[0]), "codes": list(codes.shape), "same_codes": same, "last_frame_pad": pad,
+          "max_rel_err_scales": scale_err, "max_abs_err_audio": wav_err, "tol_audio": 1e-4, "ok": ok})
+    if not ok:
+        raise AssertionError("the card and the CPU disagree on the chunked EnCodec")
+
+
+def run_encodec(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, generate_mod, codec_mod, data_mod,
+                card: str) -> tuple[int, float, dict]:
+    """Phase 5: ``encodec_mini_config`` (bf16, random weights from seed 0,
+    special-id heads zeroed, top-k 50): two ``tts`` calls of 4 requests at
+    2.5 s (prompt buckets 16 and 64), then one more with each phase timed
+    (decode ms/step, EnCodec decode ms); ``generate(input_values=...)``
+    continuing two seeded 2 s 24 kHz waveforms (batch 2, CFG 3.0, 2.5 s of
+    new audio), its prefill's K1 timed; each path with K1 once per layer per
+    prefill, held against its plain version.  Then the EnCodec encode side
+    at fp32 (``run_codec_encode``).  Returns K1's launches, its largest
+    error held and its time row."""
+    cfg = encodec_mini_config(cfg_mod)
+    model = parler.init(SEED, cfg, device="cuda", dtype=torch.bfloat16)
+    zero_special_heads(model)
+    tok = tokenizer_mod.ToyTokenizer(vocab_size=cfg.vocab_size)
+    pipe = pipeline_mod.ParlerTTSPipeline(model, cfg, cfg_mod.GenerationConfig(do_sample=True, top_k=50), tok, tok,
+                                          dtype=torch.bfloat16)
+    layers, hop, sr = cfg.decoder.num_hidden_layers, cfg.audio_encoder.hop_length, cfg.sampling_rate
+    calls = []
+
+    def tts_calls():
+        for i, n_words in enumerate((10, 50)):
+            (rate, wavs), wall = sync_time(lambda: pipe.tts(DESCRIPTIONS, _prompts(n_words), seed=SEED + i,
+                                                            max_seconds=2.5))
+            if not all(w.ndim == 1 and w.size and w.size % hop == 0 and np.isfinite(w).all() for w in wavs):
+                raise AssertionError(f"EnCodec tts gave a bad waveform: {[w.shape for w in wavs]}")
+            calls.append({"requests": len(wavs), "samples": [int(w.size) for w in wavs], "sampling_rate": rate,
+                          "wall_s": wall, "audio_s_per_wall_s": sum(w.size for w in wavs) / rate / wall})
+    _, tts_launches, _, tts_err = counted(fa, layers, tts_calls, place="encodec tts", calls=2)
+    timings = time_phases(model, pipe, _prompts(50), 2.5)
+
+    waves = sine_waves((140.0, 220.0), 2.0, sr, SEED + 6)
+    codes, encode_s = sync_time(lambda: codec_mod.encode(model.audio_encoder, torch.from_numpy(waves).cuda()))
+    frames = codes.shape[2]
+    gen = dataclasses.replace(pipe.gen, guidance_scale=3.0)
+    max_length = frames + pipe.max_length(2.5)
+    ids = pipe.tokenize(DESCRIPTIONS[:2], _prompts(10)[:2])
+    (out, wall), cont_launches, spy, cont_err = counted(fa, layers, lambda: sync_time(
+        lambda: generate_mod.generate(model, gen, input_values=waves, max_length=max_length,
+                                      generator=torch.Generator(device="cuda").manual_seed(SEED), **ids)),
+        place="encodec generate(input_values)")
+    kept = (bool((out.codes[:, :, :frames] == codes).all()) and bool(torch.isfinite(out.audio).all())
+            and int(out.code_lengths.min()) > frames)
+    (args, kw, _), = spy.captured.values()
+    k1 = {"kernel": "flash_attention_fwd", "path": "encodec generate(input_values) prefill", **k1_row(fa, *args, kw)}
+    emit({"phase": "k1_time", **k1})
+    summary = {"config": "mini_600m_config + encodec_24khz (decoder over 8 codebooks) bf16, random weights (seed 0)",
+               "card": card, "max_seconds": 2.5, "tts_calls": calls, **timings,
+               "continuation": {"batch": 2, "cfg": 3.0, "prompt_frames": frames, "max_length": max_length,
+                                "prefill_T": ids["prompt_input_ids"].shape[1] + 1 + frames, "wall_s": wall,
+                                "code_lengths": out.code_lengths.tolist(), "encodec_encode_s": encode_s,
+                                "prompt_codes_kept": kept},
+               "k1_launches": tts_launches + cont_launches, "k1_max_abs_err": max(tts_err, cont_err),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               # whether the bf16 vocoder's LSTM could take cuDNN's RNN (else PyTorch's own cells)
+               "cudnn_accepts_bf16": torch.backends.cudnn.is_acceptable(
+                   torch.empty(1, dtype=torch.bfloat16, device="cuda"))}
+    emit({"phase": "encodec", **summary, "ok": kept})
+    if not kept:
+        raise AssertionError("EnCodec generate(input_values) lost its audio prompt or gave non-finite audio")
+    del model, pipe
+    torch.cuda.empty_cache()
+    run_codec_encode(cfg.audio_encoder, "encodec_24khz", codec_mod, data_mod, card)
+    return tts_launches + cont_launches, max(tts_err, cont_err), k1
+
+
+def reference_tensors(model) -> dict[str, torch.Tensor]:
+    """The reverse of the import map, a fixture: a port Mini model's
+    tensors (on the CPU) under the reference checkpoint's names, the DAC
+    nested under ``audio_encoder.model.*`` as the reference's DAC wrapper
+    nests it, with HF ``DacModel`` names and every conv as ``weight_g`` /
+    ``weight_v`` (v = w; g = ||w|| over every dimension but 0, stored in
+    float64 so that the import's float64 fold gives w back bit for bit)."""
+    import re
+
+    sd = {name: t.detach().cpu() for name, t in model.state_dict().items()}
+    cfg, out = model.cfg, {}
+
+    def lin(ours: str, theirs: str) -> None:
+        out[f"{theirs}.weight"] = sd[ours].T.contiguous()
+
+    def weight_norm(theirs: str, w: torch.Tensor) -> None:
+        out[f"{theirs}.weight_g"] = w.double().square().sum(dim=(1, 2), keepdim=True).sqrt()
+        out[f"{theirs}.weight_v"] = w.contiguous()
+
+    out["text_encoder.shared.weight"] = sd["text_encoder.token_embed.embedding"]
+    out["text_encoder.encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = sd[
+        "text_encoder.rel_attn_bias.embedding"]
+    out["text_encoder.encoder.final_layer_norm.weight"] = sd["text_encoder.final_ln.scale"]
+    for i in range(cfg.text_encoder.num_layers):
+        b, p = f"text_encoder.encoder.block.{i}", f"text_encoder.layers.{i}"
+        for proj in "qkvo":
+            lin(f"{p}.attn.{proj}.kernel", f"{b}.layer.0.SelfAttention.{proj}")
+        for w in ("wi_0", "wi_1", "wo"):
+            lin(f"{p}.ffn.{w}.kernel", f"{b}.layer.1.DenseReluDense.{w}")
+        out[f"{b}.layer.0.layer_norm.weight"] = sd[f"{p}.ln_attn.scale"]
+        out[f"{b}.layer.1.layer_norm.weight"] = sd[f"{p}.ln_ffn.scale"]
+    d = "decoder.model.decoder"
+    for k in range(cfg.decoder.num_codebooks):
+        out[f"{d}.embed_tokens.{k}.weight"] = sd["decoder.embed_tokens.embedding"][k]
+        out[f"decoder.lm_heads.{k}.weight"] = sd["decoder.lm_heads.kernel"][k].T.contiguous()
+    for i in range(cfg.decoder.num_hidden_layers):
+        b, p = f"{d}.layers.{i}", f"decoder.layers.{i}"
+        for ours, theirs in (("self_attn", "self_attn"), ("cross_attn", "encoder_attn")):
+            for proj, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+                lin(f"{p}.{ours}.{proj}.kernel", f"{b}.{theirs}.{name}")
+        for ours, theirs in (("ln_self", "self_attn_layer_norm"), ("ln_cross", "encoder_attn_layer_norm"),
+                             ("ln_ffn", "final_layer_norm")):
+            out[f"{b}.{theirs}.weight"], out[f"{b}.{theirs}.bias"] = sd[f"{p}.{ours}.scale"], sd[f"{p}.{ours}.bias"]
+        lin(f"{p}.fc1.kernel", f"{b}.fc1")
+        lin(f"{p}.fc2.kernel", f"{b}.fc2")
+    out[f"{d}.layer_norm.weight"] = sd["decoder.final_ln.scale"]
+    out[f"{d}.layer_norm.bias"] = sd["decoder.final_ln.bias"]
+    out["embed_prompts.weight"] = sd["embed_prompts.embedding"]
+    lin("enc_to_dec_proj.kernel", "enc_to_dec_proj")
+    out["enc_to_dec_proj.bias"] = sd["enc_to_dec_proj.bias"]
+    renames = ((".conv_in.", ".conv1."), (".blocks.", ".block."), (".snake_out.", ".snake1."),
+               (".conv_out.", ".conv2."), (".conv_down.", ".conv1."), (".conv_up.", ".conv_t1."),
+               (".snake.", ".snake1."))
+    for name, t in sd.items():
+        if not name.startswith("audio_encoder.") or name.startswith("audio_encoder.quantizer."):
+            continue
+        theirs = "." + name.removeprefix("audio_encoder.")
+        for a, b in renames:
+            theirs = theirs.replace(a, b)
+        theirs = "audio_encoder.model" + re.sub(r"\.res(\d)\.", r".res_unit\1.", theirs)
+        if name.endswith(".weight"):
+            weight_norm(theirs.removesuffix(".weight"), t)
+        else:
+            out[theirs] = t.reshape(1, -1, 1) if name.endswith(".alpha") else t
+    q = sd["audio_encoder.quantizer.codebooks"]
+    for k in range(q.shape[0]):
+        base = f"audio_encoder.model.quantizer.quantizers.{k}"
+        out[f"{base}.codebook.weight"] = q[k]
+        for proj in ("in_proj", "out_proj"):
+            weight_norm(f"{base}.{proj}", sd[f"audio_encoder.quantizer.{proj}.kernel"][k].T[:, :, None])
+            out[f"{base}.{proj}.bias"] = sd[f"audio_encoder.quantizer.{proj}.bias"][k]
+    return out
+
+
+SAFETENSORS_DTYPES = {torch.float64: "F64", torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
+                      torch.int64: "I64"}
+
+
+def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> int:
+    """A minimal ``.safetensors`` writer (the card's machine has no
+    ``safetensors`` package): an 8-byte little-endian header length, the
+    JSON header padded to 8 bytes, then each tensor's bytes, widest dtype
+    first so that every tensor is aligned.  Returns the file's bytes."""
+    names = sorted(tensors, key=lambda n: -tensors[n].element_size())
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name in names:
+        t = tensors[name]
+        header[name] = {"dtype": SAFETENSORS_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + t.numel() * t.element_size()]}
+        offset += t.numel() * t.element_size()
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for name in names:
+            f.write(tensors[name].contiguous().view(torch.uint8).numpy())
+    return 8 + len(blob) + offset
+
+
+def write_reference_dir(path: str, model) -> int:
+    """A reference-format Parler-TTS directory of ``model`` (Mini): nested
+    ``config.json`` (a T5 config, the reference's DAC wrapper fields and the
+    DAC's geometry, the decoder's fields), Mini's ``generation_config.json``, and its tensors
+    (``reference_tensors``) in two safetensors shards behind an index.
+    Returns the shards' bytes."""
+    cfg = model.cfg
+    te, ac, dc = cfg.text_encoder, cfg.audio_encoder, cfg.decoder
+    config = {
+        "model_type": "parler_tts", "vocab_size": cfg.vocab_size,
+        "text_encoder": {"model_type": "t5", "vocab_size": te.vocab_size, "d_model": te.d_model, "d_kv": te.d_kv,
+                         "d_ff": te.d_ff, "num_layers": te.num_layers, "num_heads": te.num_heads,
+                         "relative_attention_num_buckets": te.relative_attention_num_buckets,
+                         "relative_attention_max_distance": te.relative_attention_max_distance,
+                         "layer_norm_epsilon": te.layer_norm_epsilon, "feed_forward_proj": "gated-gelu",
+                         "dense_act_fn": te.dense_act_fn, "is_gated_act": te.is_gated_act,
+                         "dropout_rate": te.dropout_rate},
+        "audio_encoder": {"model_type": "dac", **{k: getattr(ac, k) for k in (
+            "num_codebooks", "model_bitrate", "codebook_size", "codebook_dim", "latent_dim", "frame_rate",
+            "sampling_rate", "encoder_hidden_size", "downsampling_ratios", "decoder_hidden_size",
+            "upsampling_ratios")}},
+        "decoder": {"model_type": "parler_tts_decoder", **{k: getattr(dc, k) for k in (
+            "vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads", "ffn_dim", "num_codebooks",
+            "max_position_embeddings", "activation_function", "scale_embedding", "pad_token_id", "bos_token_id",
+            "eos_token_id")}},
+    }
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(path, "generation_config.json"), "w") as f:
+        json.dump({"max_length": 2580, "do_sample": True, "bos_token_id": dc.bos_token_id,
+                   "pad_token_id": dc.pad_token_id, "eos_token_id": dc.eos_token_id,
+                   "decoder_start_token_id": dc.bos_token_id}, f)
+    tensors = reference_tensors(model)
+    names = list(tensors)
+    shards = {"model-00001-of-00002.safetensors": names[: len(names) // 2],
+              "model-00002-of-00002.safetensors": names[len(names) // 2:]}
+    nbytes = sum(write_safetensors(os.path.join(path, fname), {n: tensors[n] for n in part})
+                 for fname, part in shards.items())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes},
+                   "weight_map": {n: fname for fname, part in shards.items() for n in part}}, f)
+    return nbytes
+
+
+def run_reference_import(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, from_reference, card: str,
+                         tmp: str) -> tuple[int, float]:
+    """Phase 6: a seeded random Mini written as a reference checkpoint
+    directory in ``tmp`` (``write_reference_dir``), loaded by
+    ``from_reference_pretrained`` on the card at fp32 (load s, GB/s): its
+    config must be the source's and every tensor the source's bit for bit.
+    Both then cast to bf16 and serve one ``tts`` call of 4 requests at 2.5 s
+    with one generator seed (special-id heads zeroed, top-k 50): the loaded
+    model's call launches K1 once per layer, held against its plain version,
+    and its tokens must be the source's.  Then
+    ``helpers/convert_reference_checkpoint_torch.py`` writes a port artifact,
+    which ``from_pretrained`` serves with the same tokens.  Returns K1's
+    launches and its largest error held."""
+    import importlib.util
+
+    cfg = cfg_mod.mini_600m_config()
+    source = parler.init(SEED + 7, cfg, device="cuda")
+    ref_dir, art_dir = os.path.join(tmp, "reference"), os.path.join(tmp, "artifact")
+    _, write_s = sync_time(lambda: write_reference_dir(ref_dir, source))
+    nbytes = sum(os.path.getsize(os.path.join(ref_dir, f)) for f in os.listdir(ref_dir) if f.endswith(".safetensors"))
+    (model, loaded_cfg, gen), load_s = sync_time(lambda: from_reference.from_reference_pretrained(ref_dir,
+                                                                                                 device="cuda"))
+    mine, theirs = model.state_dict(), source.state_dict()
+    equal = set(mine) == set(theirs) and all(torch.equal(mine[k], theirs[k]) for k in theirs)
+    tok = tokenizer_mod.ToyTokenizer(vocab_size=cfg.vocab_size)
+    gen = dataclasses.replace(gen, top_k=50)  # the main path's sampler
+    tokens = {}
+    real_generate = pipeline_mod.generate
+
+    def serve(name, pipe):
+        zero_special_heads(pipe.model)
+        pipe.gen = gen
+        pipeline_mod.generate = lambda *a, **kw: tokens.setdefault(name, real_generate(*a, **kw))
+        try:
+            (_, wavs), wall = sync_time(lambda: pipe.tts(DESCRIPTIONS, _prompts(10), seed=SEED, max_seconds=2.5))
+        finally:
+            pipeline_mod.generate = real_generate
+        if not all(w.size and np.isfinite(w).all() for w in wavs):
+            raise AssertionError(f"{name} gave empty or non-finite audio")
+        return wall
+
+    def pipeline(m):
+        return pipeline_mod.ParlerTTSPipeline(m, cfg, gen, tok, tok, dtype=torch.bfloat16)
+
+    tts_s, launches, _, err = counted(fa, cfg.decoder.num_hidden_layers, lambda: serve("loaded", pipeline(model)),
+                                      place="reference_import tts")
+    serve("source", pipeline(source))
+    del model, source
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location("convert", os.path.join(REPO, "helpers",
+                                                                         "convert_reference_checkpoint_torch.py"))
+    convert = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(convert)
+    _, convert_s = sync_time(lambda: convert.main([ref_dir, art_dir, "--device", "cuda"]))
+    artifact, artifact_load_s = sync_time(lambda: pipeline_mod.ParlerTTSPipeline.from_pretrained(
+        art_dir, tokenizer=tok, dtype=torch.bfloat16))
+    serve("artifact", artifact)
+    same = {name: bool(torch.equal(tokens[name].tokens, tokens["source"].tokens)) for name in ("loaded", "artifact")}
+    summary = {"config": "mini_600m_config fp32 -> bf16, random weights (seed 7)", "card": card,
+               "safetensors_gb": nbytes / 1e9, "write_s": write_s, "load_s": load_s,
+               "load_gb_per_s": nbytes / 1e9 / load_s,
+               "config_equal": loaded_cfg == cfg, "tensors": len(theirs), "tensors_bit_exact": equal,
+               "tts_wall_s": tts_s, "k1_launches": launches, "k1_max_abs_err": err, "same_tokens_as_source": same,
+               "code_lengths": tokens["loaded"].code_lengths.tolist(), "convert_s": convert_s,
+               "artifact_load_s": artifact_load_s}
+    ok = equal and loaded_cfg == cfg and all(same.values())
+    emit({"phase": "reference_import", **summary, "ok": ok})
+    if not ok:
+        raise AssertionError("the reference checkpoint did not load as its source (see the reference_import line)")
+    return launches, err
+
+
 def time_phases(model, pipe, prompts, max_seconds) -> dict:
     """One more tts call with each phase synchronised and host-timed: T5
     encode, decoder prefill, each decode step, DAC vocode."""
@@ -1441,7 +1816,7 @@ def main() -> int:
     from parler_tts_tpu_torch import serving as serving_mod
     from parler_tts_tpu_torch.core import checkpoint as ck
     from parler_tts_tpu_torch.core import config as cfg_mod
-    from parler_tts_tpu_torch.core import from_jax
+    from parler_tts_tpu_torch.core import from_jax, from_reference
     from parler_tts_tpu_torch.generation import generate as generate_mod
     from parler_tts_tpu_torch.generation import streaming as streaming_mod
     from parler_tts_tpu_torch.models import codec as codec_mod
@@ -1476,6 +1851,7 @@ def main() -> int:
         k1 = check_kernels(fa)
         bwd = check_backward(fa)
         check_reference(cfg_mod, parler, generate_mod, streaming_mod)
+        check_encodec_reference(cfg_mod, parler, generate_mod, codec_mod)
         check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax)
     # from here on, the flags a user gets (the DAC pins its own fp32 convolutions)
     tts_launches, model, pipe = run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card)
@@ -1488,11 +1864,23 @@ def main() -> int:
     del model, pipe
     gc.collect()
     torch.cuda.empty_cache()
+    new_paths["encodec"] = run_encodec(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, generate_mod, codec_mod,
+                                       data_mod, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_tmp = tempfile.mkdtemp(prefix="parler_reference_")
+    try:
+        new_paths["reference_import"] = run_reference_import(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod,
+                                                             from_reference, card, ref_tmp)
+    finally:
+        shutil.rmtree(ref_tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card)
     train_launches = train["launches"]
     del train
     torch.cuda.empty_cache()
-    run_codec_encode(cfg_mod, codec_mod, data_mod, card)
+    run_codec_encode(cfg_mod.mini_600m_config().audio_encoder, "mini_600m_config DAC", codec_mod, data_mod, card)
     torch.cuda.empty_cache()
     out_dir = tempfile.mkdtemp(prefix="parler_train_cli_")
     try:
@@ -1519,7 +1907,8 @@ def main() -> int:
                            *(path[1] for path in new_paths.values())),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
-        "per_shape": k1["per_shape"] + [new_paths["decoder_only"][2]] + bwd["flash_attention_fwd"]["per_shape"],
+        "per_shape": k1["per_shape"] + [new_paths["decoder_only"][2], new_paths["encodec"][2]]
+        + bwd["flash_attention_fwd"]["per_shape"],
     }]
     for name in BWD_NAMES:
         row = next(r for r in bwd[name]["per_shape"] if r["path"])

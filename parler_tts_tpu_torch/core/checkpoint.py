@@ -15,7 +15,9 @@ Orbax:
   ``preprocessor_config.json``, each byte for byte what the JAX
   ``save_model`` writes for the same config, and ``weights.pt``, the whole
   model's state_dict (loaded with ``strict=True``).  No tokenizer is saved:
-  the port has none (ROADMAP.md queue 1, "Tokenizer plan").
+  the port has none (ROADMAP.md queue 1, "Tokenizer plan"); the converters
+  copy a source directory's tokenizer and feature-extractor files beside the
+  artifact (``carry_side_files``).
 
 Tensors are copied to the CPU before they are written.
 """
@@ -165,6 +167,24 @@ def save_model(path: str, model: ParlerTTSModel, cfg: ParlerTTSConfig, gen: Gene
             "overlap": getattr(acfg, "overlap", None),
         }, f, indent=2)
     _save(_cpu(model.state_dict()), os.path.join(path, WEIGHTS_FILE))
+
+
+#: tokenizer and feature-extractor files a model directory may hold beside its
+#: weights (the JAX package's converter carries the same list)
+SIDE_FILES = ("tokenizer.json", "tokenizer_config.json", "special_tokens_map.json", "spiece.model",
+              "added_tokens.json", "vocab.json", "merges.txt", "preprocessor_config.json")
+
+
+def carry_side_files(src: str, dst: str) -> list[str]:
+    """Copy the ``SIDE_FILES`` that ``src`` holds into ``dst`` (the source's
+    ``preprocessor_config.json`` replaces the one ``save_model`` wrote);
+    returns their names."""
+    carried = []
+    for name in SIDE_FILES:
+        if os.path.exists(os.path.join(src, name)):
+            shutil.copy2(os.path.join(src, name), os.path.join(dst, name))
+            carried.append(name)
+    return carried
 
 
 def load_model(path: str, *, device: str | torch.device = "cuda",

@@ -4,16 +4,15 @@ The port's own copy of the JAX package's frozen dataclasses
 (``parler_tts_tpu/core/config.py``): the same fields, defaults and JSON
 round-trip, so both packages read the same ``config.json`` /
 ``generation_config.json`` that ``parler_tts_tpu.core.checkpoint.save_model``
-writes.  Unknown keys are ignored on load.
-
-The EnCodec codec family is not ported yet: a config whose
-``audio_encoder.codec_type`` is ``"encodec"`` raises ``NotImplementedError``.
+writes.  Unknown keys are ignored on load.  The composite's
+``audio_encoder`` is either codec family, told apart by ``codec_type``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from dataclasses import dataclass, field
 
 
@@ -83,13 +82,84 @@ class DACConfig:
     from_dict = classmethod(_fromdict)
 
 
-def _codec_from_dict(d: dict) -> DACConfig:
-    if d.get("codec_type") == "encodec":
-        raise NotImplementedError(
-            "the EnCodec codec family is not ported yet (ROADMAP.md queue 1, "
-            "'EnCodec'); only DAC configs load in parler_tts_tpu_torch"
-        )
-    return DACConfig.from_dict(d)
+@dataclass(frozen=True)
+class EncodecConfig:
+    """Meta EnCodec hyper-parameters (defaults = ``facebook/encodec_24khz``),
+    with the field semantics of HF ``transformers.EncodecConfig``.
+    ``num_codebooks`` is how many codebook streams the composite's decoder
+    models (None = every quantizer); the codec's RVQ decode sums however many
+    it is given."""
+
+    codec_type: str = "encodec"
+    target_bandwidths: tuple[float, ...] = (1.5, 3.0, 6.0, 12.0, 24.0)
+    sampling_rate: int = 24000
+    audio_channels: int = 1
+    normalize: bool = False
+    chunk_length_s: float | None = None
+    overlap: float | None = None
+    hidden_size: int = 128
+    num_filters: int = 32
+    num_residual_layers: int = 1
+    upsampling_ratios: tuple[int, ...] = (8, 5, 4, 2)
+    norm_type: str = "weight_norm"  # or "time_group_norm" (48 kHz model)
+    kernel_size: int = 7
+    last_kernel_size: int = 7
+    residual_kernel_size: int = 3
+    dilation_growth_rate: int = 2
+    use_causal_conv: bool = True
+    pad_mode: str = "reflect"
+    compress: int = 2
+    num_lstm_layers: int = 2
+    trim_right_ratio: float = 1.0
+    codebook_size: int = 1024
+    codebook_dim: int | None = None  # None -> hidden_size
+    use_conv_shortcut: bool = True
+    num_codebooks: int | None = None  # None -> num_quantizers
+
+    def __post_init__(self):
+        object.__setattr__(self, "target_bandwidths", tuple(self.target_bandwidths))
+        object.__setattr__(self, "upsampling_ratios", tuple(self.upsampling_ratios))
+        if self.codebook_dim is None:
+            object.__setattr__(self, "codebook_dim", self.hidden_size)
+        if self.num_codebooks is None:
+            object.__setattr__(self, "num_codebooks", self.num_quantizers)
+        if self.norm_type not in ("weight_norm", "time_group_norm"):
+            raise ValueError(f"norm_type must be weight_norm|time_group_norm, got {self.norm_type}")
+
+    @property
+    def hop_length(self) -> int:
+        return math.prod(self.upsampling_ratios)
+
+    @property
+    def frame_rate(self) -> int:
+        return -(-self.sampling_rate // self.hop_length)  # ceil
+
+    @property
+    def codebook_nbits(self) -> int:
+        return max(1, (self.codebook_size - 1).bit_length())
+
+    @property
+    def num_quantizers(self) -> int:
+        """Codebooks the codec carries (HF ``EncodecConfig.num_quantizers``),
+        a float floor division as HF's: 32 at 24 kHz."""
+        return int(1000 * self.target_bandwidths[-1] // (self.frame_rate * self.codebook_nbits))
+
+    @property
+    def chunk_length(self) -> int | None:
+        return None if self.chunk_length_s is None else int(self.chunk_length_s * self.sampling_rate)
+
+    @property
+    def chunk_stride(self) -> int | None:
+        if self.chunk_length_s is None or self.overlap is None:
+            return None
+        return max(1, int((1.0 - self.overlap) * self.chunk_length))
+
+    to_dict = _asdict
+    from_dict = classmethod(_fromdict)
+
+
+def _codec_from_dict(d: dict) -> DACConfig | EncodecConfig:
+    return (EncodecConfig if d.get("codec_type") == "encodec" else DACConfig).from_dict(d)
 
 
 @dataclass(frozen=True)
@@ -136,7 +206,7 @@ class ParlerTTSConfig:
 
     vocab_size: int = 32128
     text_encoder: T5EncoderConfig = field(default_factory=T5EncoderConfig)
-    audio_encoder: DACConfig = field(default_factory=DACConfig)
+    audio_encoder: DACConfig | EncodecConfig = field(default_factory=DACConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
 
     def __post_init__(self):
@@ -224,6 +294,28 @@ def mini_600m_config() -> ParlerTTSConfig:
             ffn_dim=4096,
             num_attention_heads=16,
             hidden_size=1024,
+            num_codebooks=9,
+            pad_token_id=1024,
+            eos_token_id=1024,
+            bos_token_id=1025,
+        ),
+    )
+
+
+def large_2b_config() -> ParlerTTSConfig:
+    """A large-class assembly (about 2B decoder parameters: 36 layers, 2048
+    wide, 32 heads, ffn 8192) with a flan-t5-large-shaped text encoder."""
+    return ParlerTTSConfig(
+        vocab_size=32128,
+        text_encoder=T5EncoderConfig(d_model=1024, d_kv=64, d_ff=2816, num_layers=24, num_heads=16),
+        audio_encoder=DACConfig(),
+        decoder=DecoderConfig(
+            vocab_size=1088,
+            max_position_embeddings=4096,
+            num_hidden_layers=36,
+            ffn_dim=8192,
+            num_attention_heads=32,
+            hidden_size=2048,
             num_codebooks=9,
             pad_token_id=1024,
             eos_token_id=1024,

@@ -10,7 +10,10 @@ tree's keys, so most leaves copy as they are.  The layout changes:
 * codec conv kernels (encoder and decoder) are WIO and become torch
   ``Conv1d`` weights, and the ``conv_up`` kernels, stored time-flipped and
   in/out-swapped, become ``ConvTranspose1d`` weights (``ops/conv.py`` holds
-  both converters).
+  both converters);
+* an EnCodec LSTM layer's ``wi`` (C, 4H) and ``wh`` (H, 4H) become
+  ``nn.LSTM``'s ``weight_ih_l{k}`` / ``weight_hh_l{k}`` (transposed), its
+  folded ``bias`` becomes ``bias_ih_l{k}`` and ``bias_hh_l{k}`` is zero.
 
 Every other leaf must match a parameter, and every parameter a leaf.
 
@@ -29,6 +32,7 @@ from torch import nn
 
 from parler_tts_tpu_torch.models.dac import DAC
 from parler_tts_tpu_torch.models.decoder import ParlerDecoder
+from parler_tts_tpu_torch.models.encodec import Encodec
 from parler_tts_tpu_torch.models.parler import TRAINABLE_KEYS, ParlerTTSModel
 from parler_tts_tpu_torch.ops import conv as conv_ops
 
@@ -55,8 +59,16 @@ def _decoder_entries(tree) -> Iterator[Entry]:
             yield path, t
 
 
-def _dac_entries(tree) -> Iterator[Entry]:
+def _codec_entries(tree) -> Iterator[Entry]:
     for path, t in _flatten(tree):
+        if path[0] in ("encoder", "decoder") and path[1] == "lstm":
+            side, _, k, leaf = path
+            if leaf == "bias":  # b_ih + b_hh folded: all of it in b_ih
+                yield (side, "lstm", f"bias_ih_l{k}"), t
+                yield (side, "lstm", f"bias_hh_l{k}"), torch.zeros_like(t)
+            else:
+                yield (side, "lstm", f"weight_{'ih' if leaf == 'wi' else 'hh'}_l{k}"), t.T
+            continue
         if path[0] in ("encoder", "decoder") and path[-1] == "kernel":
             if path[-2] == "conv_up":
                 t = conv_ops.torch_conv_transpose1d_weight(t)
@@ -73,8 +85,8 @@ def _entries(module: nn.Module | None, tree) -> Iterator[Entry]:
                 yield (key, *path), t
     elif isinstance(module, ParlerDecoder):
         yield from _decoder_entries(tree)
-    elif isinstance(module, DAC):
-        yield from _dac_entries(tree)
+    elif isinstance(module, (DAC, Encodec)):
+        yield from _codec_entries(tree)
     else:
         yield from _flatten(tree)
 

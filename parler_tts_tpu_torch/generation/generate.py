@@ -240,7 +240,7 @@ def check_vocodable(cfg: ParlerTTSConfig) -> None:
 
 
 def _finalize(model: ParlerTTSModel, tokens: torch.Tensor, *, vocode: bool = True) -> GenerateOutput:
-    """Undelay/trim, then one batched DAC vocode of the trimmed codes."""
+    """Undelay/trim, then one batched codec vocode of the trimmed codes."""
     cfg = model.cfg
     codes, code_lengths = postprocess_tokens(tokens, cfg)
     if vocode:
@@ -270,7 +270,7 @@ def audio_prompt_codes(model: ParlerTTSModel, input_values: torch.Tensor | None,
                        decoder_input_codes: torch.Tensor | None, *,
                        stereo_repeat: bool = True) -> torch.Tensor | None:
     """The audio prompt as codes (B, K, frames): ``input_values`` (B, T)
-    encoded by the model's DAC, or ``decoder_input_codes`` as given.  With
+    encoded by the model's codec, or ``decoder_input_codes`` as given.  With
     ``stereo_repeat``, mono codes into a stereo decoder are repeated per
     channel (JAX ``generate`` ``:423-429``)."""
     if input_values is not None:
@@ -293,7 +293,7 @@ def generate(model: ParlerTTSModel, gen: GenerationConfig, *, input_ids, prompt_
     """description ids (B, S) + prompt ids (B, P) -> waveform.
 
     ``input_values`` (B, T) raw audio continues a voice (encoded by the
-    model's DAC); ``decoder_input_codes`` (B, K, frames) passes its codes
+    model's codec); ``decoder_input_codes`` (B, K, frames) passes its codes
     instead.  Inputs may be numpy arrays or tensors; they are moved to
     ``device``, where the model must already live.  Sampling
     (``gen.do_sample``) draws its Gumbel noise from ``generator``, or takes

@@ -7,10 +7,12 @@ Port of ``parler_tts_tpu/generation/streaming.py``.  The decode loop is
 generator (or injected noise) give the same codes.  Each ready chunk is
 vocoded with ``lookback`` frames of left context: the DAC decoder is
 convolutional, so with a lookback at least its left receptive field the
-emitted samples equal a one-shot vocode of every frame ready so far.  Its
-convolutions are centred, so a chunk's last frames lack the right context
-that a one-shot vocode of the whole utterance gives them; the JAX design
-holds back no frames for it, and neither does this port.  Early windows
+emitted samples equal a one-shot vocode of every frame ready so far (an
+EnCodec decoder's LSTM restarts at each window, so there they only
+approach it).  The DAC's convolutions are centred, so a chunk's last frames
+lack the right context that a one-shot vocode of the whole utterance gives
+them; the JAX design holds back no frames for it, and neither does this
+port.  Early windows
 vocode exactly the frames there are (no left padding: code 0 is not
 silence).
 PyTorch runs eagerly, so there is no counterpart of the JAX module's

@@ -1,32 +1,53 @@
-"""Codec dispatch by config type (port of ``parler_tts_tpu/models/codec.py``).
-
-Only the DAC family is ported, encode and decode; the EnCodec family raises
-until ROADMAP.md queue 1 item "EnCodec" lands.
-"""
+"""Codec dispatch by config type (port of ``parler_tts_tpu/models/codec.py``):
+the DAC or the EnCodec family, encode and decode.  Generation, streaming and
+the training data go through this module, so a composite carries either."""
 
 from __future__ import annotations
 
 import torch
 
-from parler_tts_tpu_torch.core.config import DACConfig
+from parler_tts_tpu_torch.core import torch_import as ti
+from parler_tts_tpu_torch.core.config import EncodecConfig
 from parler_tts_tpu_torch.models.dac import DAC
+from parler_tts_tpu_torch.models.encodec import Encodec
+
+Codec = DAC | Encodec
 
 
-def build(cfg) -> DAC:
+def is_encodec(cfg) -> bool:
+    return isinstance(cfg, EncodecConfig) or getattr(cfg, "codec_type", "dac") == "encodec"
+
+
+def build(cfg) -> Codec:
     """The codec module for ``cfg`` (parameters uninitialised)."""
-    if not isinstance(cfg, DACConfig) or cfg.codec_type != "dac":
-        raise NotImplementedError(
-            "only the DAC codec is ported to parler_tts_tpu_torch; EnCodec waits for "
-            "ROADMAP.md queue 1, 'EnCodec'"
-        )
-    return DAC(cfg)
+    return Encodec(cfg) if is_encodec(cfg) else DAC(cfg)
 
 
-def encode(codec: DAC, audio: torch.Tensor, *, n_quantizers: int | None = None) -> torch.Tensor:
-    """(B, T) waveform -> (B, K, T_frames) codes."""
+def encode(codec: Codec, audio: torch.Tensor, *, n_quantizers: int | None = None) -> torch.Tensor:
+    """(B, T) waveform -> (B, K, T_frames) codes.  An EnCodec gives K =
+    ``cfg.num_codebooks``, the composite's stream count, and must be
+    codes-only: a normalized or chunked EnCodec carries scales that the token
+    decoder cannot model."""
+    if isinstance(codec, Encodec):
+        cfg = codec.cfg
+        if cfg.normalize or cfg.chunk_length is not None:
+            raise ValueError(
+                "composite models require a codes-only codec (normalize=False, unchunked): the 48 kHz "
+                "normalized EnCodec carries per-chunk scales the token LM cannot model; use models/encodec.py "
+                "directly")
+        return codec.encode(audio, n_quantizers=n_quantizers or cfg.num_codebooks)
     return codec.encode(audio, n_quantizers)
 
 
-def decode(codec: DAC, codes: torch.Tensor) -> torch.Tensor:
+def decode(codec: Codec, codes: torch.Tensor) -> torch.Tensor:
     """(B, K, T_frames) codes -> (B, T_frames * hop) waveform."""
     return codec.decode(codes)
+
+
+def import_torch(sd, cfg) -> dict[str, torch.Tensor]:
+    """An HF codec state_dict -> the codec module's state_dict (weight norm
+    folded)."""
+    if is_encodec(cfg):
+        return ti.import_encodec(sd, cfg)
+    return ti.import_dac(sd, num_down=len(cfg.downsampling_ratios), num_up=len(cfg.upsampling_ratios),
+                         num_codebooks=cfg.num_codebooks)

@@ -19,13 +19,13 @@ fp32 codec is fp32, as the JAX package's offline tokenizer is.
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 from torch import nn
 
 from parler_tts_tpu_torch.core.config import DACConfig
+from parler_tts_tpu_torch.ops.conv import fp32_convolutions
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -225,19 +225,6 @@ def pad_audio(audio: torch.Tensor, hop_length: int) -> torch.Tensor:
     """Right-pad (..., T) waveforms with zeros to a multiple of the hop."""
     pad = (-audio.shape[-1]) % hop_length
     return torch.nn.functional.pad(audio, (0, pad)) if pad else audio
-
-
-@contextlib.contextmanager
-def fp32_convolutions():
-    """cuDNN's fp32 convolutions in full fp32, not TF32, for the block;
-    the flag is restored after it.  No effect on bf16 convolutions or on
-    the CPU."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
 
 
 def _encode_side(name: str) -> bool:

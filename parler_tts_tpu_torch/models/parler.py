@@ -1,15 +1,17 @@
 """Composite Parler-TTS model: T5 text encoder + prompt embedding + codec-token
-decoder LM + DAC codec (port of ``parler_tts_tpu/models/parler.py``).
+decoder LM + codec, DAC or EnCodec (port of ``parler_tts_tpu/models/parler.py``).
 
 ``train_forward`` is the teacher-forced loss of training; the text encoder
 (and the codec) stay frozen and run without autograd, so only the decoder,
-``embed_prompts`` and ``enc_to_dec_proj`` get gradients."""
+``embed_prompts`` and ``enc_to_dec_proj`` get gradients.  ``import_composite``
+maps a reference checkpoint's state_dict onto the model's names."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from parler_tts_tpu_torch.core import torch_import as ti
 from parler_tts_tpu_torch.core.config import ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
 from parler_tts_tpu_torch.models import codec as codec_mod
@@ -114,3 +116,26 @@ def set_trainable(model: ParlerTTSModel) -> None:
         part = getattr(model, key)
         if part is not None:
             part.requires_grad_(True)
+
+
+def import_composite(sd, cfg: ParlerTTSConfig) -> dict[str, torch.Tensor]:
+    """A reference ``ParlerTTSForConditionalGeneration`` state_dict -> the
+    ``ParlerTTSModel`` state_dict: ``text_encoder.*`` (T5 encoder),
+    ``decoder.*`` (``ParlerTTSForCausalLM``), ``embed_prompts.weight``,
+    ``enc_to_dec_proj.{weight,bias}`` and the codec, under
+    ``audio_encoder.model.*`` (the reference's DAC wrapper) or directly under
+    ``audio_encoder.*`` (an HF ``DacModel`` or ``EncodecModel``)."""
+    parts = {
+        "text_encoder": ti.import_t5_encoder(ti.strip_prefix(sd, "text_encoder"), cfg.text_encoder.num_layers),
+        "decoder": ti.import_decoder(ti.strip_prefix(sd, "decoder"), cfg.decoder.num_hidden_layers,
+                                     cfg.decoder.num_codebooks),
+    }
+    codec_sd = ti.strip_prefix(sd, "audio_encoder.model") or ti.strip_prefix(sd, "audio_encoder")
+    if codec_sd:
+        parts["audio_encoder"] = codec_mod.import_torch(codec_sd, cfg.audio_encoder)
+    out = {f"{key}.{name}": t for key, part in parts.items() for name, t in part.items()}
+    out["embed_prompts.embedding"] = ti.as_tensor(sd["embed_prompts.weight"])
+    if "enc_to_dec_proj.weight" in sd:
+        out["enc_to_dec_proj.kernel"] = ti.as_tensor(sd["enc_to_dec_proj.weight"]).T
+        out["enc_to_dec_proj.bias"] = ti.as_tensor(sd["enc_to_dec_proj.bias"])
+    return out

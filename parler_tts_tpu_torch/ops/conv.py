@@ -7,10 +7,13 @@ and in/out-swapped (``parler_tts_tpu/core/torch_import.py::_conv_t``).
 Inside they run ``F.conv1d`` / ``F.conv_transpose1d`` on torch-layout
 weights.  The two weight converters below are the one place that knows the
 layout change; ``core/from_jax.py`` uses them to fill the codec's
-``nn.Conv1d`` / ``nn.ConvTranspose1d`` modules.
+``nn.Conv1d`` / ``nn.ConvTranspose1d`` modules.  ``fp32_convolutions``
+keeps the codecs' fp32 convolutions (and cuDNN LSTMs) in fp32 on the card.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -44,3 +47,16 @@ def conv_transpose1d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor |
     b = None if bias is None else bias.to(x.dtype)
     y = F.conv_transpose1d(x.transpose(1, 2), w, b, stride=stride, padding=padding)
     return y.transpose(1, 2)
+
+
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN's fp32 convolutions and RNNs in full fp32, not TF32, for the
+    block (``torch.backends.cudnn.allow_tf32`` defaults to True); the flag is
+    restored after it.  No effect on bf16 work or on the CPU."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved

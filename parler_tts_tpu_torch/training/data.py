@@ -20,9 +20,8 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
-from parler_tts_tpu_torch.core.config import DACConfig
+from parler_tts_tpu_torch.core.config import DACConfig, EncodecConfig
 from parler_tts_tpu_torch.models import codec as codec_mod
-from parler_tts_tpu_torch.models.dac import DAC
 from parler_tts_tpu_torch.models.delay_pattern import build_delay_pattern_labels
 
 
@@ -68,19 +67,21 @@ def parse_dataset_spec(names: str, configs: str | None = None, splits: str | Non
 
 
 @torch.no_grad()
-def tokenize_audio_batches(codec: DAC, dac_cfg: DACConfig, audio_arrays: Sequence[np.ndarray], *,
-                           batch_size: int = 8, pad_to_seconds: float | None = None) -> list[np.ndarray]:
-    """Encode waveforms to codec codes with the frozen ``codec`` on its
-    device, ``batch_size`` at a time, each batch zero-padded to its longest
-    waveform (or to ``pad_to_seconds``) rounded up to a multiple of the hop.
-    Returns per-sample ``(K, ceil(len / hop))`` int16 codes."""
-    hop = dac_cfg.hop_length
+def tokenize_audio_batches(codec: codec_mod.Codec, codec_cfg: DACConfig | EncodecConfig,
+                           audio_arrays: Sequence[np.ndarray], *, batch_size: int = 8,
+                           pad_to_seconds: float | None = None) -> list[np.ndarray]:
+    """Encode waveforms to codec codes with the frozen ``codec`` (DAC or
+    EnCodec, through ``models/codec.encode``) on its device, ``batch_size``
+    at a time, each batch zero-padded to its longest waveform (or to
+    ``pad_to_seconds``) rounded up to a multiple of the hop.  Returns
+    per-sample ``(K, ceil(len / hop))`` int16 codes."""
+    hop = codec_cfg.hop_length
     device = next(codec.parameters()).device
     out: list[np.ndarray] = []
     for i in range(0, len(audio_arrays), batch_size):
         chunk = [np.asarray(a, np.float32) for a in audio_arrays[i : i + batch_size]]
         lens = [len(a) for a in chunk]
-        pad_len = int(pad_to_seconds * dac_cfg.sampling_rate) if pad_to_seconds is not None else max(lens)
+        pad_len = int(pad_to_seconds * codec_cfg.sampling_rate) if pad_to_seconds is not None else max(lens)
         pad_len = ((pad_len + hop - 1) // hop) * hop
         batch = np.zeros((len(chunk), pad_len), np.float32)
         for j, a in enumerate(chunk):

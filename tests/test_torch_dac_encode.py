@@ -193,16 +193,21 @@ def test_parse_dataset_spec_matches_jax(args):
 
 
 def test_codec_encode_refuses_encodec_and_runs_tiny():
-    """The dispatch encodes DAC (the tiny composite's codec too); EnCodec
-    configs are refused when the codec is built."""
+    """The dispatch encodes DAC (the tiny composite's codec too) and builds an
+    EnCodec for an EnCodec config, whose composite encode refuses a
+    normalized one, as JAX's does."""
     cfg = tiny_config(pcfg).audio_encoder
     codec = pcodec.build(cfg)
     codec.reset_parameters(torch.Generator().manual_seed(1))
     codes = pcodec.encode(codec, torch.zeros(2, 100))
     assert codes.shape == (2, cfg.num_codebooks, -(-100 // cfg.hop_length))
-    assert jcodec.is_encodec(jcfg.EncodecConfig())
-    with pytest.raises(NotImplementedError, match="EnCodec"):
-        pcodec.build(jcfg.EncodecConfig())
+    assert jcodec.is_encodec(jcfg.EncodecConfig()) and pcodec.is_encodec(jcfg.EncodecConfig())
+    normalized = pcodec.build(pcfg.EncodecConfig(normalize=True, num_filters=2, hidden_size=8))
+    assert type(normalized).__name__ == "Encodec"
+    with pytest.raises(ValueError, match="codes-only"):
+        pcodec.encode(normalized, torch.zeros(1, 640))
+    with pytest.raises(ValueError, match="codes-only"):
+        jcodec.encode(None, jcfg.EncodecConfig(normalize=True), np.zeros((1, 640), np.float32))
 
 
 @pytest.mark.parametrize("side", ["encode", "decode"])

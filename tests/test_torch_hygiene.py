@@ -1,6 +1,6 @@
-"""The port, its chip smoke script and its card-only tests import nothing of
-JAX, of the JAX package, or of the HF tokenizer stack (the machine with the
-card has none of them)."""
+"""The port, its chip smoke script, its card-only tests and its reference
+checkpoint converter import nothing of JAX, of the JAX package, of the HF
+stack or of ``safetensors`` (the machine with the card has none of them)."""
 
 from __future__ import annotations
 
@@ -10,10 +10,13 @@ import pathlib
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "parler_tts_tpu", "transformers", "tokenizers"}
-# chip_smoke.py and the card-only tests run on a machine without JAX
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "parler_tts_tpu", "transformers", "tokenizers",
+             "safetensors"}
+# chip_smoke.py, the card-only tests and the reference converter run on a
+# machine without JAX, transformers or safetensors
 SOURCES = sorted((REPO / "parler_tts_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+    REPO / "helpers" / "convert_reference_checkpoint_torch.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -34,5 +37,6 @@ def test_port_imports_no_jax_and_no_jax_package(path):
 def test_the_walk_sees_the_whole_port():
     assert len(SOURCES) > 15 and (REPO / "chip_smoke.py").exists()
     port = REPO / "parler_tts_tpu_torch"
-    assert {port / "serving" / "batcher.py", port / "generation" / "streaming.py"} <= set(SOURCES)
+    assert {port / "serving" / "batcher.py", port / "generation" / "streaming.py", port / "models" / "encodec.py",
+            port / "core" / "from_reference.py"} <= set(SOURCES)
     assert _imported_roots(REPO / "tests" / "test_torch_blocks.py") >= {"jax", "parler_tts_tpu", "torch"}
