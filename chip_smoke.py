@@ -76,7 +76,17 @@ Phases, in order; any failure exits non-zero before the result line:
    run's shapes (train step, eval loss batch, generation prefill);
 10. ``ParlerTTSPipeline.from_pretrained`` over the CLI's ``final/`` artifact:
     one ``tts`` call with finite audio, and the artifact's tensors those of
-    the last checkpoint.  The CLI's temporary output directory is deleted.
+    the last checkpoint.  The CLI's temporary output directory is deleted;
+11. text: the port's ``tokenizer.json`` reader on the tokenizer fixtures of
+    ``tests/fixtures/torch_tokenizers`` (the recorded ids, and its ids per
+    second on this host); 12 in-memory rows prepared by the CLI's row loop
+    at Mini's DAC (two dropped by the filters, a second preparation from
+    the codes cache encoding nothing); ``run_training.main`` for 2 steps
+    from that cache with the T5-shaped fixture as prompt tokenizer (K1 and
+    K4 once per layer per step, held against their plain versions); and
+    ``from_pretrained`` over its ``final/`` with no tokenizer argument: a
+    ``tts`` of 2 real-text requests whose ids are the recorded ones and
+    whose tokens equal ``generate``'s fed those ids.
 
 Output: a JSON line per phase, then the kernels line, then ``nvidia-smi``'s
 ``name, power.limit``, then the result line
@@ -1065,6 +1075,236 @@ def run_from_pretrained(cfg_mod, pipeline_mod, tokenizer_mod, ck, out_dir: str, 
         raise AssertionError("from_pretrained's model does not speak, or the artifact is not checkpoint-6's")
 
 
+TOKENIZER_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_tokenizers")
+TEXT_ROWS = 12  # rows prepared in the text phase, two of which the filters drop
+TEXT_FILTERS = {"min_duration_in_seconds": 0.5, "max_duration_in_seconds": 4.5, "max_text_length": 95}
+WORD_SLOTS = (("A", "The", "One"), ("female", "male", "young", "older", "calm", "lively"),
+              ("speaker", "narrator", "voice actor", "presenter"),
+              ("with a low-pitched", "with a high-pitched", "with a deep", "with a bright", "with a hoarse"),
+              ("voice", "tone"), ("speaks", "reads", "delivers the words"),
+              ("very fast", "slowly", "at a moderate pace", "expressively", "in a monotone"),
+              ("in a quiet room", "in a large hall", "outdoors", "close to the microphone"),
+              ("with clear audio.", "with some background noise.", "with very clear audio quality.",
+               "and the recording is slightly distant."))
+
+
+def synthetic_descriptions(n: int, seed: int) -> list[str]:
+    """``n`` descriptions in the style of Parler-TTS's, drawn from ``WORD_SLOTS``."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(slot[int(rng.integers(len(slot)))] for slot in WORD_SLOTS) for _ in range(n)]
+
+
+def reader_rates(tokenizer_mod, t5_dir: str, texts: list[str]) -> dict:
+    """The reader's ids per second on this host: a 4-request padded batch
+    (the first call of a fresh reader, then 200 calls), and 1,000
+    descriptions in one call of another fresh reader."""
+    out = {}
+    tok = tokenizer_mod.Tokenizer.from_pretrained(t5_dir)
+    t0 = time.perf_counter()
+    enc = tok(texts[:4], padding=True, return_tensors="np")
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(200):
+        enc = tok(texts[:4], padding=True, return_tensors="np")
+    warm = (time.perf_counter() - t0) / 200
+    n_ids = int(enc.attention_mask.sum())
+    out["batch4"] = {"ids": n_ids, "first_call_ms": 1e3 * cold, "ids_per_s_first_call": n_ids / cold,
+                     "ms_per_call": 1e3 * warm, "ids_per_s": n_ids / warm}
+    descriptions = synthetic_descriptions(1000, SEED)
+    tok = tokenizer_mod.Tokenizer.from_pretrained(t5_dir)
+    t0 = time.perf_counter()
+    ids = tok(descriptions).input_ids
+    wall = time.perf_counter() - t0
+    n_ids = sum(len(x) for x in ids)
+    out["descriptions_1000"] = {"ids": n_ids, "ms": 1e3 * wall, "ids_per_s": n_ids / wall}
+    return out
+
+
+def text_rows(expected: dict, sr: int) -> tuple[list[dict], set[int]]:
+    """``TEXT_ROWS`` in-memory rows: 1-4 s of seeded noise each, the
+    fixture's descriptions and prompts; row 3 lasts 5 s (over
+    ``max_duration_in_seconds``) and row 7's description is over
+    ``max_text_length``.  Returns the rows and the indices the filters drop."""
+    rng = np.random.default_rng(SEED)
+    descs, prompts = expected["smoke_descriptions"], expected["smoke_prompts"]
+    rows = []
+    for i in range(TEXT_ROWS):
+        seconds = 5.0 if i == 3 else float(rng.uniform(1.0, 4.0))
+        desc = descs[i % len(descs)]
+        if i == 7:
+            desc = desc + " " + descs[(i + 1) % len(descs)]
+        rows.append({"audio": {"array": (0.1 * rng.standard_normal(int(seconds * sr))).astype(np.float32),
+                               "sampling_rate": sr},
+                     "description": desc, "text": prompts[(5 * i) % len(prompts)]})
+    if len(rows[7]["description"]) <= TEXT_FILTERS["max_text_length"]:
+        raise AssertionError("row 7's description should be over max_text_length")
+    return rows, {3, 7}
+
+
+def run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod, data_mod, tokenizer_mod,
+             out_dir: str, card: str) -> tuple[dict, dict]:
+    """Phase 11, text in.  The tokenizer fixtures read by the port's reader
+    give the ids recorded beside them (no ``tokenizers`` here), and the
+    reader's rates.  ``TEXT_ROWS`` in-memory rows go through the CLI's row
+    loop (``prepare_rows``) at Mini's DAC (44.1 kHz, random weights from
+    seed 0, fp32) with the codes cache on: the 5 s row and the long
+    description are dropped before the codec; a second preparation reads
+    every code back and encodes nothing; the samples go to the fingerprinted
+    ``save_to_disk`` file.  ``run_training.main`` then takes 2 steps at full
+    Mini width from that file (K1 and K4 once per layer per step, their
+    first calls held against the plain versions) with the T5-shaped
+    fixture as prompt tokenizer, which its ``final/`` carries.
+    ``ParlerTTSPipeline.from_pretrained(final)`` with no tokenizer argument
+    then speaks 2 requests of real text (1 s, special-id heads zeroed, top-k
+    50): its ids are the recorded ones, its tokens those of ``generate`` fed
+    the recorded ids with the same seed, its audio finite.  Returns the
+    phase's kernel launches and the largest error of each kernel held."""
+    t_phase = time.perf_counter()
+    expected = json.load(open(os.path.join(TOKENIZER_FIXTURES, "expected_ids.json"), encoding="utf-8"))
+    t5_dir = os.path.join(TOKENIZER_FIXTURES, "t5_unigram")
+    fixtures_equal = {}
+    for name, want in expected["ids"].items():
+        tok = tokenizer_mod.Tokenizer.from_pretrained(os.path.join(TOKENIZER_FIXTURES, name))
+        fixtures_equal[name] = all(tok(text).input_ids == ids for text, ids in want.items())
+    if not all(fixtures_equal.values()):
+        raise AssertionError(f"the reader's ids differ from the recorded ones: {fixtures_equal}")
+    rates = reader_rates(tokenizer_mod, t5_dir, expected["smoke_descriptions"])
+    t5_ids = expected["ids"]["t5_unigram"]
+
+    # ----- preparation -----
+    cfg = cfg_mod.mini_600m_config()
+    acfg = cfg.audio_encoder
+    rows_dir = os.path.join(out_dir, "rows")  # the dataset name; it exists, so a cache miss reads no hub
+    os.makedirs(rows_dir)
+    argv = ["--train_dataset_name", rows_dir, "--save_to_disk", os.path.join(out_dir, "prepared"),
+            "--temporary_save_to_disk", os.path.join(out_dir, "codes"), "--prompt_tokenizer_name", t5_dir,
+            "--description_tokenizer_name", t5_dir, "--audio_encoder_batch_size", "4",
+            *[x for k, v in TEXT_FILTERS.items() for x in (f"--{k}", str(v))],
+            "--per_device_train_batch_size", "3", "--max_steps", "2", "--logging_steps", "1", "--save_steps", "0",
+            "--warmup_steps", "1", "--output_dir", os.path.join(out_dir, "run")]
+    model_args, data_args, _ = run_mod.parse_args(argv)
+    rows, dropped = text_rows(expected, acfg.sampling_rate)
+    with torch.device("cuda"):
+        codec = codec_mod.build(acfg)
+    codec.reset_parameters(torch.Generator(device="cuda").manual_seed(SEED))
+    encoded, real_encode = [], data_mod.tokenize_audio_batches
+
+    def spy_encode(codec_, codec_cfg, arrays, **kw):
+        encoded.extend(len(a) for a in arrays)
+        return real_encode(codec_, codec_cfg, arrays, **kw)
+
+    tok = tokenizer_mod.Tokenizer.from_pretrained(t5_dir)
+    data_mod.tokenize_audio_batches = spy_encode
+    try:
+        samples, prep_s = sync_time(lambda: run_mod.prepare_rows(rows, data_args, cfg, codec, tok, tok))
+        first_encoded = list(encoded)
+        encoded.clear()
+        again, reread_s = sync_time(lambda: run_mod.prepare_rows(rows, data_args, cfg, codec, tok, tok))
+    finally:
+        data_mod.tokenize_audio_batches = real_encode
+    del codec
+    kept_audio_s = sum(first_encoded) / acfg.sampling_rate
+    written = run_mod._load_or_prepare(data_args, model_args, cfg, split="train", make=lambda: samples)
+    prepared_files = sorted(os.listdir(os.path.join(out_dir, "prepared")))
+    prep_ok = ({s["_idx"] for s in samples} == set(range(TEXT_ROWS)) - dropped and encoded == []
+               and len(first_encoded) == len(samples) and written is samples and len(prepared_files) == 1
+               and all(np.array_equal(a["labels"], b["labels"]) for a, b in zip(samples, again))
+               and all(list(s["input_ids"]) == t5_ids[s["description_text"]]
+                       and list(s["prompt_input_ids"]) == t5_ids[s["prompt_text"]] for s in samples))
+
+    # ----- training from the prepared file -----
+    layers = cfg.decoder.num_hidden_layers
+    spy = KernelSpy(fa, ("flash_attention_fwd", "flash_attention_dqkv"), place="text train step")
+    reset_counts(fa)
+    with spy:
+        result = run_mod.main(argv, device="cuda")
+    cli_launches = counts(fa)
+    errs = spy.hold("main path text")
+    final = os.path.join(out_dir, "run", "final")
+    records = [json.loads(line) for line in open(os.path.join(out_dir, "run", "metrics.jsonl"))]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    carried = all(open(os.path.join(final, f), "rb").read() == open(os.path.join(t5_dir, f), "rb").read()
+                  for f in tokenizer_mod.FILES)
+    want_cli = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                "flash_attention_dqkv": 2 * layers}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----- serving from the artifact with its own tokenizer -----
+    pipe, load_s = sync_time(lambda: pipeline_mod.ParlerTTSPipeline.from_pretrained(final, dtype=torch.bfloat16,
+                                                                                   device="cuda"))
+    zero_special_heads(pipe.model)
+    pipe.gen = dataclasses.replace(pipe.gen, top_k=50)
+    descs, prompts = expected["smoke_descriptions"][:2], expected["smoke_prompts"][:2]
+    max_seconds, seed = 1.0, SEED + 11
+    sampled, real_generate = [], pipeline_mod.generate
+
+    def spy_generate(*args, **kwargs):
+        out = real_generate(*args, **kwargs)
+        sampled.append(out.tokens.clone())
+        return out
+
+    pipeline_mod.generate = spy_generate
+    try:
+        ((sr, wavs), first_tts_s), tts_launches, tts_spy, tts_err = counted(
+            fa, layers, lambda: sync_time(lambda: pipe.tts(descs, prompts, seed=seed, max_seconds=max_seconds)),
+            place="text tts")
+        tts_s = sync_time(lambda: pipe.tts(descs, prompts, seed=seed, max_seconds=max_seconds))[1]
+    finally:
+        pipeline_mod.generate = real_generate
+
+    def padded(rows_ids, left: bool):
+        """As ``tts`` lays ids out: the tokenizer pads each row on the right
+        (with ``<pad>``, id 0) to the longest, then prompts are padded on
+        the left to their bucket and descriptions on the right."""
+        longest = max(len(r) for r in rows_ids)
+        width = pipeline_mod._bucket(longest)
+        ids, mask = np.zeros((len(rows_ids), width), np.int64), np.zeros((len(rows_ids), width), np.int64)
+        start = width - longest if left else 0
+        for i, r in enumerate(rows_ids):
+            ids[i, start:start + len(r)], mask[i, start:start + len(r)] = r, 1
+        return ids, mask
+
+    d_ids, d_mask = padded([t5_ids[d] for d in descs], left=False)
+    p_ids, p_mask = padded([t5_ids[p] for p in prompts], left=True)
+    direct = generate_mod.generate(pipe.model, dataclasses.replace(pipe.gen, max_length=pipe.max_length(max_seconds)),
+                                   input_ids=d_ids, attention_mask=d_mask, prompt_input_ids=p_ids,
+                                   prompt_attention_mask=p_mask,
+                                   generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    ids_equal = (all(pipe.description_tokenizer(d).input_ids == t5_ids[d] for d in descs)
+                 and all(pipe.prompt_tokenizer(p).input_ids == t5_ids[p] for p in prompts))
+    tokens_equal = len(sampled) == 2 and all(torch.equal(t, direct.tokens) for t in sampled)
+    finite = all(w.size > 0 and bool(np.isfinite(w).all()) for w in wavs)
+    reader_is_the_ports = isinstance(pipe.description_tokenizer, tokenizer_mod.Tokenizer)
+    del pipe, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {name: cli_launches[name] + (tts_launches if name == "flash_attention_fwd" else 0)
+                for name in cli_launches}
+    errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], tts_err)
+    ok = (prep_ok and cli_launches == want_cli and result["steps"] == 2 and len(losses) == 2
+          and all(math.isfinite(x) for x in losses) and carried and reader_is_the_ports and ids_equal
+          and tokens_equal and finite)
+    emit({"phase": "text", "config": "mini_600m_config: DAC encode fp32 (seed 0), CLI fp32 parameters bf16 "
+          "compute (seed 42), tts bf16", "card": card, "fixtures_equal_recorded_ids": fixtures_equal,
+          "reader": rates, "rows": TEXT_ROWS, "dropped": sorted(dropped), "kept": len(samples),
+          "kept_audio_s": kept_audio_s, "prepare_s": prep_s, "prepare_audio_s_per_wall_s": kept_audio_s / prep_s,
+          "reprepare_s": reread_s, "encoded_first": len(first_encoded), "encoded_second": len(encoded),
+          "prepared_file": prepared_files, "prep_ok": prep_ok, "cli_step_ms": result["timings"]["step_ms"],
+          "cli_losses": losses, "cli_launches": cli_launches, "artifact_tokenizer_carried": carried,
+          "artifact_load_s": load_s, "tts_requests": len(wavs), "tts_max_seconds": max_seconds,
+          "tts_first_call_s": first_tts_s, "tts_wall_s": tts_s, "tts_samples": [int(w.size) for w in wavs],
+          "sampling_rate": sr,
+          "ids_equal_recorded": ids_equal, "tokens_equal_direct_generate": tokens_equal, "finite": finite,
+          "launches": launches, "held_against_plain": sorted({(place, name, shapes[0]) for place, name, shapes, _
+                                                              in list(spy.captured) + list(tts_spy.captured)}),
+          "max_abs_err": errs, "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise AssertionError("the text phase is not as it should be (see the text line)")
+    return launches, errs
+
+
 def k1_row(fa, q, k, v, start, end, kw) -> dict:
     """Device times of K1, its plain version and SDPA with the same mask on
     one kept call's inputs (BH, T, D), and the bound for the pairs its
@@ -1826,6 +2066,7 @@ def main() -> int:
     from parler_tts_tpu_torch.training import data as data_mod
     from parler_tts_tpu_torch.training import run_training as run_mod
     from parler_tts_tpu_torch.training import step as step_mod
+    from parler_tts_tpu_torch.utils import tokenizer as reader_mod
     from parler_tts_tpu_torch.utils import toy_tokenizer as tokenizer_mod
 
     kind = torch.cuda.get_device_name(0)
@@ -1891,19 +2132,28 @@ def main() -> int:
         run_from_pretrained(cfg_mod, pipeline_mod, tokenizer_mod, ck, out_dir, card)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    text_dir = tempfile.mkdtemp(prefix="parler_text_")
+    try:
+        text_launches, text_errs = run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod,
+                                            data_mod, reader_mod, text_dir, card)
+    finally:
+        shutil.rmtree(text_dir, ignore_errors=True)
 
     head = next(r for r in k1["per_shape"] if r["shape"][2] == 257)
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "parler_tts_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": REPLACES["flash_attention_fwd"],
-        "launches": sum(p["flash_attention_fwd"] for p in (tts_launches, train_launches, cli_launches))
+        "launches": sum(p["flash_attention_fwd"] for p in (tts_launches, train_launches, cli_launches, text_launches))
         + sum(path[0] for path in new_paths.values()),
         "launches_by_path": {"tts": tts_launches["flash_attention_fwd"],
                              **{name: path[0] for name, path in new_paths.items()},
                              "train": train_launches["flash_attention_fwd"],
-                             "train_cli": cli_launches["flash_attention_fwd"]},
-        "max_abs_err": max(k1["max_abs_err"], cli_errs["flash_attention_fwd"],
+                             "train_cli": cli_launches["flash_attention_fwd"],
+                             "text": text_launches["flash_attention_fwd"]},
+        "max_abs_err": max(k1["max_abs_err"], cli_errs["flash_attention_fwd"], text_errs["flash_attention_fwd"],
                            *(path[1] for path in new_paths.values())),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
@@ -1914,10 +2164,12 @@ def main() -> int:
         row = next(r for r in bwd[name]["per_shape"] if r["path"])
         kernels.append({
             "name": name, "route": "cuda", "source": "parler_tts_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": REPLACES[name], "launches": train_launches[name] + cli_launches[name],
+            "replaces": REPLACES[name], "launches": train_launches[name] + cli_launches[name] + text_launches[name],
             "launches_by_path": {"tts": tts_launches[name], **{path: 0 for path in new_paths},  # checked 0
-                                 "train": train_launches[name], "train_cli": cli_launches[name]},
-            "max_abs_err": max(bwd[name]["max_abs_err"], cli_errs.get(name, 0.0)), "ms": row["ms"],
+                                 "train": train_launches[name], "train_cli": cli_launches[name],
+                                 "text": text_launches[name]},
+            "max_abs_err": max(bwd[name]["max_abs_err"], cli_errs.get(name, 0.0), text_errs.get(name, 0.0)),
+            "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": row["library_call"], "shape": row["shape"], "per_shape": bwd[name]["per_shape"],

@@ -14,9 +14,10 @@ Orbax:
 * the model artifact holds ``config.json``, ``generation_config.json`` and
   ``preprocessor_config.json``, each byte for byte what the JAX
   ``save_model`` writes for the same config, and ``weights.pt``, the whole
-  model's state_dict (loaded with ``strict=True``).  No tokenizer is saved:
-  the port has none (ROADMAP.md queue 1, "Tokenizer plan"); the converters
-  copy a source directory's tokenizer and feature-extractor files beside the
+  model's state_dict (loaded with ``strict=True``), and the tokenizer's
+  files when ``save_model`` is given one (``utils/tokenizer.Tokenizer``:
+  ``tokenizer.json`` and its two JSON companions); the converters copy a
+  source directory's tokenizer and feature-extractor files beside the
   artifact (``carry_side_files``).
 
 Tensors are copied to the CPU before they are written.
@@ -144,16 +145,21 @@ def load_train_state(path: str) -> tuple[dict, dict]:
     return payload, meta
 
 
-def save_model(path: str, model: ParlerTTSModel, cfg: ParlerTTSConfig, gen: GenerationConfig | None = None) -> None:
+def save_model(path: str, model: ParlerTTSModel, cfg: ParlerTTSConfig, gen: GenerationConfig | None = None, *,
+               tokenizer: Any = None) -> None:
     """The model artifact: the three JSON files as the JAX ``save_model``
     writes them (``preprocessor_config.json`` is its EnCodec-feature-extractor
     record of the codec's audio contract; ``generation_config.json`` carries
     ``kv_read_buckets`` at the JAX default, not a value read from a JAX
-    artifact) and ``weights.pt``."""
+    artifact), ``weights.pt``, and ``tokenizer.save_pretrained(path)`` when
+    a tokenizer is given (the JAX package saves one, prompts and
+    descriptions sharing it)."""
     os.makedirs(path, exist_ok=True)
     cfg.save(os.path.join(path, "config.json"))
     with open(os.path.join(path, "generation_config.json"), "w") as f:
         json.dump({**(gen or GenerationConfig()).to_dict(), **_JAX_ONLY_GENERATION_KEYS}, f, indent=2)
+    if tokenizer is not None:
+        tokenizer.save_pretrained(path)
     acfg = cfg.audio_encoder
     with open(os.path.join(path, "preprocessor_config.json"), "w") as f:
         json.dump({

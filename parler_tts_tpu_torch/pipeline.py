@@ -4,12 +4,14 @@
 buckets (descriptions on the right, prompts on the LEFT), generates and
 trims each waveform to its valid length.  Any tokenizer with the HF call
 shape works: ``tok(list_of_str, padding=True, return_tensors="np")`` giving
-``.input_ids`` and ``.attention_mask``.
+``.input_ids`` and ``.attention_mask``; ``from_pretrained`` reads the
+artifact's own with ``utils/tokenizer.Tokenizer``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
@@ -20,6 +22,7 @@ from parler_tts_tpu_torch.core.config import GenerationConfig, ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
 from parler_tts_tpu_torch.generation.generate import generate
 from parler_tts_tpu_torch.models.parler import ParlerTTSModel
+from parler_tts_tpu_torch.utils.tokenizer import Tokenizer
 
 
 def _bucket(n: int, sizes=(16, 32, 64, 128, 256)) -> int:
@@ -50,12 +53,23 @@ class ParlerTTSPipeline:
         self.model = self.model.to(device=self.device, dtype=self.dtype)
 
     @classmethod
-    def from_pretrained(cls, model_dir: str, *, tokenizer: Any = None, dtype: torch.dtype = torch.bfloat16,
-                        pcm16: bool = False, device: str | torch.device = "cuda") -> "ParlerTTSPipeline":
+    def from_pretrained(cls, model_dir: str, *, tokenizer: Any = None, tokenizer_name: str | None = None,
+                        dtype: torch.dtype = torch.bfloat16, pcm16: bool = False,
+                        device: str | torch.device = "cuda") -> "ParlerTTSPipeline":
         """Load a model artifact that ``core/checkpoint.save_model`` wrote
         (the training CLI's ``final/``), cast to ``dtype`` on ``device``.
-        ``tokenizer`` (an object with the HF call shape) serves descriptions
-        and prompts: the port reads no tokenizer from the artifact."""
+        The tokenizer serving descriptions and prompts is ``tokenizer`` (an
+        object with the HF call shape), else the one read from the directory
+        ``tokenizer_name``, else the artifact's own, read from its
+        ``tokenizer.json`` (``utils/tokenizer.Tokenizer``).  An artifact that
+        holds tokenizer files but no ``tokenizer.json`` raises; one with
+        none gives a pipeline whose ``tts`` raises."""
+        if tokenizer is None:
+            if tokenizer_name is None and any(os.path.exists(os.path.join(model_dir, f))
+                                              for f in ("tokenizer.json", "tokenizer_config.json", "spiece.model")):
+                tokenizer_name = model_dir
+            if tokenizer_name is not None:
+                tokenizer = Tokenizer.from_pretrained(tokenizer_name)
         model, cfg, gen = ck.load_model(model_dir, device=device, dtype=dtype)
         return cls(model, cfg, gen, tokenizer, tokenizer, dtype=dtype, pcm16=pcm16, device=device)
 

@@ -1,14 +1,14 @@
 """Training data: dataset specs, offline audio tokenization, the codes
 cache, labels and static-shape batching.
 
-The port's own copy of ``parse_dataset_spec``, ``tokenize_audio_batches``,
-``CodesCache``, ``build_labels``, ``Collator`` and ``batches`` from
-``parler_tts_tpu/training/data.py``: left-padded prompts, right-padded
-descriptions, delay-pattern labels padded with -100; waveforms padded to a
-multiple of the hop, ``ceil(len / hop)`` frames of int16 codes per sample;
-the cache's part files have the JAX names and keys, so each package reads
-the other's.  Loading HF datasets (``load_multiple_datasets``) waits for
-ROADMAP.md queue 1 ("HF dataset loading").
+The port's own copy of ``parse_dataset_spec``, ``load_multiple_datasets``,
+``tokenize_audio_batches``, ``CodesCache``, ``build_labels``, ``Collator``
+and ``batches`` from ``parler_tts_tpu/training/data.py``: HF datasets loaded
+and merged as the JAX package merges them (``datasets`` is imported only
+there); left-padded prompts, right-padded descriptions, delay-pattern labels
+padded with -100; waveforms padded to a multiple of the hop,
+``ceil(len / hop)`` frames of int16 codes per sample; the cache's part files
+have the JAX names and keys, so each package reads the other's.
 """
 
 from __future__ import annotations
@@ -64,6 +64,75 @@ def parse_dataset_spec(names: str, configs: str | None = None, splits: str | Non
         for nm, cf, sp, md, sc in zip(name_list, norm(configs), norm(splits, "train"), norm(metadata_names),
                                       norm(samples_counts))
     ]
+
+
+def load_multiple_datasets(specs: Sequence[DatasetSpec], *, sampling_rate: int | None = None,
+                           id_column: str = "id", streaming: bool = False,
+                           stopping_strategy: str = "first_exhausted", seed: int | None = None):
+    """Load and merge HF datasets as the JAX function does: each spec loaded
+    (``load_from_disk`` for a local path, as an iterable dataset when
+    ``streaming``; else ``load_dataset``), its ``audio`` column cast to
+    ``sampling_rate``, its metadata side-dataset's columns added (map-style:
+    rows aligned by ``id_column``, checked equal over all rows), ``samples``
+    rows selected; then, for several specs, probability-weighted
+    ``interleave_datasets`` (weights from ``samples``) when streaming, else
+    ``concatenate_datasets``.  Needs the ``datasets`` package."""
+    try:
+        import datasets as hfds
+    except ImportError as e:
+        raise ImportError("load_multiple_datasets needs the `datasets` package, which this machine lacks; "
+                          "prepare the data where it is installed (the save_to_disk cache), or train on "
+                          "synthetic://N") from e
+
+    probs = None
+    if any(s.samples for s in specs):
+        counts = np.asarray([float(s.samples or 1) for s in specs])
+        probs = counts / counts.sum()
+
+    def load(name: str, spec: DatasetSpec):
+        if _is_local(name):
+            ds = hfds.load_from_disk(name)
+            if streaming and hasattr(ds, "to_iterable_dataset"):
+                ds = ds.to_iterable_dataset()
+        else:
+            ds = hfds.load_dataset(name, spec.config, split=spec.split, streaming=streaming)
+        if isinstance(ds, (hfds.DatasetDict, hfds.IterableDatasetDict)):
+            ds = ds[spec.split]
+        return ds
+
+    parts = []
+    for spec in specs:
+        try:
+            ds = load(spec.name, spec)
+        except Exception as e:
+            raise RuntimeError(f"failed to load dataset {spec.name!r}: {e}") from e
+        if sampling_rate is not None and "audio" in (ds.column_names or ()):
+            ds = ds.cast_column("audio", hfds.Audio(sampling_rate=sampling_rate))
+        if spec.metadata_name:
+            md = load(spec.metadata_name, spec)
+            if streaming or not hasattr(ds, "__len__"):
+                md = md.remove_columns([c for c in (md.column_names or ()) if c in (ds.column_names or ())])
+                ds = hfds.concatenate_datasets([ds, md], axis=1)
+            else:
+                if id_column in ds.column_names and id_column in md.column_names:
+                    if list(ds[id_column]) != list(md[id_column]):
+                        raise ValueError(f"metadata id mismatch for {spec.name}")
+                    md = md.remove_columns([id_column])
+                for c in [c for c in md.column_names if c not in ds.column_names]:
+                    ds = ds.add_column(c, md[c])
+        if spec.samples and not streaming and hasattr(ds, "__len__"):
+            ds = ds.select(range(min(int(spec.samples), len(ds))))
+        parts.append(ds)
+
+    if len(parts) == 1:
+        return parts[0]
+    if streaming:
+        return hfds.interleave_datasets(parts, probabilities=probs, stopping_strategy=stopping_strategy, seed=seed)
+    return hfds.concatenate_datasets(parts)
+
+
+def _is_local(name: str) -> bool:
+    return os.path.exists(name)
 
 
 @torch.no_grad()

@@ -8,22 +8,26 @@ Port of ``parler_tts_tpu/training/run_training.py``::
 ``main(argv, device="cuda")`` runs the JAX ``main``'s stages: arguments (one
 JSON recipe or flags, ``training/args.py``); the model (a port artifact
 directory, else ``dummy_config()`` for ``"dummy"``, else
-``mini_600m_config()``, random weights from ``seed``); data
-(``synthetic://N`` samples, with the ``save_to_disk`` cache keyed by a
-fingerprint of the arguments that change them); the optimizer with its
+``mini_600m_config()``, random weights from ``seed``); data (HF datasets
+through ``prepare_hf``, or ``synthetic://N`` samples, with the
+``save_to_disk`` cache keyed by a fingerprint of the arguments that change
+them); the optimizer with its
 ``total_steps``; resume from the newest checkpoint (parameters, optimizer
 state, the step that seeds dropout, the batch cursor inside the epoch); the
 memory plan (``training/autotune.py``); the epoch and step loop, where
 saving, evaluating, logging and ``max_steps`` count optimizer steps under
 gradient accumulation; the eval loss pass and the eval generation pass
 (``generate`` with ``vocode=True``, then WER/CLAP and the logged
-predictions); the final artifact under ``output_dir/final``.
+predictions); the final artifact under ``output_dir/final``, with the
+prompt tokenizer's files.
 
 ``device`` is a keyword for callers (the tests pass ``"cpu"``), not a flag,
 so that the argument dataclasses stay the JAX package's.  What waits, and
-raises: HF datasets (``prepare_hf``, ROADMAP.md queue 1 "HF dataset
-loading"), ``model_parallel_size > 1`` (queue 1 item 8), ``push_to_hub``
-(the card's machine has no network).
+raises: ``model_parallel_size > 1`` and several processes (ROADMAP.md queue
+1, "Multi-process placement"), ``push_to_hub`` (the card's machine has no
+network).  The card's machine has no ``datasets``: there the CLI trains from
+a ``save_to_disk`` cache prepared elsewhere (or by ``prepare_rows``) or on
+``synthetic://N``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import math
 import os
 import sys
 import time
+from typing import Iterable
 
 import numpy as np
 import torch
@@ -45,12 +50,14 @@ from parler_tts_tpu_torch.core.config import GenerationConfig, dummy_config, min
 from parler_tts_tpu_torch.core.device import resolve_device
 from parler_tts_tpu_torch.generation.generate import generate
 from parler_tts_tpu_torch.models import parler
+from parler_tts_tpu_torch.training import data as D
 from parler_tts_tpu_torch.training import step as tstep
 from parler_tts_tpu_torch.training.args import parse_args
 from parler_tts_tpu_torch.training.autotune import resolve_train_plan
 from parler_tts_tpu_torch.training.data import Collator, batches, build_labels
 from parler_tts_tpu_torch.training.eval_metrics import ClapMetric, WerMetric
 from parler_tts_tpu_torch.training.logging_utils import MetricLogger
+from parler_tts_tpu_torch.utils.tokenizer import Tokenizer
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -79,6 +86,115 @@ def prepare_synthetic(n: int, cfg, *, seed: int = 0, desc_len: int = 24, prompt_
     return samples
 
 
+def prepare_rows(rows: Iterable[dict], data_args, cfg, codec, description_tokenizer, prompt_tokenizer, *,
+                 split: str = "train", max_samples: int | None = None, process_index: int = 0,
+                 process_count: int = 1) -> list[dict]:
+    """The JAX ``prepare_hf``'s row loop over any iterable of row dicts (an
+    HF dataset, or rows held in memory): this process's strided share of the
+    raw rows (``raw index % process_count == process_index``, taken before
+    any work); the duration filter, the description-length filter
+    (``max_text_length`` characters) and the token-length filters, all
+    before the codec runs; at most ``audio_encoder_batch_size`` waveforms
+    held, encoded by ``codec`` on its device (``tokenize_audio_batches``),
+    their codes kept in the ``CodesCache`` under ``temporary_save_to_disk``
+    (where a re-run reads them back and encodes nothing); then the
+    delay-pattern labels.  Each sample carries its raw row index ``_idx``,
+    ``prompt_text`` and ``description_text``.  ``max_samples`` bounds the raw
+    rows read.  A row whose audio states another sampling rate than the
+    codec's raises (the JAX loop would encode it as it is)."""
+    sr = cfg.audio_encoder.sampling_rate
+    min_len = int(data_args.min_duration_in_seconds * sr)
+    max_len = int(data_args.max_duration_in_seconds * sr)
+    k = cfg.decoder.num_codebooks
+    t_lab = int(data_args.max_duration_in_seconds * cfg.audio_encoder.frame_rate) + k + 2
+    cache = None
+    if data_args.temporary_save_to_disk:
+        cache = D.CodesCache(data_args.temporary_save_to_disk, split=split, process_index=process_index,
+                             process_count=process_count)
+    samples: list[dict] = []
+    pending: list[dict] = []  # rows awaiting the codec ("wav") or their labels ("codes")
+
+    def flush_pending() -> None:
+        to_encode = [r for r in pending if "codes" not in r]
+        if to_encode:
+            codes = D.tokenize_audio_batches(codec, cfg.audio_encoder, [r.pop("wav") for r in to_encode],
+                                             batch_size=data_args.audio_encoder_batch_size)
+            for r, c in zip(to_encode, codes):
+                r["codes"] = c
+                if cache is not None:
+                    cache.put(r["_idx"], c)
+        if cache is not None:
+            cache.flush()
+        for r in pending:
+            codes = r.pop("codes")
+            labels, _ = D.build_labels([codes.astype(np.int32)], bos_token_id=cfg.decoder.bos_token_id,
+                                       eos_token_id=cfg.decoder.eos_token_id,
+                                       max_length=min(t_lab, codes.shape[1] + k + 2))
+            r["labels"] = labels[0]
+            samples.append(r)
+        pending.clear()
+
+    for gi, ex in enumerate(rows):
+        if max_samples is not None and gi >= max_samples:
+            break
+        if gi % process_count != process_index:
+            continue
+        audio = ex[data_args.target_audio_column_name]
+        rate = audio.get("sampling_rate") if hasattr(audio, "get") else None
+        if rate is not None and int(rate) != sr:
+            raise ValueError(f"row {gi}: audio at {rate} Hz, the codec takes {sr} Hz (cast the audio column)")
+        wav = np.asarray(audio["array"], np.float32)
+        if not min_len <= len(wav) <= max_len:
+            continue
+        if len(str(ex[data_args.description_column_name])) > data_args.max_text_length:
+            continue
+        desc_ids = np.asarray(description_tokenizer(ex[data_args.description_column_name]).input_ids)
+        prompt_ids = np.asarray(prompt_tokenizer(ex[data_args.prompt_column_name]).input_ids)
+        if data_args.max_description_token_length and len(desc_ids) > data_args.max_description_token_length:
+            continue
+        if data_args.max_prompt_token_length and len(prompt_ids) > data_args.max_prompt_token_length:
+            continue
+        r = {"_idx": gi, "input_ids": desc_ids, "prompt_input_ids": prompt_ids,
+             "prompt_text": ex.get(data_args.prompt_column_name),
+             "description_text": ex.get(data_args.description_column_name)}
+        c = cache.get(gi) if cache is not None else None
+        if c is not None:
+            r["codes"] = c
+        else:
+            r["wav"] = wav
+        pending.append(r)
+        if len(pending) >= data_args.audio_encoder_batch_size:
+            flush_pending()
+    flush_pending()
+    return samples
+
+
+def prepare_hf(data_args, model_args, cfg, codec, *, split: str = "train", max_samples: int | None = None,
+               process_index: int = 0, process_count: int = 1) -> list[dict]:
+    """HF datasets to prepared samples, as the JAX function prepares them:
+    the split's specs merged by ``load_multiple_datasets`` (the eval split
+    falls back to the train dataset's names and configs), the description
+    and prompt tokenizers read from their directories
+    (``utils/tokenizer.Tokenizer``), then ``prepare_rows``.  Streaming needs
+    ``max_samples`` to bound the stream."""
+    if split == "train":
+        specs = D.parse_dataset_spec(data_args.train_dataset_name, data_args.train_dataset_config_name,
+                                     data_args.train_split_name, data_args.train_metadata_dataset_name,
+                                     data_args.train_dataset_samples)
+    else:
+        specs = D.parse_dataset_spec(data_args.eval_dataset_name or data_args.train_dataset_name,
+                                     data_args.eval_dataset_config_name or data_args.train_dataset_config_name,
+                                     data_args.eval_split_name, data_args.eval_metadata_dataset_name)
+    if data_args.streaming and max_samples is None:
+        raise ValueError("streaming mode needs max_train_samples/max_eval_samples to bound the stream")
+    ds = D.load_multiple_datasets(specs, sampling_rate=cfg.audio_encoder.sampling_rate,
+                                  streaming=data_args.streaming, stopping_strategy=data_args.stopping_strategy)
+    desc_tok = Tokenizer.from_pretrained(model_args.description_tokenizer_name or model_args.model_name_or_path)
+    prompt_tok = Tokenizer.from_pretrained(model_args.prompt_tokenizer_name or model_args.model_name_or_path)
+    return prepare_rows(ds, data_args, cfg, codec, desc_tok, prompt_tok, split=split, max_samples=max_samples,
+                        process_index=process_index, process_count=process_count)
+
+
 def _prepare_fingerprint(data_args, model_args, cfg) -> str:
     """Hash of every argument that changes the prepared samples (dataset
     specs, columns, filters, tokenizers, length caps, the codec config): the
@@ -98,12 +214,13 @@ def _prepare_fingerprint(data_args, model_args, cfg) -> str:
     return hashlib.sha256(blob).hexdigest()[:12]
 
 
-def _load_or_prepare(data_args, model_args, cfg, *, split: str, make=None) -> list[dict]:
+def _load_or_prepare(data_args, model_args, cfg, *, split: str, codec=None, max_samples: int | None = None,
+                     make=None) -> list[dict]:
     """The prepared samples of ``split``: loaded from
     ``save_to_disk/{split}_prepared_{fingerprint}.npy`` when it exists, else
-    made by ``make()`` and saved there (when ``save_to_disk`` is set).
-    Without ``make`` the samples would come from HF datasets, which waits
-    for ROADMAP.md queue 1 ("HF dataset loading")."""
+    made by ``make()`` (``synthetic://N``) or by ``prepare_hf`` with
+    ``codec`` (this process's share: index 0 of 1 until several processes
+    are placed), and saved there when ``save_to_disk`` is set."""
     cache = None
     if data_args.save_to_disk:
         os.makedirs(data_args.save_to_disk, exist_ok=True)
@@ -114,10 +231,10 @@ def _load_or_prepare(data_args, model_args, cfg, *, split: str, make=None) -> li
             print(f"[data] loaded {len(samples)} prepared samples from {cache}")
             return samples
     if make is None:
-        raise NotImplementedError(
-            "HF dataset loading (prepare_hf, load_multiple_datasets) is not ported: it needs `datasets` and "
-            "a T5 tokenizer (ROADMAP.md queue 1, 'HF dataset loading'); use train_dataset_name synthetic://N")
-    samples = make()
+        samples = prepare_hf(data_args, model_args, cfg, codec, split=split, max_samples=max_samples,
+                             process_index=0, process_count=1)
+    else:
+        samples = make()
     if cache:
         np.save(cache, np.asarray(samples, dtype=object), allow_pickle=True)
         print(f"[data] saved {len(samples)} prepared samples to {cache}")
@@ -158,15 +275,14 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
         model = parler.init(train_args.seed, cfg, device=device)
 
     # ----- data -----
-    # a dataset other than synthetic://N loads only from a save_to_disk cache
-    # (which the JAX package may have written); preparing it raises
     synthetic = data_args.train_dataset_name.startswith("synthetic://")
     if synthetic:
         n = int(data_args.train_dataset_name.split("://", 1)[1])
         samples = _load_or_prepare(data_args, model_args, cfg, split="train",
                                    make=lambda: prepare_synthetic(n, cfg, seed=train_args.seed))
     else:
-        samples = _load_or_prepare(data_args, model_args, cfg, split="train")
+        samples = _load_or_prepare(data_args, model_args, cfg, split="train", codec=model.audio_encoder,
+                                   max_samples=data_args.max_train_samples)
     if data_args.max_train_samples:
         samples = samples[: data_args.max_train_samples]
     eval_samples: list[dict] = []
@@ -176,7 +292,8 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
             eval_samples = _load_or_prepare(data_args, model_args, cfg, split="eval",
                                             make=lambda: prepare_synthetic(n_eval, cfg, seed=train_args.seed + 1))
         elif data_args.eval_dataset_name:
-            eval_samples = _load_or_prepare(data_args, model_args, cfg, split="eval")
+            eval_samples = _load_or_prepare(data_args, model_args, cfg, split="eval", codec=model.audio_encoder,
+                                            max_samples=data_args.max_eval_samples)
         else:
             eval_samples = samples[: data_args.max_eval_samples or 16]
         if data_args.max_eval_samples:
@@ -373,8 +490,17 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda") 
 
     # ----- final artifact -----
     final_dir = os.path.join(train_args.output_dir, "final")
+    # the artifact carries the prompt tokenizer (prompts and descriptions
+    # share one in every recipe); a run without one saves none
+    save_tok = None
+    tok_src = model_args.prompt_tokenizer_name or model_args.model_name_or_path
+    if tok_src:
+        try:
+            save_tok = Tokenizer.from_pretrained(tok_src)
+        except FileNotFoundError as e:
+            print(f"artifact tokenizer not saved ({tok_src}: {e})", file=sys.stderr)
     t0 = time.perf_counter()
-    ck.save_model(final_dir, model, cfg, gen_cfg)
+    ck.save_model(final_dir, model, cfg, gen_cfg, tokenizer=save_tok)
     timings["artifact"] = {"ms": 1e3 * (time.perf_counter() - t0), "gb": _gb(final_dir)}
     logger.log({"final_step": opt_step, "wall_s": time.time() - t_start}, step=opt_step)
     logger.close()

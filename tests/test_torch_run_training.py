@@ -4,7 +4,7 @@ against a JAX loop of ``make_train_step``, resume (bit for bit equal to a
 straight run), accumulation and rotation of checkpoints, the eval passes,
 the prepared-data cache and its fingerprint, the checkpoint helpers, the
 artifact's JSON files, ``from_pretrained``, WER and WAV bytes, the memory
-plan, and the refusals (no CUDA, datasets not ported, hub push, model
+plan, and the refusals (no CUDA, no ``datasets`` package, hub push, model
 parallelism)."""
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import io
 import json
 import os
 import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -288,7 +289,7 @@ def test_prepare_fingerprint_matches_jax(change):
     assert got == ref
 
 
-def test_load_or_prepare_hits_its_cache_and_reads_jax_s(tmp_path):
+def test_load_or_prepare_hits_its_cache_and_reads_jax_s(tmp_path, monkeypatch):
     cfg, calls = pcfg.dummy_config(), []
 
     def make():
@@ -311,8 +312,12 @@ def test_load_or_prepare_hits_its_cache_and_reads_jax_s(tmp_path):
     read = prun._load_or_prepare(pargs.DataTrainingArguments(train_dataset_name="x", save_to_disk=str(tmp_path)),
                                  model, cfg, split="eval")
     assert len(read) == 2 and all(np.array_equal(r["labels"], w["labels"]) for r, w in zip(read, written))
-    with pytest.raises(NotImplementedError, match="HF dataset loading"):
-        prun._load_or_prepare(pargs.DataTrainingArguments(train_dataset_name="y"), model, cfg, split="train")
+    # without a cache or ``make`` the samples come from prepare_hf (tests/test_torch_prepare_hf.py)
+    seen = []
+    monkeypatch.setattr(prun, "prepare_hf", lambda *a, **kw: seen.append((a[-1], kw)) or [])
+    prun._load_or_prepare(pargs.DataTrainingArguments(train_dataset_name="y"), model, cfg, split="train",
+                          codec="codec", max_samples=3)
+    assert seen == [("codec", dict(split="train", max_samples=3, process_index=0, process_count=1))]
 
 
 # --- checkpoints and the artifact ---------------------------------------------------------
@@ -479,7 +484,8 @@ def test_main_refuses_without_cuda_and_what_is_not_ported(tmp_path, monkeypatch)
         prun.main(["--model_name_or_path", art, "--train_dataset_name", "synthetic://4"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ParlerTTSPipeline.from_pretrained(art, tokenizer=ToyTokenizer())
-    with pytest.raises(NotImplementedError, match="HF dataset loading"):
+    with pytest.raises(ImportError, match="`datasets` package"):
+        monkeypatch.setitem(sys.modules, "datasets", None)  # as on the card's machine
         _main(art, tmp_path / "o1", "--train_dataset_name", "parler-tts/libritts_r_filtered")
     with pytest.raises(NotImplementedError, match="hub"):
         _main(art, tmp_path / "o2", "--push_to_hub", "true", "--hub_model_id", "me/model")
