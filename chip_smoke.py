@@ -86,7 +86,19 @@ Phases, in order; any failure exits non-zero before the result line:
     K4 once per layer per step, held against their plain versions); and
     ``from_pretrained`` over its ``final/`` with no tokenizer argument: a
     ``tts`` of 2 real-text requests whose ids are the recorded ones and
-    whose tokens equal ``generate``'s fed those ids.
+    whose tokens equal ``generate``'s fed those ids;
+12. multiprocess: ``run_training.main`` over several processes on this one
+    card (the kernels are built before any is started, so every rank loads
+    the same build), at Mini width from a seeded artifact with dropout off,
+    3 steps on ``synthetic://12``: one rank under
+    ``torch.distributed.run`` on NCCL; two gloo ranks on the card with
+    data=2 (per-device batch 1); two with model=2, then greedy generation
+    over the split artifact whose tokens equal the unsplit model's.  Each
+    run's losses and gradient norms against the single-process run at batch
+    2 (run twice for its own spread) within the stated bound, K1 and K4
+    once per layer per step on every rank and held against their plain
+    versions at each rank's shapes (BH = 3 * 8 at T = 903 for model=2's 8
+    heads too).  With one card, several-card NCCL runs are not checked.
 
 Output: a JSON line per phase, then the kernels line, then ``nvidia-smi``'s
 ``name, power.limit``, then the result line
@@ -316,6 +328,8 @@ def check_kernels(fa) -> dict:
     cases = [((4, 16, t, 64), pad, True, "main path") for t, pad in ((17, 5), (65, 20), (257, 70))]
     # the training CLI's eval generation prefill: 2 rows (the eval batch), prompts left-padded to 16, + BOS
     cases += [((2, 16, 17, 64), 10, True, "main path CLI eval generation")]
+    # the text phase's tts prefill: 2 requests, prompts left-padded to the 32 bucket, + BOS
+    cases += [((2, 16, 33, 64), 12, True, "main path text tts prefill")]
     cases += [((1, 2, 40, 32), 5, True, "odd shape"), ((2, 2, 300, 64), 0, False, "odd shape")]
     worst = 0.0
     per_shape = []
@@ -330,13 +344,13 @@ def check_kernels(fa) -> dict:
             q3, k3, v3 = (x.reshape(b * h, t, d) for x in (q, k, v))
             err = check_k1(fa, q3, k3, v3, start, end, out, lse, dict(scale=0.125, causal=causal),
                            {"shape": [b, h, t, d], "pad": pad, "causal": causal, "kind": kind})
-            if kind != "main path" or dtype != torch.bfloat16:
+            if kind not in ("main path", "main path text tts prefill") or dtype != torch.bfloat16:
                 continue
             worst = max(worst, err)
             valid = kv_mask.bool()[:, None, None, :]
             sdpa_mask = valid & torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
             row = {
-                "shape": [b, h, t, d], "pad": pad,
+                "kind": kind, "shape": [b, h, t, d], "pad": pad,
                 "ms": graph_ms(lambda: fa.flash_attention_fwd(q3, k3, v3, start, end, scale=0.125, causal=True)),
                 "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q3, k3, v3, start, end, scale=0.125,
                                                                       causal=True)),
@@ -397,7 +411,9 @@ def check_backward(fa) -> dict:
     the two routes against each other; then, in bf16, the times of K4 at the
     10 s shape and of K2 and K3 at the 30 s shape (the kernels each path
     takes) and at the 10 s shape, their plain versions and SDPA's backward
-    with the same mask."""
+    with the same mask; and K1 and K4 at the shapes a rank of the multiprocess
+    phase takes under model=2 (8 of the 16 heads: BH = 3*8 at T = 903, the
+    CLI's 2*8 at T = 91) and at the text phase's CLI shape (3*16, T = 385)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -406,11 +422,16 @@ def check_backward(fa) -> dict:
     cases = [((3, 16, 903, 64), 903, 0, (20,), True, "main path 10 s"),
              ((1, 16, 2623, 64), 2623, 0, (12,), True, "main path 30 s"),
              ((3, 16, 91, 64), 91, 0, (10, 4, 0), True, "main path CLI"),
+             ((3, 8, 903, 64), 903, 0, (20,), True, "main path 10 s, model=2"),
+             ((2, 8, 91, 64), 91, 0, (10, 0), True, "main path CLI, model=2"),
+             ((3, 16, 385, 64), 385, 0, (10, 4, 0), True, "main path text CLI"),
              ((1, 2, 40, 32), 40, 0, (5,), True, "odd shape"), ((2, 2, 300, 64), 300, 0, (0,), False, "odd shape"),
              ((3, 2, 200, 64), 456, 200, (420, 37, 0), True, "odd shape, Tq < Tk")]
     # each path's kernels, and at 10 s also the split route it was not given
     timed = {"main path 10 s": ("flash_attention_dqkv", "flash_attention_dq", "flash_attention_dkv"),
-             "main path 30 s": ("flash_attention_dq", "flash_attention_dkv")}
+             "main path 30 s": ("flash_attention_dq", "flash_attention_dkv"),
+             **{kind: ("flash_attention_dqkv",) for kind in ("main path 10 s, model=2", "main path CLI, model=2",
+                                                             "main path text CLI")}}
     plain = {"flash_attention_dq": fa.flash_dq_plain, "flash_attention_dkv": fa.flash_dkv_plain,
              "flash_attention_dqkv": fa.flash_dqkv_plain}
     result = {name: {"max_abs_err": 0.0, "per_shape": []} for name in BWD_NAMES}
@@ -450,7 +471,7 @@ def check_backward(fa) -> dict:
             do4 = do.reshape(b, h, t, d)
             library_ms = kernel_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4, retain_graph=True))
             del sdpa_out
-            k1 = {"kernel": "flash_attention_fwd", "shape": [b, h, t, d], "pad": pad,
+            k1 = {"kernel": "flash_attention_fwd", "kind": kind, "shape": [b, h, t, d], "pad": pad,
                   "ms": graph_ms(lambda: fa.flash_attention_fwd(q, k, v, start, end, **kw)),
                   "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v, start, end, **kw), calls=3,
                                        replays=3),
@@ -461,7 +482,8 @@ def check_backward(fa) -> dict:
             emit({"phase": "k1_time", **k1})
             for name in timed[kind]:
                 kernel = getattr(fa, name)
-                row = {"kernel": name, "shape": [b, h, t, d], "pad": pad, "path": kind == MAIN_SHAPE[name],
+                row = {"kernel": name, "kind": kind, "shape": [b, h, t, d], "pad": pad,
+                       "path": kind == MAIN_SHAPE[name],
                        "ms": graph_ms(lambda: kernel(*args, **kw)),
                        "plain_ms": graph_ms(lambda: plain[name](*args, **kw), calls=3, replays=3),
                        "library_ms": library_ms,
@@ -2031,6 +2053,284 @@ def time_phases(model, pipe, prompts, max_seconds) -> dict:
             "vocode_ms": sum(spans["vocode"]), "synced_wall_s": wall}
 
 
+# -- phase 12: several processes ---------------------------------------------------------------
+
+MP_SEED = 42
+MP_STEPS = 3
+MP_ARGV = ["--train_dataset_name", "synthetic://12", "--max_steps", str(MP_STEPS), "--logging_steps", "1",
+           "--save_steps", "0", "--warmup_steps", "1"]
+# a run's losses may stand this far from the single-process run's, at least:
+# the larger of MP_SPREAD_FACTOR x the single-process run's own run-to-run
+# spread (K4's dq is summed by atomics) and MP_GAP_FLOOR (see PERF.md)
+MP_SPREAD_FACTOR = 4.0
+MP_GAP_FLOOR = 2e-3
+MP_NORM_FLOOR = 2e-3  # the same on gradient norms, relative
+MP_GEN_LEN = 40  # greedy positions of the model=2 generation, fp32
+MP_TIMEOUT = 300  # seconds for one torch.distributed.run launch
+
+
+def mp_generate_inputs(cfg) -> dict:
+    """Two requests for the model=2 generation check, drawn from a seed:
+    right-padded descriptions, left-padded prompts."""
+    rng = np.random.default_rng(MP_SEED)
+    ids = rng.integers(3, cfg.text_encoder.vocab_size, (2, 12))
+    mask = np.ones((2, 12), np.int32)
+    mask[1, 9:] = 0
+    pids = rng.integers(3, cfg.vocab_size, (2, 8))
+    pmask = np.ones((2, 8), np.int32)
+    pmask[0, :3] = 0
+    return dict(input_ids=ids, attention_mask=mask, prompt_input_ids=pids, prompt_attention_mask=pmask)
+
+
+def mp_generation(generate_mod, model, gen) -> torch.Tensor:
+    """Greedy tokens of ``model`` (split or not) on the check's inputs."""
+    greedy = dataclasses.replace(gen, max_length=MP_GEN_LEN, do_sample=False)
+    return generate_mod.generate(model, greedy, **mp_generate_inputs(model.cfg), vocode=False,
+                                 device="cuda").tokens.cpu()
+
+
+def hold_sharded_shape(fa, heads: int) -> dict[str, float]:
+    """K1 and K4 on random bf16 tensors at the 3 x 10 s training shape with
+    this rank's ``heads`` (BH = 3 * heads, T = 903, one left-padded row),
+    against their plain versions; the largest error of each."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    b, t, d = 3, 903, 64
+    q, k, v, do = (torch.randn((b * heads, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    kv_mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
+    kv_mask[0, :20] = 0
+    start, end = fa.kv_bounds(kv_mask, b, heads, t, q.device)
+    kw = dict(scale=0.125, causal=True, q_offset=0)
+    meta = {"shape": [b, heads, t, d], "kind": "multiprocess, this rank's heads"}
+    out, lse = fa.flash_attention_fwd(q, k, v, start, end, **kw)
+    k1 = check_k1(fa, q, k, v, start, end, out, lse, kw, meta)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta, start, end)
+    k4 = check_bwd("flash_attention_dqkv", fa.flash_attention_dqkv(*args, **kw), fa.flash_dqkv_plain(*args, **kw),
+                   torch.bfloat16, meta)
+    return {"flash_attention_fwd": k1, "flash_attention_dqkv": k4}
+
+
+def multiprocess_worker(spec_path: str) -> int:
+    """One rank of phase 12, started by ``torch.distributed.run``: joins gloo
+    on this card when the spec says so (``run_training.main`` joins NCCL
+    itself from torchrun's variables otherwise), runs ``run_training.main``
+    with its kernel launches counted per step and K1 and K4 held against
+    their plain versions on the first call at each shape, and, for the
+    model=2 run, greedy generation over the split artifact and K1 and K4 at
+    the 10 s shape with this rank's heads.  Writes its result as JSON."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, REPO)
+    import torch.distributed as tdist
+
+    from parler_tts_tpu_torch.core import checkpoint as ck
+    from parler_tts_tpu_torch.generation import generate as generate_mod
+    from parler_tts_tpu_torch.ops import flash_attention as fa
+    from parler_tts_tpu_torch.parallel import distributed as dist
+    from parler_tts_tpu_torch.parallel import mesh as pmesh
+    from parler_tts_tpu_torch.training import run_training as run_mod
+    from parler_tts_tpu_torch.training import step as step_mod
+
+    if spec["backend"] == "gloo":
+        dist.initialize("gloo", device="cuda")
+    steps, make = [], step_mod.make_train_step
+
+    def make_spy(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def step(state, batch, timings=None):
+            before = counts(fa)
+            metrics = inner(state, batch, timings)
+            after = counts(fa)
+            steps.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                          "rows": int(batch["labels"].shape[0]), "launches": {k: after[k] - before[k] for k in after}})
+            return metrics
+        return step
+
+    spy = KernelSpy(fa, ("flash_attention_fwd", "flash_attention_dqkv"), place="train step")
+    step_mod.make_train_step = make_spy
+    reset_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with spy:
+            out = run_mod.main(spec["argv"], device="cuda")
+    finally:
+        step_mod.make_train_step = make
+    rank = dist.process_index()
+    result = {"rank": rank, "world": dist.process_count(), "backend": tdist.get_backend(),
+              "device": torch.cuda.current_device(), "steps": steps, "step_ms": out["timings"]["step_ms"],
+              "launches": counts(fa), "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "held": sorted({(name, tuple(shapes[0])) for _, name, shapes, _ in spy.captured}),
+              "max_abs_err": spy.hold(f"multiprocess {spec['name']} rank {rank}")}
+    if spec.get("generate"):
+        mesh = pmesh.make_mesh(data=1, model=dist.process_count())
+        model, _, gen = ck.load_model(spec["artifact"], device="cuda", mesh=mesh)
+        reset_counts(fa)
+        gspy = KernelSpy(fa, place="model=2 generation prefill")
+        with gspy:
+            tokens = mp_generation(generate_mod, model, gen)
+        result["generation"] = {"tokens": tokens.tolist(), "k1_launches": counts(fa)["flash_attention_fwd"],
+                                "max_abs_err": gspy.hold("multiprocess")["flash_attention_fwd"],
+                                "local_heads": model.decoder.num_heads}
+        result["sharded_10s"] = hold_sharded_shape(fa, model.decoder.num_heads)
+    with open(spec["result"].format(rank=rank), "w") as f:
+        json.dump(result, f)
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def launch(nproc: int, spec: dict, work: str) -> list[dict]:
+    """``python -m torch.distributed.run`` with ``nproc`` ranks of this
+    script's worker on ``spec``; the ranks' results (their output goes to a
+    log in ``work``, whose end is raised with a failure)."""
+    spec = {**spec, "result": os.path.join(work, f"{spec['name']}_r{{rank}}.json")}
+    spec_path = os.path.join(work, f"{spec['name']}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    log_path = os.path.join(work, f"{spec['name']}.log")
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "1"}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}",
+           os.path.abspath(__file__), "--multiprocess-worker", spec_path]
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            code = proc.wait(timeout=MP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            code = "timeout"
+    if code != 0:
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"multiprocess run {spec['name']} ended with {code}:\n{tail}")
+    results = []
+    for rank in range(nproc):
+        with open(spec["result"].format(rank=rank)) as f:
+            results.append(json.load(f))
+    return results
+
+
+def single_run(run_mod, step_mod, argv: list[str]) -> list[dict]:
+    """``run_training.main`` in this process; each step's loss and norm."""
+    steps, make = [], step_mod.make_train_step
+
+    def make_spy(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def step(state, batch, timings=None):
+            metrics = inner(state, batch, timings)
+            steps.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])})
+            return metrics
+        return step
+
+    step_mod.make_train_step = make_spy
+    try:
+        run_mod.main(argv, device="cuda")
+    finally:
+        step_mod.make_train_step = make
+    return steps
+
+
+def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, fa, work: str, card: str):
+    """Phase 12: ``run_training.main`` over several processes on this one
+    card, at Mini width on ``synthetic://12`` (fused T <= 91), 3 steps from a
+    seeded Mini artifact with dropout off (masks differ by data rank, so
+    only a run without dropout can equal the single-process one):
+    (a) one rank under ``torch.distributed.run`` on NCCL at batch 2; (b) two
+    gloo ranks, data=2 at per-device batch 1; (c) two gloo ranks, model=2 at
+    batch 2, then greedy generation over the split artifact (fp32) whose
+    tokens must equal the unsplit model's.  Each run's losses and gradient
+    norms against the single-process run at batch 2, run twice here for its
+    own spread, within the bound (``MP_*``); K1 and K4 once per layer per
+    step on every rank, held against their plain versions at each rank's
+    shapes.  Step ms and peak GB are one card's, shared by two processes over
+    gloo: not a scaling figure.  Returns the launches and largest errors."""
+    t_phase = time.perf_counter()
+    base = cfg_mod.mini_600m_config()
+    cfg = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder, dropout=0.0))
+    art = os.path.join(work, "artifact")
+    model = parler.init(MP_SEED, cfg, device="cuda")
+    gen = cfg_mod.GenerationConfig(decoder_start_token_id=cfg.decoder.bos_token_id,
+                                   pad_token_id=cfg.decoder.pad_token_id, bos_token_id=cfg.decoder.bos_token_id,
+                                   eos_token_id=cfg.decoder.eos_token_id)
+    ck.save_model(art, model, cfg, gen)
+    unsplit_tokens = mp_generation(generate_mod, model, gen)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = MP_ARGV + ["--model_name_or_path", art]
+    singles = [single_run(run_mod, step_mod, argv + ["--per_device_train_batch_size", "2", "--output_dir",
+                                                     os.path.join(work, f"single{i}")]) for i in range(2)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = singles[0]
+    spread = max(abs(a["loss"] - b["loss"]) for a, b in zip(*singles))
+    norm_spread = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"] for a, b in zip(*singles))
+    bound = max(MP_SPREAD_FACTOR * spread, MP_GAP_FLOOR)
+    norm_bound = max(MP_SPREAD_FACTOR * norm_spread, MP_NORM_FLOOR)
+    layers = cfg.decoder.num_hidden_layers
+    want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                 "flash_attention_dqkv": layers}
+    runs = {"nccl": (1, "nccl", ["--per_device_train_batch_size", "2"], 2),
+            "data2": (2, "gloo", ["--per_device_train_batch_size", "1"], 1),
+            "model2": (2, "gloo", ["--per_device_train_batch_size", "2", "--model_parallel_size", "2"], 2)}
+    summary, launches, errs, ok = {}, {name: 0 for name in COUNTERS}, {}, True
+    for name, (nproc, backend, extra, rows) in runs.items():
+        t0 = time.perf_counter()
+        ranks = launch(nproc, {"name": name, "backend": backend, "artifact": art, "generate": name == "model2",
+                               "argv": argv + extra + ["--output_dir", os.path.join(work, name)]}, work)
+        wall = time.perf_counter() - t0
+        losses = [[s["loss"] for s in r["steps"]] for r in ranks]
+        gaps = [abs(g["loss"] - s["loss"]) for r in ranks for g, s in zip(r["steps"], ref)]
+        norm_gaps = [abs(g["grad_norm"] - s["grad_norm"]) / s["grad_norm"] for r in ranks
+                     for g, s in zip(r["steps"], ref)]
+        run_ok = (all(r["backend"] == backend and r["world"] == nproc and r["device"] == 0 for r in ranks)
+                  and all(len(r["steps"]) == MP_STEPS and all(s["rows"] == rows and s["launches"] == want_step
+                                                              for s in r["steps"]) for r in ranks)
+                  and all(x == losses[0] for x in losses) and all(math.isfinite(x) for x in losses[0])
+                  and max(gaps) <= bound and max(norm_gaps) <= norm_bound)
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] += v
+            for k, v in r["max_abs_err"].items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        row = {"ranks": nproc, "backend": backend, "losses": losses[0], "single_losses": [s["loss"] for s in ref],
+               "max_loss_gap": max(gaps), "loss_bound": bound, "max_grad_norm_gap_rel": max(norm_gaps),
+               "grad_norm_bound_rel": norm_bound,
+               "per_rank": [{"rank": r["rank"], "k1_launches": r["launches"]["flash_attention_fwd"],
+                             "k4_launches": r["launches"]["flash_attention_dqkv"], "held": r["held"],
+                             "max_abs_err": r["max_abs_err"], "step_ms": r["step_ms"], "peak_gb": r["peak_gb"]}
+                            for r in ranks],
+               "wall_s": wall, "timing_note": "one card, gloo, not a scaling figure" if backend == "gloo"
+               else "one card, one rank"}
+        if name == "model2":
+            gens = [r["generation"] for r in ranks]
+            same = all(g["tokens"] == unsplit_tokens.tolist() for g in gens)
+            row["generation"] = {"positions": MP_GEN_LEN, "same_tokens_as_unsplit": same,
+                                 "local_heads": [g["local_heads"] for g in gens],
+                                 "k1_launches": [g["k1_launches"] for g in gens],
+                                 "k1_max_abs_err": max(g["max_abs_err"] for g in gens)}
+            row["sharded_10s_max_abs_err"] = {k: max(r["sharded_10s"][k] for r in ranks)
+                                              for k in ("flash_attention_fwd", "flash_attention_dqkv")}
+            heads = cfg.decoder.num_attention_heads // 2
+            run_ok = run_ok and same and all(g["k1_launches"] == layers and g["local_heads"] == heads for g in gens)
+            errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], row["generation"]["k1_max_abs_err"])
+            launches["flash_attention_fwd"] += sum(g["k1_launches"] for g in gens)
+        row["ok"] = run_ok
+        summary[name] = row
+        emit({"phase": "multiprocess_run", "run": name, **row})
+        ok = ok and run_ok
+    emit({"phase": "multiprocess", "config": "mini_600m_config, dropout 0, fp32 parameters, bf16 compute, random "
+          "weights (seed 42); generation fp32", "card": card, "single_losses": singles,
+          "single_spread": spread, "single_grad_norm_spread_rel": norm_spread, "launches": launches,
+          "max_abs_err": errs, "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise AssertionError("the multiprocess phase is not as it should be (see its lines)")
+    return launches, errs
+
+
 def ptxas_report(log: str) -> dict:
     """Registers and spilled bytes of each kernel in ``nvcc -Xptxas=-v``
     output, by mangled name."""
@@ -2140,21 +2440,31 @@ def main() -> int:
                                             data_mod, reader_mod, text_dir, card)
     finally:
         shutil.rmtree(text_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp_dir = tempfile.mkdtemp(prefix="parler_multiprocess_")
+    try:
+        mp_launches, mp_errs = run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, fa, mp_dir,
+                                                card)
+    finally:
+        shutil.rmtree(mp_dir, ignore_errors=True)
 
     head = next(r for r in k1["per_shape"] if r["shape"][2] == 257)
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "parler_tts_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": REPLACES["flash_attention_fwd"],
-        "launches": sum(p["flash_attention_fwd"] for p in (tts_launches, train_launches, cli_launches, text_launches))
+        "launches": sum(p["flash_attention_fwd"] for p in (tts_launches, train_launches, cli_launches, text_launches,
+                                                            mp_launches))
         + sum(path[0] for path in new_paths.values()),
         "launches_by_path": {"tts": tts_launches["flash_attention_fwd"],
                              **{name: path[0] for name, path in new_paths.items()},
                              "train": train_launches["flash_attention_fwd"],
                              "train_cli": cli_launches["flash_attention_fwd"],
-                             "text": text_launches["flash_attention_fwd"]},
+                             "text": text_launches["flash_attention_fwd"],
+                             "multiprocess": mp_launches["flash_attention_fwd"]},
         "max_abs_err": max(k1["max_abs_err"], cli_errs["flash_attention_fwd"], text_errs["flash_attention_fwd"],
-                           *(path[1] for path in new_paths.values())),
+                           mp_errs["flash_attention_fwd"], *(path[1] for path in new_paths.values())),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
         "per_shape": k1["per_shape"] + [new_paths["decoder_only"][2], new_paths["encodec"][2]]
@@ -2164,11 +2474,13 @@ def main() -> int:
         row = next(r for r in bwd[name]["per_shape"] if r["path"])
         kernels.append({
             "name": name, "route": "cuda", "source": "parler_tts_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": REPLACES[name], "launches": train_launches[name] + cli_launches[name] + text_launches[name],
+            "replaces": REPLACES[name],
+            "launches": train_launches[name] + cli_launches[name] + text_launches[name] + mp_launches[name],
             "launches_by_path": {"tts": tts_launches[name], **{path: 0 for path in new_paths},  # checked 0
                                  "train": train_launches[name], "train_cli": cli_launches[name],
-                                 "text": text_launches[name]},
-            "max_abs_err": max(bwd[name]["max_abs_err"], cli_errs.get(name, 0.0), text_errs.get(name, 0.0)),
+                                 "text": text_launches[name], "multiprocess": mp_launches[name]},
+            "max_abs_err": max(bwd[name]["max_abs_err"], cli_errs.get(name, 0.0), text_errs.get(name, 0.0),
+                               mp_errs.get(name, 0.0)),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -2181,4 +2493,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multiprocess-worker"]:
+        sys.exit(multiprocess_worker(sys.argv[2]))
     sys.exit(main())

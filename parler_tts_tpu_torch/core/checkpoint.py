@@ -20,7 +20,10 @@ Orbax:
   source directory's tokenizer and feature-extractor files beside the
   artifact (``carry_side_files``).
 
-Tensors are copied to the CPU before they are written.
+Tensors are copied to the CPU before they are written.  Both formats hold
+full tensors whatever the process layout: a model split over a model group
+(``parallel/mesh.py``) is gathered before it is written, and sliced after it
+is read, so a checkpoint saved under one layout resumes under another.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import torch
 from parler_tts_tpu_torch.core.config import GenerationConfig, ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
 from parler_tts_tpu_torch.models.parler import TRAINABLE_KEYS, ParlerTTSModel
+from parler_tts_tpu_torch.parallel.mesh import (Mesh, composite_param_specs, gather_params, shard_params, shard_tensor,
+                                                single_device_mesh)
 
 _CKPT_RE = re.compile(r"checkpoint-(\d+)-epoch-(\d+)")
 STATE_FILE = "state.pt"
@@ -101,21 +106,31 @@ def _save(obj: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
-def trainable_state_dict(model: ParlerTTSModel) -> dict[str, torch.Tensor]:
-    """The ``TRAINABLE_KEYS`` subtrees' entries of the model's state_dict."""
-    return {k: v for k, v in model.state_dict().items() if k.split(".", 1)[0] in TRAINABLE_KEYS}
+def _trainable(name: str) -> bool:
+    return name.split(".", 1)[0] in TRAINABLE_KEYS
 
 
-def restore_params(model: ParlerTTSModel, params: dict[str, torch.Tensor]) -> None:
-    """Copy a checkpoint's ``params`` into ``model``'s trainable subtrees;
-    the names must be exactly theirs."""
-    own = trainable_state_dict(model)
+def trainable_state_dict(model: ParlerTTSModel, mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
+    """The ``TRAINABLE_KEYS`` subtrees' entries of the model's state_dict;
+    with a ``mesh`` that splits the model, gathered to full tensors (a
+    collective: every model rank calls it)."""
+    if mesh is not None and mesh.model > 1:
+        return gather_params(model, mesh, keep=_trainable)
+    return {k: v for k, v in model.state_dict().items() if _trainable(k)}
+
+
+def restore_params(model: ParlerTTSModel, params: dict[str, torch.Tensor], mesh: Mesh | None = None) -> None:
+    """Copy a checkpoint's ``params`` (full tensors) into ``model``'s
+    trainable subtrees, each sliced to this rank's shard when ``mesh``
+    splits the model; the names must be exactly theirs."""
+    own = {k: v for k, v in model.state_dict().items() if _trainable(k)}
     missing, extra = sorted(set(own) - set(params)), sorted(set(params) - set(own))
     if missing or extra:
         raise ValueError(f"checkpoint parameters differ from the model's: missing {missing}, extra {extra}")
+    specs, mesh = composite_param_specs(model), mesh or single_device_mesh()
     with torch.no_grad():
         for name, t in own.items():
-            t.copy_(params[name])
+            t.copy_(shard_tensor(params[name], specs[name], mesh))
 
 
 def save_train_state(path: str, *, params: dict[str, torch.Tensor], opt_state: dict | None = None,
@@ -146,14 +161,21 @@ def load_train_state(path: str) -> tuple[dict, dict]:
 
 
 def save_model(path: str, model: ParlerTTSModel, cfg: ParlerTTSConfig, gen: GenerationConfig | None = None, *,
-               tokenizer: Any = None) -> None:
+               tokenizer: Any = None, mesh: Mesh | None = None) -> None:
     """The model artifact: the three JSON files as the JAX ``save_model``
     writes them (``preprocessor_config.json`` is its EnCodec-feature-extractor
     record of the codec's audio contract; ``generation_config.json`` carries
     ``kv_read_buckets`` at the JAX default, not a value read from a JAX
     artifact), ``weights.pt``, and ``tokenizer.save_pretrained(path)`` when
     a tokenizer is given (the JAX package saves one, prompts and
-    descriptions sharing it)."""
+    descriptions sharing it).  With a ``mesh``, every rank calls it: the
+    split parameters are gathered, and rank 0 alone writes."""
+    state = model.state_dict()
+    if mesh is not None:
+        if mesh.model > 1:
+            state = gather_params(model, mesh)
+        if mesh.rank != 0:
+            return
     os.makedirs(path, exist_ok=True)
     cfg.save(os.path.join(path, "config.json"))
     with open(os.path.join(path, "generation_config.json"), "w") as f:
@@ -172,7 +194,7 @@ def save_model(path: str, model: ParlerTTSModel, cfg: ParlerTTSConfig, gen: Gene
             "chunk_length_s": getattr(acfg, "chunk_length_s", None),
             "overlap": getattr(acfg, "overlap", None),
         }, f, indent=2)
-    _save(_cpu(model.state_dict()), os.path.join(path, WEIGHTS_FILE))
+    _save(_cpu(state), os.path.join(path, WEIGHTS_FILE))
 
 
 #: tokenizer and feature-extractor files a model directory may hold beside its
@@ -193,10 +215,11 @@ def carry_side_files(src: str, dst: str) -> list[str]:
     return carried
 
 
-def load_model(path: str, *, device: str | torch.device = "cuda",
-               dtype: torch.dtype | None = None) -> tuple[ParlerTTSModel, ParlerTTSConfig, GenerationConfig]:
+def load_model(path: str, *, device: str | torch.device = "cuda", dtype: torch.dtype | None = None,
+               mesh: Mesh | None = None) -> tuple[ParlerTTSModel, ParlerTTSConfig, GenerationConfig]:
     """-> (model on ``device`` in ``dtype`` (None = fp32), eval mode and
-    frozen; its config; its generation config)."""
+    frozen, sliced to this rank's shards when ``mesh`` splits it; its
+    config; its generation config)."""
     device = resolve_device(device)
     cfg = ParlerTTSConfig.load(os.path.join(path, "config.json"))
     gen_path = os.path.join(path, "generation_config.json")
@@ -207,4 +230,6 @@ def load_model(path: str, *, device: str | torch.device = "cuda",
     if dtype is not None:
         model = model.to(dtype)
     model.load_state_dict(state, strict=True)
+    if mesh is not None:
+        shard_params(model, mesh)
     return model.eval().requires_grad_(False), cfg, gen

@@ -22,6 +22,13 @@ semantics:
 * a finished stream emits PAD, and a stream finishes on its raw sampled EOS,
   before delay forcing (``where(pattern == -1, sampled, forced)``);
 * the loop ends early once every ``(batch, codebook)`` stream has finished.
+
+A model split over a model group (``parallel/mesh.shard_params``) generates
+on every model rank at once, with the same inputs: each rank holds its
+heads' cache, the logits are gathered over the vocabulary, and every rank
+samples from them with the same generator, so all emit the same tokens.
+Its int8 weights and int8 cache wait (ROADMAP.md queue 1, "Multi-process
+placement"): they raise.
 """
 
 from __future__ import annotations
@@ -99,6 +106,9 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
     ``input_ids``, ``prompt_input_ids``, ``prompt_hidden_states`` and
     ``decoder_input_codes`` given."""
     decoder = model.decoder
+    if decoder.model_group is not None and (gen.int8_weights or gen.kv_cache_dtype == "int8"):
+        raise NotImplementedError("int8 weights or KV cache of a model split over a model group: ROADMAP.md "
+                                  "queue 1, 'Multi-process placement'")
     first = next((x for x in (input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
                   if x is not None), None)
     if first is None:
@@ -143,7 +153,7 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
 
     p_len = p_mask.shape[1]
     cache = init_cache(decoder.cfg, rows, p_len + max_length, 0 if enc_hidden is None else enc_hidden.shape[1],
-                       dtype=decoder.dtype, device=device, kv_dtype=gen.kv_cache_dtype)
+                       dtype=decoder.dtype, device=device, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
     fused_mask = torch.cat(
         [p_mask.to(torch.int32), torch.ones((rows, max_length), dtype=torch.int32, device=device)], dim=1
     )

@@ -66,6 +66,9 @@ def stream_generate(model: ParlerTTSModel, gen: GenerationConfig, *, input_ids, 
     holding a special id."""
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be at least 1, got {chunk_frames}")
+    if model.decoder.model_group is not None:
+        raise NotImplementedError("streaming a model split over a model group: ROADMAP.md queue 1, "
+                                  "'Multi-process placement'")
     dev = model_device(model, device)
     if vocode:
         check_vocodable(model.cfg)

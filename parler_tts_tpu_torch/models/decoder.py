@@ -34,6 +34,15 @@ Here the self K/V is one ``(L, B, H, T_max, D)`` pair allocated once at
 ``kv_dtype="int8"`` every K/V row is stored as int8 with a per-position
 bf16 scale (JAX ``_store_kv``); the decode folds the scales out of both
 products and attends to its own position unquantized, as JAX does.
+
+Split over a model group (``parallel/mesh.shard_params``), every layer
+holds its rank's heads and FFN columns, the LM heads its rank's vocabulary,
+and the cache its rank's heads: the outputs of o and fc2 are summed over the
+group, the logits gathered over the vocabulary (``parallel/
+tensor_parallel.py``).  Dropout on replicated activations (the embedded
+sequence, the residual branches) draws the same mask on every model rank;
+on split ones (the FFN activation, attention probabilities) each rank draws
+its own.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from parler_tts_tpu_torch.ops.nn import (
     split_heads,
 )
 from parler_tts_tpu_torch.ops.quantization import quantize_kv
+from parler_tts_tpu_torch.parallel import tensor_parallel as tp
 
 
 def sinusoidal_positions(num_positions: int, dim: int) -> torch.Tensor:
@@ -107,13 +117,16 @@ class KVCache:
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *,
-               dtype: torch.dtype, device: torch.device, kv_dtype: str | None = None) -> KVCache:
+               dtype: torch.dtype, device: torch.device, kv_dtype: str | None = None,
+               heads: int | None = None) -> KVCache:
     """An empty cache for ``max_len`` fused positions and ``enc_len`` encoder
-    positions (0: no cross-attention).  ``kv_dtype``: None stores K/V in
-    ``dtype``; ``"int8"`` stores int8 rows with bf16 per-position scales."""
+    positions (0: no cross-attention) of ``heads`` heads (None: the
+    config's; a model rank holds its share).  ``kv_dtype``: None stores K/V
+    in ``dtype``; ``"int8"`` stores int8 rows with bf16 per-position
+    scales."""
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
-    l, h, d = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
+    l, h, d = cfg.num_hidden_layers, heads or cfg.num_attention_heads, cfg.head_dim
     quant = kv_dtype == "int8"
 
     def buf(t):
@@ -172,9 +185,14 @@ class DecoderAttention(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         h = cfg.hidden_size
-        self.num_heads = cfg.num_attention_heads
+        self.head_dim = cfg.head_dim
         self.scale = cfg.head_dim**-0.5
         self.q, self.k, self.v, self.o = Dense(h, h), Dense(h, h), Dense(h, h), Dense(h, h)
+
+    @property
+    def num_heads(self) -> int:
+        """The heads this rank holds (all of them unless split)."""
+        return self.q.kernel.shape[1] // self.head_dim
 
     def project(self, x: torch.Tensor):
         """(B, T, H) -> pre-scaled q, k, v, each (B, heads, T, D)."""
@@ -203,6 +221,8 @@ class DecodeParams(NamedTuple):
 
 
 class DecoderLayer(nn.Module):
+    model_group: tp.ModelGroup | None = None  # set by parallel/mesh.shard_params
+
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         h = cfg.hidden_size
@@ -218,9 +238,10 @@ class DecoderLayer(nn.Module):
         self.fc2 = Dense(cfg.ffn_dim, h)
         self.ln_ffn = LayerNorm(h)
 
-    def _ffn(self, x, gen=None):
-        h = dropout(self.act(self.fc1(self.ln_ffn(x))), self.activation_dropout, gen)
-        return x + dropout(self.fc2(h), self.dropout, gen)
+    def _ffn(self, x, gen, split_gen):
+        h = dropout(self.act(self.fc1(tp.copy(self.ln_ffn(x), self.model_group))), self.activation_dropout,
+                    split_gen)
+        return x + dropout(tp.reduce(self.fc2(h), self.model_group), self.dropout, gen)
 
     def decode_weights(self, int8: bool) -> DecodeLayer:
         sa, ca = self.self_attn, self.cross_attn
@@ -231,25 +252,33 @@ class DecoderLayer(nn.Module):
     def forward_full(self, x, flash_mask, self_mask, enc, enc_mask, seed: int | None = None):
         """Full-sequence layer.  Returns (x, self K/V, cross K/V or None when
         ``enc`` is None).  ``seed`` (train mode) seeds this layer's dropout
-        generator."""
-        gen = None if seed is None else torch.Generator(device=x.device).manual_seed(seed)
-        q, k, v = self.self_attn.project(self.ln_self(x))
+        generator; split activations draw from a second one seeded by
+        (``seed``, model rank) when the layer is split.  ``enc`` must come
+        through ``tp.copy`` when the layer is split (``ParlerDecoder``
+        does that once for every layer)."""
+        group = self.model_group
+        gen = split_gen = None
+        if seed is not None:
+            gen = split_gen = torch.Generator(device=x.device).manual_seed(seed)
+            if group is not None:
+                split_gen = torch.Generator(device=x.device).manual_seed(hash((seed, group.index)) % 2**62)
+        q, k, v = self.self_attn.project(tp.copy(self.ln_self(x), group))
         attn_drop = self.attention_dropout if gen is not None else 0.0
         if q.shape[2] > 1 and not attn_drop:
             out = flash_attention_bhtd(q, k, v, flash_mask, scale=1.0, causal=True)  # q pre-scaled
         else:
-            out = attention_scores(q, k, v, mask=self_mask, dropout_rate=attn_drop, generator=gen)
-        x = x + dropout(self.self_attn.o(merge_heads(out)), self.dropout, gen)
+            out = attention_scores(q, k, v, mask=self_mask, dropout_rate=attn_drop, generator=split_gen)
+        x = x + dropout(tp.reduce(self.self_attn.o(merge_heads(out)), group), self.dropout, gen)
 
         cross_kv = None
         if enc is not None:
             ca = self.cross_attn
-            cq = split_heads(ca.q(self.ln_cross(x)), ca.num_heads) * ca.scale
+            cq = split_heads(ca.q(tp.copy(self.ln_cross(x), group)), ca.num_heads) * ca.scale
             cross_kv = split_heads(ca.k(enc), ca.num_heads), split_heads(ca.v(enc), ca.num_heads)
             out = attention_scores(cq, *cross_kv, mask=enc_mask[:, None, None, :].bool(),
-                                   dropout_rate=attn_drop, generator=gen)
-            x = x + dropout(ca.o(merge_heads(out)), self.dropout, gen)
-        return self._ffn(x, gen), (k, v), cross_kv
+                                   dropout_rate=attn_drop, generator=split_gen)
+            x = x + dropout(tp.reduce(ca.o(merge_heads(out)), group), self.dropout, gen)
+        return self._ffn(x, gen, split_gen), (k, v), cross_kv
 
     def forward_decode(self, x, cache: KVCache, layer: int, kv_mask, enc_mask, p: DecodeLayer):
         """One cached token at ``cache.index`` with the decode weights ``p``.
@@ -270,7 +299,8 @@ class DecoderLayer(nn.Module):
                           current=(k, v))
             _put(cache.self_k, cache.self_k_scale, layer, i, k[:, :, 0])
             _put(cache.self_v, cache.self_v_scale, layer, i, v[:, :, 0])
-        x = x + p.o(merge_heads(out))
+        group = self.model_group
+        x = x + tp.reduce(p.o(merge_heads(out)), group)
 
         if cache.cross_k is not None:
             ca = self.cross_attn
@@ -278,11 +308,13 @@ class DecoderLayer(nn.Module):
             scales = {} if cache.cross_k_scale is None else dict(
                 k_scale=cache.cross_k_scale[layer], v_scale=cache.cross_v_scale[layer])
             out = _attend(cq, cache.cross_k[layer], cache.cross_v[layer], enc_mask, **scales)
-            x = x + p.cross_o(merge_heads(out))
-        return x + p.fc2(self.act(p.fc1(self.ln_ffn(x))))
+            x = x + tp.reduce(p.cross_o(merge_heads(out)), group)
+        return x + tp.reduce(p.fc2(self.act(p.fc1(self.ln_ffn(x)))), group)
 
 
 class ParlerDecoder(nn.Module):
+    model_group: tp.ModelGroup | None = None  # set by parallel/mesh.shard_params
+
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         self.cfg = cfg
@@ -300,6 +332,11 @@ class ParlerDecoder(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.embed_tokens.embedding.dtype
+
+    @property
+    def num_heads(self) -> int:
+        """The attention heads this rank holds (all of them unless split)."""
+        return self.layers[0].self_attn.num_heads
 
     def embed_codebooks(self, ids: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
         """(B, K, T) ids -> (B, T, H): one gather over the offset-flattened
@@ -354,7 +391,7 @@ class ParlerDecoder(nn.Module):
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
         self_mask = causal[None, None] & flash_mask[:, None, None, :].bool()
 
-        enc = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
+        enc = None if encoder_hidden_states is None else tp.copy(encoder_hidden_states.to(dtype), self.model_group)
         if cache is not None:
             if cache.index != 0:
                 raise ValueError("prefill needs an empty cache (index 0)")
@@ -422,15 +459,16 @@ class ParlerDecoder(nn.Module):
         """Fused K heads: (B, T, H) -> (B, K, T', V), projecting only the last
         ``num_labels`` positions when given.  ``heads`` (the decode view's)
         may be int8: the per-(codebook, vocab) scale folds out of the H
-        product."""
+        product.  Split over a model group, each rank projects its vocabulary
+        shard and the shards are gathered."""
         if num_labels is not None:
             hidden = hidden[:, -num_labels:]
         if heads is None:
             heads = DenseWeight(self.lm_heads.kernel)
-        out = torch.einsum("bth,khv->bktv", hidden, heads.kernel.to(hidden.dtype))
+        out = torch.einsum("bth,khv->bktv", tp.copy(hidden, self.model_group), heads.kernel.to(hidden.dtype))
         if heads.scale is not None:
             out = out * heads.scale.to(hidden.dtype)[None, :, None, :]
-        return out
+        return tp.gather(out, -1, self.model_group)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -447,18 +485,26 @@ class ParlerDecoder(nn.Module):
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor, decoder_input_ids: torch.Tensor,
-            cfg: DecoderConfig, ignore_id: int = -100) -> torch.Tensor:
+            cfg: DecoderConfig, ignore_id: int = -100, count_group=None) -> torch.Tensor:
     """Per-codebook masked cross-entropy averaged over the K codebooks.
 
     ``logits`` (B, K, T, V), ``labels`` and ``decoder_input_ids`` (B, K, T).
     BOS labels are ignored and positions whose input is EOS are excluded, so
     one EOS per codebook counts; each codebook's mean uses its own valid
-    count.  The log-softmax is fp32."""
+    count.  The log-softmax is fp32.
+
+    With ``count_group`` (a data group: each rank holds some rows of the
+    global batch) the valid counts are summed over the group, and the value
+    is this rank's share of the global batch's loss: the shares sum to it,
+    and so do their gradients.  Averaging the ranks' own means would weigh
+    a token by its rank's padding."""
     labels = labels.masked_fill(labels == cfg.bos_token_id, ignore_id)
     mask = (decoder_input_ids != cfg.eos_token_id) & (labels != ignore_id)
     logp = torch.log_softmax(logits.float(), dim=-1)
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
     per_cb_sum = torch.where(mask, -token_ll, torch.zeros_like(token_ll)).sum(dim=(0, 2))
-    per_cb_cnt = mask.sum(dim=(0, 2)).clamp(min=1)
-    return (per_cb_sum / per_cb_cnt).mean()
+    per_cb_cnt = mask.sum(dim=(0, 2))
+    if count_group is not None:
+        torch.distributed.all_reduce(per_cb_cnt, group=count_group)
+    return (per_cb_sum / per_cb_cnt.clamp(min=1)).mean()

@@ -4,7 +4,10 @@ decoder LM + codec, DAC or EnCodec (port of ``parler_tts_tpu/models/parler.py``)
 ``train_forward`` is the teacher-forced loss of training; the text encoder
 (and the codec) stay frozen and run without autograd, so only the decoder,
 ``embed_prompts`` and ``enc_to_dec_proj`` get gradients.  ``import_composite``
-maps a reference checkpoint's state_dict onto the model's names."""
+maps a reference checkpoint's state_dict onto the model's names.  Split
+over a model group, the text encoder and the decoder hold their rank's
+shards; ``embed_prompts``, ``enc_to_dec_proj`` and the codec stay whole on
+every rank (``parallel/mesh.composite_param_specs``)."""
 
 from __future__ import annotations
 
@@ -58,11 +61,14 @@ class ParlerTTSModel(nn.Module):
                       prompt_input_ids: torch.Tensor, prompt_attention_mask: torch.Tensor,
                       labels: torch.Tensor, decoder_attention_mask: torch.Tensor | None = None,
                       generator: torch.Generator | None = None, remat: bool = False,
-                      dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+                      dtype: torch.dtype = torch.float32,
+                      count_group=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced loss over delay-pattern ``labels`` (B, K, T) with
         -100 holes.  ``generator`` turns on the decoder's dropout and
         layerdrop, ``remat`` its per-layer recomputation; ``dtype`` is the
-        compute dtype.  Returns (loss, logits (B, K, T, V))."""
+        compute dtype; with ``count_group`` (a data group) the loss is this
+        rank's share of the global batch's (``models/decoder.loss_fn``).
+        Returns (loss, logits (B, K, T, V))."""
         dcfg = self.cfg.decoder
         enc_hidden = self.encode_text(input_ids, attention_mask, dtype)
         prompt_hidden = self.embed_prompts(prompt_input_ids, dtype)
@@ -77,7 +83,7 @@ class ParlerTTSModel(nn.Module):
                               encoder_attention_mask=attention_mask, prompt_hidden_states=prompt_hidden,
                               attention_mask=fused_mask, dtype=dtype, generator=generator, remat=remat)
         logits = self.decoder.logits(hidden, num_labels=t)
-        return loss_fn(logits, labels, decoder_input_ids, dcfg), logits
+        return loss_fn(logits, labels, decoder_input_ids, dcfg, count_group=count_group), logits
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -3,6 +3,11 @@
 Port of ``parler_tts_tpu/models/t5_encoder.py``: relative-position-bucket
 attention bias shared by all layers, RMSNorm, gated-GELU FFN, no absolute
 positions and no q scaling (T5 folds it into the init).
+
+Split over a model group (``parallel/mesh.shard_params``), each rank holds
+its heads and FFN columns, sums the outputs of o and wo over the group, and
+reads its heads' columns of the (replicated) relative-position table.  It
+is frozen, so nothing is summed on the way back.
 """
 
 from __future__ import annotations
@@ -10,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from parler_tts_tpu_torch.core.config import T5EncoderConfig
@@ -22,6 +28,7 @@ from parler_tts_tpu_torch.ops.nn import (
     merge_heads,
     split_heads,
 )
+from parler_tts_tpu_torch.parallel import tensor_parallel as tp
 
 
 def relative_position_bucket(relative_position: torch.Tensor, *, num_buckets: int = 32,
@@ -47,11 +54,18 @@ class T5Attention(nn.Module):
     def __init__(self, cfg: T5EncoderConfig):
         super().__init__()
         d, inner = cfg.d_model, cfg.inner_dim
-        self.num_heads = cfg.num_heads
+        self.d_kv = cfg.d_kv
         self.q, self.k, self.v = Dense(d, inner), Dense(d, inner), Dense(d, inner)
         self.o = Dense(inner, d)
 
+    @property
+    def num_heads(self) -> int:
+        """The heads this rank holds (all of them unless split)."""
+        return self.q.kernel.shape[1] // self.d_kv
+
     def forward(self, x, bias, mask):
+        """Attention of this rank's heads; the output is its partial sum
+        when the heads are split."""
         h = self.num_heads
         q, k, v = split_heads(self.q(x), h), split_heads(self.k(x), h), split_heads(self.v(x), h)
         return self.o(merge_heads(attention_scores(q, k, v, bias=bias, mask=mask)))
@@ -75,6 +89,8 @@ class T5FFN(nn.Module):
 
 
 class T5Layer(nn.Module):
+    model_group: tp.ModelGroup | None = None  # set by parallel/mesh.shard_params
+
     def __init__(self, cfg: T5EncoderConfig):
         super().__init__()
         self.attn = T5Attention(cfg)
@@ -83,11 +99,13 @@ class T5Layer(nn.Module):
         self.ln_ffn = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
 
     def forward(self, x, bias, mask):
-        x = x + self.attn(self.ln_attn(x), bias, mask)
-        return x + self.ffn(self.ln_ffn(x))
+        x = x + tp.reduce(self.attn(self.ln_attn(x), bias, mask), self.model_group)
+        return x + tp.reduce(self.ffn(self.ln_ffn(x)), self.model_group)
 
 
 class T5Encoder(nn.Module):
+    model_group: tp.ModelGroup | None = None  # set by parallel/mesh.shard_params
+
     def __init__(self, cfg: T5EncoderConfig):
         super().__init__()
         self.cfg = cfg
@@ -97,8 +115,13 @@ class T5Encoder(nn.Module):
         self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
 
     def position_bias(self, q_len: int, k_len: int) -> torch.Tensor:
-        """(1, heads, q_len, k_len) additive bias from the shared table."""
-        device = self.rel_attn_bias.embedding.device
+        """(1, heads, q_len, k_len) additive bias from the shared table: this
+        rank's heads' columns of it when the heads are split."""
+        table = self.rel_attn_bias.embedding
+        if self.model_group is not None:
+            local = self.layers[0].attn.num_heads
+            table = table[:, self.model_group.index * local:(self.model_group.index + 1) * local]
+        device = table.device
         ctx = torch.arange(q_len, device=device)[:, None]
         mem = torch.arange(k_len, device=device)[None, :]
         buckets = relative_position_bucket(
@@ -106,7 +129,7 @@ class T5Encoder(nn.Module):
             num_buckets=self.cfg.relative_attention_num_buckets,
             max_distance=self.cfg.relative_attention_max_distance,
         )
-        return self.rel_attn_bias(buckets).permute(2, 0, 1)[None]
+        return F.embedding(buckets, table).permute(2, 0, 1)[None]
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
                 dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -63,12 +63,19 @@ class BatchingEngine:
         and only requests of one bucket share a call.
       fill_wait_ms, fill_threshold: the deferred fill (module docstring);
         ``fill_wait_ms=0`` turns it off.
+
+    A pipeline whose model is split over a model group raises
+    ``NotImplementedError`` (ROADMAP.md queue 1, "Multi-process placement").
     """
 
     def __init__(self, pipeline, *, max_batch: int = 64, max_wait_ms: float = 30.0,
                  batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
                  length_bucket_seconds: tuple[float, ...] = (5.0, 10.0, 30.0),
                  fill_wait_ms: float = 150.0, fill_threshold: float = 0.6):
+        model = getattr(pipeline, "model", None)
+        if getattr(getattr(model, "decoder", None), "model_group", None) is not None:
+            raise NotImplementedError("the batching engine over a model split over a model group: ROADMAP.md "
+                                      "queue 1, 'Multi-process placement'")
         self.pipeline = pipeline
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms

@@ -7,12 +7,12 @@ one JSON recipe (``helpers/training_configs/*.json``) or from ``--flag
 value`` pairs, so that every recipe parses to the same values in both
 packages.
 
-Three fields only tune XLA and are kept so that recipes parse:
+Two fields only tune XLA and are kept so that recipes parse:
 ``scan_unroll`` (the port's layers are a Python loop; ``main`` prints that
-it ignores it), ``gradient_checkpointing_policy`` (``"dots"`` and ``"full"``
-both mean the port's per-layer recompute, ``remat=True``) and
-``model_parallel_size`` (``main`` raises above 1; multi-process placement
-is ROADMAP.md queue 1, "Multi-process placement").
+it ignores it) and ``gradient_checkpointing_policy`` (``"dots"`` and
+``"full"`` both mean the port's per-layer recompute, ``remat=True``).
+``model_parallel_size`` is the model axis of the processes' mesh
+(``parallel/mesh.py``); it must divide the number of processes.
 """
 
 from __future__ import annotations

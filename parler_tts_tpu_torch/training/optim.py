@@ -62,21 +62,35 @@ def make_schedule(name: str, learning_rate: float, *, warmup_steps: int = 0,
     raise ValueError(f"unknown schedule {name!r}")
 
 
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: list[torch.Tensor], split: list[bool] | None = None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, as a 0-d fp32 tensor on
     the tensors' device (no host synchronisation).  The sums are float64:
-    the CPU's fp32 norm drifts by up to 5e-4 on a 5M-element gradient."""
-    norms = torch._foreach_norm(tensors, 2, dtype=torch.float64)
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
+    the CPU's fp32 norm drifts by up to 5e-4 on a 5M-element gradient.
+
+    With ``split`` (one flag per tensor) and a model ``group``
+    (``parallel/tensor_parallel.ModelGroup``), a split tensor holds this
+    rank's shard: the squares of the split tensors are summed over the
+    group, and the replicated ones, the same on every rank, count once."""
+    norms = torch.stack(torch._foreach_norm(tensors, 2, dtype=torch.float64))
+    if group is None or split is None:
+        return torch.linalg.vector_norm(norms).float()
+    mask = torch.tensor(split, dtype=torch.bool, device=norms.device)
+    split_squares = norms[mask].square().sum()
+    torch.distributed.all_reduce(split_squares, group=group.group)
+    return (split_squares + norms[~mask].square().sum()).sqrt().float()
 
 
 class Optimizer:
     """Clipped AdamW with gradient accumulation over a fixed list of
-    parameters, updated in place by :meth:`update`."""
+    parameters, updated in place by :meth:`update`.  ``split`` flags the
+    parameters that hold a model rank's shard, ``model_group`` is their
+    group (``global_norm``)."""
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Schedule, *, b1: float, b2: float,
-                 eps: float, weight_decay: float, max_grad_norm: float | None, grad_accum_steps: int):
+                 eps: float, weight_decay: float, max_grad_norm: float | None, grad_accum_steps: int,
+                 split: list[bool] | None = None, model_group=None):
         self.params = list(params)
+        self.split, self.model_group = split, model_group
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.grad_accum_steps = grad_accum_steps
@@ -103,7 +117,7 @@ class Optimizer:
                 return False
             grads, self._acc, grad_norm = self._acc, None, None
         if self.max_grad_norm is not None:
-            norm = global_norm(grads) if grad_norm is None else grad_norm
+            norm = self.norm(grads) if grad_norm is None else grad_norm
             scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
             grads = torch._foreach_mul(grads, scale)
         lr = self.schedule(self.count)
@@ -116,6 +130,11 @@ class Optimizer:
             p.grad = None
         self.count += 1
         return True
+
+    def norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global norm of a full set of grads, over the model group's
+        shards."""
+        return global_norm(grads, self.split, self.model_group)
 
     def state_dict(self) -> dict:
         """AdamW's ``state_dict`` (keyed by the index in ``params``), the
@@ -139,9 +158,23 @@ def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float = 9.5e-4
                    schedule: str = "constant_with_warmup", warmup_steps: int = 20000,
                    total_steps: int | None = None, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
                    weight_decay: float = 0.01, max_grad_norm: float | None = 1.0,
-                   grad_accum_steps: int = 1) -> Optimizer:
+                   grad_accum_steps: int = 1, split: list[bool] | None = None, model_group=None) -> Optimizer:
     """AdamW with global-norm clipping and optional gradient accumulation
-    over ``params`` (the JAX ``make_optimizer``'s arguments)."""
+    over ``params`` (the JAX ``make_optimizer``'s arguments; ``split`` and
+    ``model_group`` place the parameters, see :class:`Optimizer`)."""
     sched = make_schedule(schedule, learning_rate, warmup_steps=warmup_steps, total_steps=total_steps)
     return Optimizer(params, sched, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                     max_grad_norm=max_grad_norm, grad_accum_steps=grad_accum_steps)
+                     max_grad_norm=max_grad_norm, grad_accum_steps=grad_accum_steps, split=split,
+                     model_group=model_group)
+
+
+def map_param_state(state: dict, fn) -> dict:
+    """A copy of :meth:`Optimizer.state_dict` ``state`` with ``fn(i, t)``
+    applied to each tensor shaped like parameter ``i`` (AdamW's moments and
+    the accumulated grads); used to gather shards into full tensors and to
+    slice them back."""
+    adamw = state["adamw"]
+    moments = {i: {k: fn(i, v) if torch.is_tensor(v) and v.dim() else v for k, v in s.items()}
+               for i, s in adamw["state"].items()}
+    acc = None if state["acc"] is None else [fn(i, a) for i, a in enumerate(state["acc"])]
+    return {**state, "adamw": {**adamw, "state": moments}, "acc": acc}

@@ -7,8 +7,14 @@ stay frozen (the reference's ``freeze_encoders``): only the
 JAX step does.
 
 Dropout randomness comes from a generator seeded per (``dropout_seed``,
-step), so masks are fixed per step and differ across steps; torch's bits are
-not JAX's.
+step, data rank), so masks are fixed per step and differ across steps and
+data ranks; torch's bits are not JAX's.
+
+On a (data, model) mesh (``parallel/mesh.py``) each data rank takes its rows
+of the global batch: the loss is the global batch's, from per-codebook sums
+over counts summed over the data group, and the gradients are summed over
+the data group; a model rank holds its shards, and the gradient norm sums
+their squares over the model group.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch
 
 from parler_tts_tpu_torch.core.config import ParlerTTSConfig
 from parler_tts_tpu_torch.models.parler import TRAINABLE_KEYS, ParlerTTSModel, set_trainable
-from parler_tts_tpu_torch.training.optim import Optimizer, global_norm, make_optimizer
+from parler_tts_tpu_torch.parallel.mesh import Mesh, composite_param_specs
+from parler_tts_tpu_torch.training.optim import Optimizer, make_optimizer
 
 BATCH_KEYS = ("input_ids", "attention_mask", "prompt_input_ids", "prompt_attention_mask", "labels",
               "decoder_attention_mask")
@@ -35,16 +42,34 @@ class TrainState:
     step: int = 0
 
 
+def trainable_names(model: ParlerTTSModel) -> list[str]:
+    """The names of the ``TRAINABLE_KEYS`` subtrees' parameters, in the
+    order of ``trainable_parameters``."""
+    return [f"{key}.{name}" for key in TRAINABLE_KEYS if getattr(model, key) is not None
+            for name, _ in getattr(model, key).named_parameters()]
+
+
 def trainable_parameters(model: ParlerTTSModel) -> list[torch.nn.Parameter]:
     """The parameters of the ``TRAINABLE_KEYS`` subtrees, in a fixed order."""
     return [p for key in TRAINABLE_KEYS if getattr(model, key) is not None
             for p in getattr(model, key).parameters()]
 
 
-def create_state(model: ParlerTTSModel, **optimizer_kwargs) -> TrainState:
+def trainable_dims(model: ParlerTTSModel) -> list[int | None]:
+    """For each trainable parameter, in order, the dimension it splits over
+    the model axis (None: replicated)."""
+    specs = composite_param_specs(model)
+    return [specs[name] for name in trainable_names(model)]
+
+
+def create_state(model: ParlerTTSModel, mesh: Mesh | None = None, **optimizer_kwargs) -> TrainState:
     """Mark the trainable subtrees and build their optimizer
-    (``optimizer_kwargs`` go to ``make_optimizer``)."""
+    (``optimizer_kwargs`` go to ``make_optimizer``) over the model's shards
+    when ``mesh`` splits it."""
     set_trainable(model)
+    if mesh is not None and mesh.model > 1:
+        optimizer_kwargs.update(split=[d is not None for d in trainable_dims(model)],
+                                model_group=mesh.model_group)
     return TrainState(model, make_optimizer(trainable_parameters(model), **optimizer_kwargs))
 
 
@@ -53,9 +78,12 @@ def has_dropout(cfg: ParlerTTSConfig) -> bool:
     return any(r > 0.0 for r in (d.dropout, d.attention_dropout, d.activation_dropout, d.layerdrop))
 
 
-def dropout_generator(seed: int, step: int) -> torch.Generator:
-    """A host generator seeded from (``seed``, ``step``)."""
-    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+def dropout_generator(seed: int, step: int, data_rank: int = 0) -> torch.Generator:
+    """A host generator seeded from (``seed``, ``step``, ``data_rank``); the
+    model ranks of one data rank share it, so their masks on replicated
+    activations agree."""
+    mixed = np.random.SeedSequence([seed, step] + ([data_rank] if data_rank else [])).generate_state(
+        1, np.uint64)[0]
     return torch.Generator().manual_seed(int(mixed))
 
 
@@ -70,8 +98,16 @@ def _device(model: ParlerTTSModel) -> torch.device:
     return model.decoder.embed_tokens.embedding.device
 
 
+def _sum_over(tensors: list[torch.Tensor], group) -> None:
+    """All-reduce (sum) each tensor in place over ``group``, all in flight
+    together."""
+    for work in [torch.distributed.all_reduce(t, group=group, async_op=True) for t in tensors]:
+        work.wait()
+
+
 def make_train_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16,
-                    dropout_seed: int | None = None, remat: bool = False) -> Callable[..., dict[str, Any]]:
+                    dropout_seed: int | None = None, remat: bool = False,
+                    mesh: Mesh | None = None) -> Callable[..., dict[str, Any]]:
     """Returns ``step(state, batch, timings=None) -> metrics``.
 
     ``batch`` holds numpy arrays or tensors: input_ids, attention_mask,
@@ -80,38 +116,51 @@ def make_train_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16
     returns ``loss``, ``grad_norm`` (before clipping; 0-d tensors on the
     model's device) and ``step`` (the index this step ran at).  With a
     ``timings`` dict it synchronises the device after each phase and
-    records ``forward_ms``, ``backward_ms`` and ``optimizer_ms`` there."""
+    records ``forward_ms``, ``backward_ms`` and ``optimizer_ms`` there.
+
+    With a ``mesh``, ``batch`` is this data rank's rows of the global batch,
+    and ``loss`` and the update are the global batch's."""
     use_dropout = dropout_seed is not None and has_dropout(cfg)
+    data_group = None if mesh is None else mesh.data_group
+    data_rank = 0 if mesh is None else mesh.data_index
 
     def step(state: TrainState, batch: dict, timings: dict | None = None) -> dict[str, Any]:
         device = _device(state.model)
         clock = _Clock(device, timings)
-        gen = dropout_generator(dropout_seed, state.step) if use_dropout else None
+        gen = dropout_generator(dropout_seed, state.step, data_rank) if use_dropout else None
         params = state.optimizer.params
         loss, _ = state.model.train_forward(**_to_device(batch, device), generator=gen, remat=remat,
-                                            dtype=dtype)
+                                            dtype=dtype, count_group=data_group)
         clock.mark("forward_ms")
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # a layer that layerdrop skipped has no grad: zero, as in JAX
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        grad_norm = global_norm(grads)
+        loss = loss.detach()
+        if data_group is not None:  # this rank's share -> the global batch's
+            _sum_over(grads + [loss], data_group)
+        grad_norm = state.optimizer.norm(grads)
         clock.mark("backward_ms")
         state.optimizer.update(grads, grad_norm)
         clock.mark("optimizer_ms")
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
+        metrics = {"loss": loss, "grad_norm": grad_norm, "step": state.step}
         state.step += 1
         return metrics
 
     return step
 
 
-def make_eval_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16):
-    """Loss-only eval pass: ``step(model, batch) -> {"loss"}``."""
+def make_eval_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16, mesh: Mesh | None = None):
+    """Loss-only eval pass: ``step(model, batch) -> {"loss"}``; with a
+    ``mesh``, ``batch`` is this data rank's rows and the loss the global
+    batch's."""
     del cfg  # the model carries its config; kept for the JAX signature
+    data_group = None if mesh is None else mesh.data_group
 
     @torch.no_grad()
     def step(model: ParlerTTSModel, batch: dict) -> dict[str, torch.Tensor]:
-        loss, _ = model.train_forward(**_to_device(batch, _device(model)), dtype=dtype)
+        loss, _ = model.train_forward(**_to_device(batch, _device(model)), dtype=dtype, count_group=data_group)
+        if data_group is not None:
+            torch.distributed.all_reduce(loss, group=data_group)
         return {"loss": loss}
 
     return step

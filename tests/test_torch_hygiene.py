@@ -1,7 +1,8 @@
-"""The port, its chip smoke script, its card-only tests, its reference
-checkpoint converter and its examples import nothing of JAX, of the JAX
-package, of the HF stack or of ``safetensors`` (the machine with the card has
-none of them); ``datasets`` only inside ``load_multiple_datasets``."""
+"""The port, its chip smoke script, its card-only tests, its multi-process
+test worker, its reference checkpoint converter and its examples import
+nothing of JAX, of the JAX package, of the HF stack or of ``safetensors``
+(the machine with the card has none of them); ``datasets`` only inside
+``load_multiple_datasets``."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "parler_tts_tpu"
 # chip_smoke.py, the card-only tests, the reference converter and the port's
 # examples run on a machine without JAX, transformers or safetensors
 SOURCES = sorted((REPO / "parler_tts_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py", REPO / "tests" / "torch_multiprocess_worker.py",
     REPO / "helpers" / "convert_reference_checkpoint_torch.py"] + sorted((REPO / "examples").glob("*_torch.py"))
 
 
@@ -40,6 +41,7 @@ def test_the_walk_sees_the_whole_port():
     port = REPO / "parler_tts_tpu_torch"
     assert {port / "serving" / "batcher.py", port / "generation" / "streaming.py", port / "models" / "encodec.py",
             port / "core" / "from_reference.py", port / "utils" / "tokenizer.py", port / "utils" / "profiling.py",
+            port / "parallel" / "distributed.py", port / "parallel" / "mesh.py", port / "parallel" / "tensor_parallel.py",
             REPO / "examples" / "generate_speech_torch.py", REPO / "examples" / "stream_speech_torch.py",
             REPO / "examples" / "finetune_torch.py"} <= set(SOURCES)
     assert _imported_roots(REPO / "tests" / "test_torch_blocks.py") >= {"jax", "parler_tts_tpu", "torch"}

@@ -4,8 +4,8 @@ against a JAX loop of ``make_train_step``, resume (bit for bit equal to a
 straight run), accumulation and rotation of checkpoints, the eval passes,
 the prepared-data cache and its fingerprint, the checkpoint helpers, the
 artifact's JSON files, ``from_pretrained``, WER and WAV bytes, the memory
-plan, and the refusals (no CUDA, no ``datasets`` package, hub push, model
-parallelism)."""
+plan, and the refusals (no CUDA, no ``datasets`` package, hub push, a
+model-parallel size that does not divide the processes)."""
 
 from __future__ import annotations
 
@@ -489,5 +489,5 @@ def test_main_refuses_without_cuda_and_what_is_not_ported(tmp_path, monkeypatch)
         _main(art, tmp_path / "o1", "--train_dataset_name", "parler-tts/libritts_r_filtered")
     with pytest.raises(NotImplementedError, match="hub"):
         _main(art, tmp_path / "o2", "--push_to_hub", "true", "--hub_model_id", "me/model")
-    with pytest.raises(NotImplementedError, match="Multi-process placement"):
+    with pytest.raises(ValueError, match="model_parallel_size=2 must divide the 1 processes"):
         _main(art, tmp_path / "o3", "--model_parallel_size", "2")
