@@ -44,8 +44,11 @@ Phases, in order; any failure exits non-zero before the result line:
    int8 weights beside bf16 (decode ms/step, KV bytes, first-step logits);
    ``stream_generate`` (batch 4, 2.5 s, chunks of 86, lookback 48: codes
    equal ``generate``'s, each fp32 chunk a one-shot vocode of the frames so
-   far); ``BatchingEngine`` (warmup, a burst of 6 requests from threads,
-   each batch replayed as a direct ``tts``);
+   far); ``BatchingEngine`` (warmup of the burst's batch buckets, a burst
+   of 6 requests from threads, each batch replayed as a direct ``tts``).
+   Reported with ``utils/mel.py`` on the card, not gated: the mel distance
+   of the stream from a one-shot vocode of the whole utterance, and of the
+   int8 call's waveforms from the bf16 call's (same input ids and seed);
 5. EnCodec: Mini's decoder over 8 codebooks of ``facebook/encodec_24khz``'s
    codec (bf16, the same counts and holds): two ``tts`` calls, one timed
    phase by phase, and ``generate(input_values=...)`` on two 2 s waveforms;
@@ -54,8 +57,12 @@ Phases, in order; any failure exits non-zero before the result line:
    checkpoint directory (two safetensors shards, the DAC weight-normed),
    ``from_reference_pretrained`` on the card (every tensor its source's bit
    for bit), one ``tts`` call with the source's tokens, then the converter
-   to a port artifact and ``from_pretrained`` with the same tokens; the
-   directory is deleted;
+   to a port artifact and ``from_pretrained`` with the same tokens; then
+   ``helpers/quality_gate_torch.py`` on the directory (each gate's line; it
+   must pass), the source's T5 and DAC written as HF-format directories and
+   ``init_model_600M_torch.py`` over them (the artifact's T5 and DAC the
+   source's bit for bit, its tokenizer bundled), ``from_pretrained`` of
+   that artifact and one ``tts``; the directories are deleted;
 7. training path: ``make_train_step`` on Mini at full width and depth, fp32
    parameters with bf16 compute, the Mini recipe (AdamW lr 9.5e-4, beta
    (0.9, 0.99), wd 0.01, clip 1.0, dropout 0.1, one warmup update): 5 steps
@@ -93,7 +100,16 @@ Phases, in order; any failure exits non-zero before the result line:
     3 steps on ``synthetic://12``: one rank under
     ``torch.distributed.run`` on NCCL; two gloo ranks on the card with
     data=2 (per-device batch 1); two with model=2, then greedy generation
-    over the split artifact whose tokens equal the unsplit model's.  Each
+    over the split artifact whose tokens equal the unsplit model's, and the
+    rest of the inference surface over it: int8 weights with the int8 KV
+    cache (fp32, batch 2: the unsplit int8 run's tokens, every int8 kernel
+    and scale the unsplit view's slice bit for bit, the KV bytes per rank),
+    ``stream_generate`` (chunks of 12 frames: codes the split ``generate``'s
+    and the unsplit stream's, chunks equal on both ranks) and the
+    ``BatchingEngine`` with rank 0 taking a warmup and a burst of 4 requests
+    and rank 1 following (each batch a direct split ``tts`` bit for bit),
+    K1 once per layer per prefill on each rank, held (phase 2 times K1 at
+    these shapes).  Each
     run's losses and gradient norms against the single-process run at batch
     2 (run twice for its own spread) within the stated bound, K1 and K4
     once per layer per step on every rank and held against their plain
@@ -111,6 +127,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -321,19 +338,27 @@ def check_k1(fa, q, k, v, start, end, out, lse, kw: dict, meta: dict) -> float:
 
 def check_kernels(fa) -> dict:
     """Phase 2: K1 against its plain version, then its times at the main
-    path's shapes (bf16, BH = 4*16, causal, one left-padded row)."""
+    path's shapes (bf16, BH = 4*16, causal, one left-padded row), the text
+    phase's, and phase 12's split inference's (one rank's 8 heads; fp32
+    where that path runs fp32)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [((4, 16, t, 64), pad, True, "main path") for t, pad in ((17, 5), (65, 20), (257, 70))]
+    bf16, fp32 = (torch.bfloat16,), (torch.float32,)  # the dtypes timed at a shape
+    cases = [((4, 16, t, 64), pad, True, "main path", bf16) for t, pad in ((17, 5), (65, 20), (257, 70))]
     # the training CLI's eval generation prefill: 2 rows (the eval batch), prompts left-padded to 16, + BOS
-    cases += [((2, 16, 17, 64), 10, True, "main path CLI eval generation")]
+    cases += [((2, 16, 17, 64), 10, True, "main path CLI eval generation", ())]
     # the text phase's tts prefill: 2 requests, prompts left-padded to the 32 bucket, + BOS
-    cases += [((2, 16, 33, 64), 12, True, "main path text tts prefill")]
-    cases += [((1, 2, 40, 32), 5, True, "odd shape"), ((2, 2, 300, 64), 0, False, "odd shape")]
+    cases += [((2, 16, 33, 64), 12, True, "main path text tts prefill", bf16)]
+    # phase 12's split model, one rank's 8 heads: the fp32 int8 and stream prefills (2 prompts of 8, + BOS);
+    # the bf16 engine's warmup (2 rows) and burst (4 rows), prompts left-padded to 16, + BOS
+    cases += [((2, 8, 9, 64), 3, True, "main path split int8 and stream prefill", fp32),
+              ((2, 8, 17, 64), 10, True, "main path split engine warmup", bf16),
+              ((4, 8, 17, 64), 10, True, "main path split engine burst", bf16)]
+    cases += [((1, 2, 40, 32), 5, True, "odd shape", ()), ((2, 2, 300, 64), 0, False, "odd shape", ())]
     worst = 0.0
     per_shape = []
-    for (b, h, t, d), pad, causal, kind in cases:
+    for (b, h, t, d), pad, causal, kind, timed in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
             kv_mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
@@ -344,21 +369,24 @@ def check_kernels(fa) -> dict:
             q3, k3, v3 = (x.reshape(b * h, t, d) for x in (q, k, v))
             err = check_k1(fa, q3, k3, v3, start, end, out, lse, dict(scale=0.125, causal=causal),
                            {"shape": [b, h, t, d], "pad": pad, "causal": causal, "kind": kind})
-            if kind not in ("main path", "main path text tts prefill") or dtype != torch.bfloat16:
+            if dtype not in timed:
                 continue
             worst = max(worst, err)
             valid = kv_mask.bool()[:, None, None, :]
             sdpa_mask = valid & torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
             row = {
-                "kind": kind, "shape": [b, h, t, d], "pad": pad,
+                "kind": kind, "shape": [b, h, t, d], "pad": pad, "dtype": str(dtype).removeprefix("torch."),
                 "ms": graph_ms(lambda: fa.flash_attention_fwd(q3, k3, v3, start, end, scale=0.125, causal=True)),
                 "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q3, k3, v3, start, end, scale=0.125,
                                                                       causal=True)),
                 "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
                                                                               scale=0.125)),
             }
-            row["bound_ms"], row["bound_by"] = k1_bound(kv_mask, h, t, d, 2, True, H100_BF16_FLOPS)
-            row["fp32_core_bound_ms"] = k1_bound(kv_mask, h, t, d, 2, True, H100_FP32_FLOPS)[0]
+            if dtype == torch.bfloat16:
+                row["bound_ms"], row["bound_by"] = k1_bound(kv_mask, h, t, d, 2, True, H100_BF16_FLOPS)
+                row["fp32_core_bound_ms"] = k1_bound(kv_mask, h, t, d, 2, True, H100_FP32_FLOPS)[0]
+            else:  # the fp32 CUDA-core kernel
+                row["bound_ms"], row["bound_by"] = k1_bound(kv_mask, h, t, d, 4, True, H100_FP32_FLOPS)
             per_shape.append(row)
             emit({"phase": "k1_time", **row})
     return {"max_abs_err": worst, "per_shape": per_shape}
@@ -1424,11 +1452,24 @@ def run_decoder_only(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
     return launches, max(errs), k1
 
 
-def run_int8(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int, float]:
+def mel_worst(mel_mod, pairs, sr: int) -> dict:
+    """The largest of ``mel_mod.mel_distance``'s numbers over (a, b)
+    waveform pairs, computed on the card; the length mismatches."""
+    d = [mel_mod.mel_distance(torch.as_tensor(np.asarray(a, np.float32)).cuda(),
+                              torch.as_tensor(np.asarray(b, np.float32)).cuda(), sr) for a, b in pairs]
+    return {"pairs": len(d), "mel_max_abs_db": max((x["mel_max_abs_db"] for x in d), default=None),
+            "mel_mean_abs_db": max((x["mel_mean_abs_db"] for x in d), default=None),
+            "wave_max_abs": max((x["wave_max_abs"] for x in d), default=None),
+            "length_mismatch": [x["length_mismatch"] for x in d]}
+
+
+def run_int8(cfg, model, pipe, fa, generate_mod, mel_mod, card: str) -> tuple[int, float]:
     """The main path's tts config (4 requests, 2.5 s, prompt bucket 64) with
     ``kv_cache_dtype="int8"`` and ``int8_weights`` beside the bf16 config,
     in turns (bf16, int8, int8, bf16), each call synchronised and timed
-    phase by phase; the KV cache's bytes of each; and, greedy from one
+    phase by phase; the KV cache's bytes of each; the mel distance of the
+    first int8 call's waveforms from the first bf16 call's (the same input
+    ids and sampling seed; reported, not gated); and, greedy from one
     prefill's inputs, the max abs difference of the first decode step's
     logits, int8 against bf16.  Returns K1's launches and its largest
     error held."""
@@ -1442,12 +1483,12 @@ def run_int8(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int, float]
         caches["int8" if kw.get("kv_dtype") else "bf16"] = cache.nbytes
         return cache
 
-    timings = {"bf16": [], "int8": []}
+    timings, results = {"bf16": [], "int8": []}, {"bf16": [], "int8": []}
     generate_mod.init_cache = keep_cache
     try:
         def calls():
             for name in ("bf16", "int8", "int8", "bf16"):
-                timings[name].append(time_phases(model, pipes[name], _prompts(50), 2.5))
+                timings[name].append(time_phases(model, pipes[name], _prompts(50), 2.5, out=results[name]))
         _, launches, _, err = counted(fa, layers, calls, place="int8 and bf16 tts", calls=4)
     finally:
         generate_mod.init_cache = real_init
@@ -1469,6 +1510,8 @@ def run_int8(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int, float]
         **{f"{name}_synced_wall_s": [t["synced_wall_s"] for t in runs] for name, runs in timings.items()},
         "decode_steps": timings["bf16"][0]["decode_steps"], "kv_cache_bytes": caches,
         "first_step_logits_max_abs_diff": diff, "first_step_logits_max_abs": logits["bf16"].abs().max().item(),
+        "int8_vs_bf16_mel": mel_worst(mel_mod, zip(results["int8"][0][1], results["bf16"][0][1]),
+                                      cfg.sampling_rate),
     }
     emit({"phase": "int8", **summary})
     if not (math.isfinite(diff) and caches["int8"] < caches["bf16"]):
@@ -1489,11 +1532,13 @@ def stream_run(model, streaming_mod, gen, ids) -> dict:
     return {"chunks": chunks, "first_chunk_s": first, "wall_s": time.perf_counter() - t0}
 
 
-def stream_vs_one_shot(codec, chunks) -> tuple[float, float, float]:
+def stream_vs_one_shot(codec, chunks, mel_mod) -> tuple[float, float, float, dict]:
     """Each chunk's audio against a one-shot vocode of every frame ready so
     far, and the whole stream against a one-shot vocode of all its frames
     (codes cleaned as the stream cleans them, audio zeroed past each
-    sample's end): the max abs differences, and the one-shot's peak."""
+    sample's end): the max abs differences, the one-shot's peak, and the
+    mel distance (``mel_worst``) of each sample's stream from its whole
+    one-shot vocode over its valid samples."""
     codes = np.concatenate([c.codes for c in chunks], axis=2)
     cb, hop = codec.cfg.codebook_size, codec.cfg.hop_length
 
@@ -1509,12 +1554,15 @@ def stream_vs_one_shot(codec, chunks) -> tuple[float, float, float]:
         ready = c.frame_offset + c.codes.shape[2]
         ref = one_shot(ready, np.minimum(c.valid_lengths, ready))[:, c.frame_offset * hop:]
         prefix = max(prefix, float(np.abs(ref - c.audio).max()))
-    whole = one_shot(codes.shape[2], chunks[-1].valid_lengths)
+    lengths = chunks[-1].valid_lengths
+    whole = one_shot(codes.shape[2], lengths)
     audio = np.concatenate([c.audio for c in chunks], axis=1)
-    return prefix, float(np.abs(whole - audio).max()), float(np.abs(whole).max())
+    mel = mel_worst(mel_mod, [(audio[i, :n * hop], whole[i, :n * hop]) for i, n in enumerate(lengths) if n],
+                    codec.cfg.sampling_rate)
+    return prefix, float(np.abs(whole - audio).max()), float(np.abs(whole).max()), mel
 
 
-def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, card: str) -> tuple[int, float]:
+def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card: str) -> tuple[int, float]:
     """``stream_generate`` at Mini, batch 4, 2.5 s, chunks of 86 frames,
     lookback 48 (bf16, top-k 50, one generator seed): first-chunk latency,
     wall, audio s per wall s; its codes must be ``generate``'s with the same
@@ -1522,7 +1570,9 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, card: str) -> 
     must equal a one-shot fp32 vocode of the frames ready so far within
     1e-4; the difference from a one-shot vocode of the whole utterance (the
     chunks lack right context) and the bf16 codec's differences are
-    reported.  Returns K1's launches and its largest error held."""
+    reported, with the mel distance of the stream from that whole vocode
+    (the right context its chunks lack).  Returns K1's launches and its
+    largest error held."""
     from parler_tts_tpu_torch.models.delay_pattern import undelay_pattern
 
     layers, sr = cfg.decoder.num_hidden_layers, cfg.sampling_rate
@@ -1536,12 +1586,12 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, card: str) -> 
                                 vocode=False, **ids)
     offline = undelay_pattern(out.tokens[:, :, 1:]).cpu().numpy()[:, :, : codes.shape[2]]
     as_generate = bool(np.array_equal(codes, offline)) and np.array_equal(lengths, out.code_lengths.cpu().numpy())
-    bf16 = stream_vs_one_shot(model.audio_encoder, chunks)
+    bf16 = stream_vs_one_shot(model.audio_encoder, chunks, mel_mod)
     bf16_codec = model.audio_encoder
     model.audio_encoder = copy.deepcopy(bf16_codec).float()
     try:
         fp32_run = stream_run(model, streaming_mod, gen, ids)
-        fp32 = stream_vs_one_shot(model.audio_encoder, fp32_run["chunks"])
+        fp32 = stream_vs_one_shot(model.audio_encoder, fp32_run["chunks"], mel_mod)
     finally:
         model.audio_encoder = bf16_codec
     fp32_codes = np.concatenate([c.codes for c in fp32_run["chunks"]], axis=2)
@@ -1556,7 +1606,8 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, card: str) -> 
         "fp32_max_abs_diff_vs_one_shot_so_far": fp32[0], "tol": 1e-4,
         "fp32_max_abs_diff_vs_one_shot_whole": fp32[1], "fp32_one_shot_peak": fp32[2],
         "bf16_max_abs_diff_vs_one_shot_so_far": bf16[0], "bf16_max_abs_diff_vs_one_shot_whole": bf16[1],
-        "bf16_one_shot_peak": bf16[2], "fp32_first_chunk_s": fp32_run["first_chunk_s"],
+        "bf16_one_shot_peak": bf16[2], "fp32_mel_vs_one_shot_whole": fp32[3], "bf16_mel_vs_one_shot_whole": bf16[3],
+        "fp32_first_chunk_s": fp32_run["first_chunk_s"],
         "fp32_wall_s": fp32_run["wall_s"],
     }
     # fp32: each chunk equal to the one-shot vocode of the frames so far, absolutely and relative to the peak
@@ -1570,7 +1621,8 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, card: str) -> 
 
 def run_serving(cfg, model, pipe, fa, serving_mod, card: str) -> tuple[int, float]:
     """``BatchingEngine`` over the Mini pipeline (batch buckets 1, 2, 4, 8;
-    length buckets 1 s and 2.5 s): ``warmup()``, then a burst of 6 requests
+    length buckets 1 s and 2.5 s): ``warmup()`` of the burst's batch buckets
+    (2 and 4 rows) at both lengths, then a burst of 6 requests
     from 6 threads, 4 of at most 1 s and 2 of 2.5 s.  Each engine call is
     replayed as a direct ``tts`` on the same padded rows with the same folded
     seed: the waveforms must agree within 1e-5.  Reports per-request
@@ -1594,7 +1646,9 @@ def run_serving(cfg, model, pipe, fa, serving_mod, card: str) -> tuple[int, floa
         engine = serving_mod.BatchingEngine(Recorder(), max_batch=8, batch_buckets=(1, 2, 4, 8),
                                             length_bucket_seconds=(1.0, 2.5))
         try:
-            warm = engine.warmup(description=DESCRIPTIONS[3], prompt=_prompts(10)[0], timeout=600)
+            # the burst's buckets only (2 and 4 rows), to keep the smoke's time as later phases grow
+            warm = engine.warmup(description=DESCRIPTIONS[3], prompt=_prompts(10)[0], batch_buckets=(2, 4),
+                                 timeout=600)
             n_warm = len(calls)
             requests = [(DESCRIPTIONS[i % 4], _prompts(10)[i % 4], 1.0 if i < 4 else 2.5, SEED + i)
                         for i in range(6)]
@@ -1903,6 +1957,51 @@ def write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> int:
     return 8 + len(blob) + offset
 
 
+def t5_config_json(te) -> dict:
+    """An HF ``T5Config``'s fields for the text encoder ``te``."""
+    return {"model_type": "t5", "vocab_size": te.vocab_size, "d_model": te.d_model, "d_kv": te.d_kv,
+            "d_ff": te.d_ff, "num_layers": te.num_layers, "num_heads": te.num_heads,
+            "relative_attention_num_buckets": te.relative_attention_num_buckets,
+            "relative_attention_max_distance": te.relative_attention_max_distance,
+            "layer_norm_epsilon": te.layer_norm_epsilon, "feed_forward_proj": "gated-gelu",
+            "dense_act_fn": te.dense_act_fn, "is_gated_act": te.is_gated_act, "dropout_rate": te.dropout_rate}
+
+
+def write_hf_encoders(tensors: dict[str, torch.Tensor], cfg, t5_dir: str, dac_dir: str) -> int:
+    """A reference directory's T5 encoder and DAC (``reference_tensors``)
+    as the two HF-format directories a user downloads: a
+    ``T5EncoderModel`` (``text_encoder.`` stripped; with the T5-shaped
+    tokenizer fixture beside it) and a ``DacModel`` (``audio_encoder.model.``
+    stripped), each a ``config.json`` and a ``model.safetensors`` from
+    ``write_safetensors``.  Returns the files' bytes."""
+    ac = cfg.audio_encoder
+    dac_config = {"model_type": "dac", "n_codebooks": ac.num_codebooks, "codebook_size": ac.codebook_size,
+                  "codebook_dim": ac.codebook_dim, "hidden_size": ac.latent_dim, "sampling_rate": ac.sampling_rate,
+                  "encoder_hidden_size": ac.encoder_hidden_size, "downsampling_ratios": list(ac.downsampling_ratios),
+                  "decoder_hidden_size": ac.decoder_hidden_size, "upsampling_ratios": list(ac.upsampling_ratios),
+                  "hop_length": ac.hop_length}
+    nbytes = 0
+    for path, prefix, config in ((t5_dir, "text_encoder.", t5_config_json(cfg.text_encoder)),
+                                 (dac_dir, "audio_encoder.model.", dac_config)):
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(config, f)
+        nbytes += write_safetensors(os.path.join(path, "model.safetensors"), {
+            name.removeprefix(prefix): t for name, t in tensors.items() if name.startswith(prefix)})
+    shutil.copytree(os.path.join(TOKENIZER_FIXTURES, "t5_unigram"), t5_dir, dirs_exist_ok=True)
+    return nbytes
+
+
+def load_helper(path: str):
+    """A script of the repository (``helpers/...``) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(os.path.basename(path).removesuffix(".py"), os.path.join(REPO, path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def write_reference_dir(path: str, model) -> int:
     """A reference-format Parler-TTS directory of ``model`` (Mini): nested
     ``config.json`` (a T5 config, the reference's DAC wrapper fields and the
@@ -1910,16 +2009,9 @@ def write_reference_dir(path: str, model) -> int:
     (``reference_tensors``) in two safetensors shards behind an index.
     Returns the shards' bytes."""
     cfg = model.cfg
-    te, ac, dc = cfg.text_encoder, cfg.audio_encoder, cfg.decoder
+    ac, dc = cfg.audio_encoder, cfg.decoder
     config = {
-        "model_type": "parler_tts", "vocab_size": cfg.vocab_size,
-        "text_encoder": {"model_type": "t5", "vocab_size": te.vocab_size, "d_model": te.d_model, "d_kv": te.d_kv,
-                         "d_ff": te.d_ff, "num_layers": te.num_layers, "num_heads": te.num_heads,
-                         "relative_attention_num_buckets": te.relative_attention_num_buckets,
-                         "relative_attention_max_distance": te.relative_attention_max_distance,
-                         "layer_norm_epsilon": te.layer_norm_epsilon, "feed_forward_proj": "gated-gelu",
-                         "dense_act_fn": te.dense_act_fn, "is_gated_act": te.is_gated_act,
-                         "dropout_rate": te.dropout_rate},
+        "model_type": "parler_tts", "vocab_size": cfg.vocab_size, "text_encoder": t5_config_json(cfg.text_encoder),
         "audio_encoder": {"model_type": "dac", **{k: getattr(ac, k) for k in (
             "num_codebooks", "model_bitrate", "codebook_size", "codebook_dim", "latent_dim", "frame_rate",
             "sampling_rate", "encoder_hidden_size", "downsampling_ratios", "decoder_hidden_size",
@@ -1948,7 +2040,7 @@ def write_reference_dir(path: str, model) -> int:
     return nbytes
 
 
-def run_reference_import(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, from_reference, card: str,
+def run_reference_import(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, from_reference, ck, card: str,
                          tmp: str) -> tuple[int, float]:
     """Phase 6: a seeded random Mini written as a reference checkpoint
     directory in ``tmp`` (``write_reference_dir``), loaded by
@@ -1959,11 +2051,19 @@ def run_reference_import(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, from_
     model's call launches K1 once per layer, held against its plain version,
     and its tokens must be the source's.  Then
     ``helpers/convert_reference_checkpoint_torch.py`` writes a port artifact,
-    which ``from_pretrained`` serves with the same tokens.  Returns K1's
-    launches and its largest error held."""
-    import importlib.util
-
+    which ``from_pretrained`` serves with the same tokens.  Before the
+    directory goes: ``helpers/quality_gate_torch.py`` runs on it
+    (86 positions, the gate's default, so that its stream check holds the
+    frames short of the last lookback window; each gate's line; the gate
+    must pass; K1 once per layer per prefill); the
+    source's T5 and DAC are written as HF-format directories
+    (``write_hf_encoders``), ``init_model_600M_torch.py`` builds a fresh
+    Mini artifact over them (its T5 and DAC tensors must be the source's bit
+    for bit, the tokenizer bundled), and ``from_pretrained`` of it serves
+    one ``tts`` with its own tokenizer.  Returns K1's launches and its
+    largest error held."""
     cfg = cfg_mod.mini_600m_config()
+    layers = cfg.decoder.num_hidden_layers
     source = parler.init(SEED + 7, cfg, device="cuda")
     ref_dir, art_dir = os.path.join(tmp, "reference"), os.path.join(tmp, "artifact")
     _, write_s = sync_time(lambda: write_reference_dir(ref_dir, source))
@@ -1992,37 +2092,86 @@ def run_reference_import(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, from_
     def pipeline(m):
         return pipeline_mod.ParlerTTSPipeline(m, cfg, gen, tok, tok, dtype=torch.bfloat16)
 
-    tts_s, launches, _, err = counted(fa, cfg.decoder.num_hidden_layers, lambda: serve("loaded", pipeline(model)),
+    encoders = {part: {k: v.cpu().clone() for k, v in getattr(source, part).state_dict().items()}
+                for part in ("text_encoder", "audio_encoder")}
+    t5_dir, dac_dir = os.path.join(tmp, "flan_t5"), os.path.join(tmp, "dac")
+    hf_bytes = write_hf_encoders(reference_tensors(source), cfg, t5_dir, dac_dir)
+    tts_s, launches, _, err = counted(fa, layers, lambda: serve("loaded", pipeline(model)),
                                       place="reference_import tts")
     serve("source", pipeline(source))
     del model, source
     torch.cuda.empty_cache()
-    spec = importlib.util.spec_from_file_location("convert", os.path.join(REPO, "helpers",
-                                                                         "convert_reference_checkpoint_torch.py"))
-    convert = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(convert)
+    convert = load_helper("helpers/convert_reference_checkpoint_torch.py")
     _, convert_s = sync_time(lambda: convert.main([ref_dir, art_dir, "--device", "cuda"]))
     artifact, artifact_load_s = sync_time(lambda: pipeline_mod.ParlerTTSPipeline.from_pretrained(
         art_dir, tokenizer=tok, dtype=torch.bfloat16))
     serve("artifact", artifact)
+    del artifact
+    torch.cuda.empty_cache()
     same = {name: bool(torch.equal(tokens[name].tokens, tokens["source"].tokens)) for name in ("loaded", "artifact")}
+
+    # the port's quality gate on the reference directory
+    gate_mod = load_helper("helpers/quality_gate_torch.py")
+    box = {}
+
+    def gate():
+        box["report"] = gate_mod.run_quality_gate(ref_dir, tokenizer_name=t5_dir, device="cuda")
+        return box["report"]
+
+    def gate_prefills():  # fp32, serving and stream generations; the engine's batches and their direct replay
+        engine = box["report"]["gates"]["serving_engine_vs_direct"]
+        return 3 + (engine["batches"] + 1 if engine.get("ran") else 0)
+
+    (report, gate_s), gate_launches, _, gate_err = counted(fa, layers, lambda: sync_time(gate),
+                                                           place="quality gate", calls=gate_prefills)
+    for name, verdict in report["gates"].items():
+        emit({"phase": "quality_gate", "gate": name, **verdict})
+
+    # a fresh Mini artifact over the HF-format T5 and DAC directories
+    init_dir = os.path.join(tmp, "init_600m")
+    init = load_helper("helpers/model_init_scripts/init_model_600M_torch.py")
+    _, init_s = sync_time(lambda: init.main([init_dir, "--text-encoder", t5_dir, "--dac", dac_dir, "--seed",
+                                             str(SEED + 8)]))
+    weights = torch.load(os.path.join(init_dir, ck.WEIGHTS_FILE), map_location="cpu", weights_only=True, mmap=True)
+    encoders_exact = all(set(k for k in weights if k.startswith(part + ".")) == {f"{part}.{k}" for k in want}
+                         and all(torch.equal(weights[f"{part}.{k}"], v) for k, v in want.items())
+                         for part, want in encoders.items())
+    del weights
+    init_pipe = pipeline_mod.ParlerTTSPipeline.from_pretrained(init_dir, dtype=torch.bfloat16)  # its own tokenizer
+    zero_special_heads(init_pipe.model)
+    ((_, init_wavs), init_tts_s), init_launches, _, init_err = counted(
+        fa, layers, lambda: sync_time(lambda: init_pipe.tts(DESCRIPTIONS[:2], _prompts(10)[:2], seed=SEED,
+                                                            max_seconds=1.0)), place="init_model_600M artifact tts")
+    if not all(w.size and np.isfinite(w).all() for w in init_wavs):
+        raise AssertionError("the init script's artifact gave empty or non-finite audio")
+    del init_pipe
+    torch.cuda.empty_cache()
     summary = {"config": "mini_600m_config fp32 -> bf16, random weights (seed 7)", "card": card,
                "safetensors_gb": nbytes / 1e9, "write_s": write_s, "load_s": load_s,
                "load_gb_per_s": nbytes / 1e9 / load_s,
                "config_equal": loaded_cfg == cfg, "tensors": len(theirs), "tensors_bit_exact": equal,
                "tts_wall_s": tts_s, "k1_launches": launches, "k1_max_abs_err": err, "same_tokens_as_source": same,
                "code_lengths": tokens["loaded"].code_lengths.tolist(), "convert_s": convert_s,
-               "artifact_load_s": artifact_load_s}
-    ok = equal and loaded_cfg == cfg and all(same.values())
+               "artifact_load_s": artifact_load_s,
+               "quality_gate": {"pass": report["pass"], "wall_s": gate_s, "k1_launches": gate_launches,
+                                "k1_max_abs_err": gate_err},
+               "init_600m": {"hf_gb": hf_bytes / 1e9, "init_s": init_s, "t5_dac_bit_exact": encoders_exact,
+                             "tokenizer_bundled": os.path.exists(os.path.join(init_dir, "tokenizer.json")),
+                             "tts_wall_s": init_tts_s, "samples": [int(w.size) for w in init_wavs],
+                             "k1_launches": init_launches, "k1_max_abs_err": init_err}}
+    ok = (equal and loaded_cfg == cfg and all(same.values()) and report["pass"] and encoders_exact
+          and summary["init_600m"]["tokenizer_bundled"])
     emit({"phase": "reference_import", **summary, "ok": ok})
     if not ok:
-        raise AssertionError("the reference checkpoint did not load as its source (see the reference_import line)")
-    return launches, err
+        raise AssertionError("the reference checkpoint did not load as its source, its quality gate failed or the "
+                             "init script's artifact is not as it should be (see the reference_import line)")
+    return launches + gate_launches + init_launches, max(err, gate_err, init_err)
 
 
-def time_phases(model, pipe, prompts, max_seconds) -> dict:
+def time_phases(model, pipe, prompts, max_seconds, out: list | None = None) -> dict:
     """One more tts call with each phase synchronised and host-timed: T5
-    encode, decoder prefill, each decode step, DAC vocode."""
+    encode, decoder prefill, each decode step, DAC vocode.  The call's
+    result is appended to ``out`` when given."""
     spans: dict[str, list[float]] = {"encode": [], "prefill": [], "decode_step": [], "vocode": []}
     targets = {"encode": (model, "encode_text"), "prefill": (model.decoder, "forward"),
                "decode_step": (model.decoder, "decode_step"), "vocode": (model.audio_encoder, "decode")}
@@ -2041,8 +2190,10 @@ def time_phases(model, pipe, prompts, max_seconds) -> dict:
         setattr(obj, attr, timed(name, getattr(obj, attr)))
     try:
         t0 = time.perf_counter()
-        pipe.tts(DESCRIPTIONS, prompts, seed=SEED, max_seconds=max_seconds)
+        result = pipe.tts(DESCRIPTIONS, prompts, seed=SEED, max_seconds=max_seconds)
         wall = time.perf_counter() - t0
+        if out is not None:
+            out.append(result)
     finally:
         for obj, attr in targets.values():
             delattr(obj, attr)
@@ -2066,6 +2217,8 @@ MP_SPREAD_FACTOR = 4.0
 MP_GAP_FLOOR = 2e-3
 MP_NORM_FLOOR = 2e-3  # the same on gradient norms, relative
 MP_GEN_LEN = 40  # greedy positions of the model=2 generation, fp32
+MP_CHUNK = 12  # stream chunk frames over the split model: 40 positions give 3 chunks
+MP_ENGINE_SECONDS = 0.25  # the split engine's requests (30 positions)
 MP_TIMEOUT = 300  # seconds for one torch.distributed.run launch
 
 
@@ -2109,6 +2262,158 @@ def hold_sharded_shape(fa, heads: int) -> dict[str, float]:
     k4 = check_bwd("flash_attention_dqkv", fa.flash_attention_dqkv(*args, **kw), fa.flash_dqkv_plain(*args, **kw),
                    torch.bfloat16, meta)
     return {"flash_attention_fwd": k1, "flash_attention_dqkv": k4}
+
+
+def int8_view_mismatches(split, full, index: int, size: int) -> tuple[int, list[str]]:
+    """This model rank's int8 decode view against the slices of the
+    unsplit model's, bit for bit: the column-split fused qkv projection by
+    projection, cross q and fc1 by columns, the row-split o, cross o and fc2
+    by rows with their whole scales, the LM heads by vocabulary.  Every
+    model rank calls it together (the row-split scales are a collective).
+    Returns the kernels compared and the names of those that differ."""
+    mine, theirs = split.decoder.decode_params(True), full.decoder.decode_params(True)
+
+    def cols(t, dim=-1):
+        n = t.shape[dim] // size
+        return t.narrow(dim, index * n, n)
+
+    def want(name, w):
+        if name == "qkv":
+            return [torch.cat([cols(p) for p in x.chunk(3, dim=-1)], dim=-1) for x in (w.kernel, w.scale)]
+        if name in ("o", "cross_o", "fc2"):
+            return [cols(w.kernel, 0), w.scale]
+        return [cols(w.kernel), cols(w.scale)]
+
+    pairs = [(f"layers.{i}.{name}", getattr(a, name), getattr(b, name))
+             for i, (a, b) in enumerate(zip(mine.layers, theirs.layers)) for name in a._fields]
+    pairs.append(("lm_heads", mine.lm_heads, theirs.lm_heads))
+    bad = [key for key, got, full_w in pairs
+           if not all(torch.equal(g, w) for g, w in zip((got.kernel, got.scale), want(key.rsplit(".", 1)[-1], full_w)))]
+    return len(pairs), bad
+
+
+def split_inference(spec: dict, fa, model, gen, mesh, work: str, greedy_tokens: torch.Tensor) -> dict:
+    """Phase 12's rest of the inference surface over the split model, on
+    every model rank in lockstep: (a) int8 weights and int8 KV cache,
+    greedy, fp32 compute, batch 2 (tokens; the int8 view against the
+    unsplit one's slices; the cache's bytes on this rank); (b)
+    ``stream_generate`` in chunks of ``MP_CHUNK`` frames (codes against the
+    split greedy ``generate``'s ``greedy_tokens``; each chunk written to
+    ``work`` for the parent);
+    (c) ``BatchingEngine`` over a bf16 pipeline of the split model: rank 0
+    takes a warmup and a burst of 4 requests from threads, rank 1
+    ``follow()``s, and every rank replays each batch as a direct ``tts``.
+    K1 once per layer per prefill in each, held against its plain version
+    (phase 2 times it at these shapes).  The model is cast to bf16 at the
+    end."""
+    import threading
+
+    from parler_tts_tpu_torch.core import checkpoint as ck
+    from parler_tts_tpu_torch.generation import generate as generate_mod
+    from parler_tts_tpu_torch.generation import streaming as streaming_mod
+    from parler_tts_tpu_torch.models.delay_pattern import undelay_pattern
+    from parler_tts_tpu_torch.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.serving import BatchingEngine
+    from parler_tts_tpu_torch.utils.toy_tokenizer import ToyTokenizer
+
+    cfg, layers, rank = model.cfg, model.cfg.decoder.num_hidden_layers, mesh.model_index
+    greedy = dataclasses.replace(gen, max_length=MP_GEN_LEN, do_sample=False)
+    out = {}
+
+    # (a) int8 weights and the int8 KV cache
+    caches, real_init = [], generate_mod.init_cache
+
+    def keep_cache(*args, **kw):
+        caches.append(real_init(*args, **kw))
+        return caches[-1]
+
+    generate_mod.init_cache = keep_cache
+    try:
+        tokens, launches, _, err = counted(fa, layers, lambda: mp_generation(generate_mod, model, dataclasses.replace(
+            gen, int8_weights=True, kv_cache_dtype="int8")), place="model=2 int8")
+    finally:
+        generate_mod.init_cache = real_init
+    full, _, _ = ck.load_model(spec["artifact"], device="cuda")
+    compared, mismatched = int8_view_mismatches(model, full, rank, mesh.model)
+    del full
+    torch.cuda.empty_cache()
+    (cache,) = caches
+    out["int8"] = {"tokens": tokens.tolist(), "kv_bytes": cache.nbytes, "kv_heads": cache.self_k.shape[2],
+                   "kv_dtype": str(cache.self_k.dtype), "view_compared": compared, "view_mismatched": mismatched,
+                   "k1_launches": launches, "k1_max_abs_err": err}
+
+    # (b) the stream, against the split generate's codes
+    ids = mp_generate_inputs(cfg)
+    chunks, launches, _, err = counted(fa, layers, lambda: list(streaming_mod.stream_generate(
+        model, greedy, chunk_frames=MP_CHUNK, lookback=48, device="cuda", **ids)), place="model=2 stream")
+    codes = np.concatenate([c.codes for c in chunks], axis=2)
+    np.savez(os.path.join(work, f"stream_r{rank}.npz"), codes=codes,
+             audio=np.concatenate([c.audio for c in chunks], axis=1),
+             offsets=np.array([c.frame_offset for c in chunks]), lengths=chunks[-1].valid_lengths)
+    offline = undelay_pattern(greedy_tokens[:, :, 1:]).numpy()[:, :, :codes.shape[2]]
+    out["stream"] = {"chunks": len(chunks), "codes_equal_generate": bool(np.array_equal(codes, offline)),
+                     "k1_launches": launches, "k1_max_abs_err": err}
+
+    # (c) the batching engine: rank 0 leads, the other ranks follow
+    with torch.no_grad():  # the special ids' LM-head columns of this rank's vocabulary shard, as zero_special_heads
+        heads = model.decoder.lm_heads.kernel
+        heads[..., max(cfg.audio_encoder.codebook_size - rank * heads.shape[-1], 0):] = 0
+    tok = ToyTokenizer(vocab_size=cfg.vocab_size)
+    pipe = ParlerTTSPipeline(model, cfg, dataclasses.replace(gen, top_k=50), tok, tok, dtype=torch.bfloat16)
+    calls, direct = [], pipe.tts
+
+    def recorded(descs, prompts, *, seed=0, max_seconds=None):
+        result = direct(descs, prompts, seed=seed, max_seconds=max_seconds)
+        calls.append((list(descs), list(prompts), seed, max_seconds, result[1]))
+        return result
+
+    pipe.tts = recorded
+    replays = []
+
+    def serve():
+        engine = BatchingEngine(pipe, max_batch=4, max_wait_ms=200.0, batch_buckets=(2, 4),
+                                length_bucket_seconds=(MP_ENGINE_SECONDS,))
+        if engine.following:
+            stats, latency = engine.follow(), None
+        else:
+            try:
+                engine.warmup(description=DESCRIPTIONS[3], prompt=_prompts(10)[0], batch_buckets=(2,), timeout=600)
+                latency, failed = [None] * 4, []
+                barrier = threading.Barrier(4)
+
+                def client(i):
+                    barrier.wait(timeout=60)
+                    t0 = time.perf_counter()
+                    try:
+                        engine.tts(DESCRIPTIONS[i], _prompts(10)[i], max_seconds=MP_ENGINE_SECONDS, seed=SEED + i,
+                                   timeout=600)
+                    except Exception as e:  # re-raised below, on the main thread
+                        failed.append(e)
+                        return
+                    latency[i] = time.perf_counter() - t0
+
+                threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=900)
+                if failed:
+                    raise failed[0]
+            finally:
+                engine.shutdown()
+            stats = engine.stats()
+        for descs, prompts, seed, max_seconds, _ in calls[:]:
+            replays.append(direct(descs, prompts, seed=seed, max_seconds=max_seconds)[1])
+        return stats, latency, engine.following
+
+    (stats, latency, following), launches, _, err = counted(fa, layers, serve, place="model=2 engine",
+                                                              calls=lambda: len(calls) + len(replays))
+    equal = [all(np.array_equal(a, b) for a, b in zip(call[4], replay)) for call, replay in zip(calls, replays)]
+    out["engine"] = {"following": following, "stats": stats, "latency_s": latency,
+                     "batches": [{"rows": len(c[0]), "seed": c[2], "max_seconds": c[3],
+                                  "descs_md5": hashlib.md5(json.dumps(c[:2]).encode()).hexdigest()} for c in calls],
+                     "bit_equal_direct_tts": equal, "k1_launches": launches, "k1_max_abs_err": err}
+    return out
 
 
 def multiprocess_worker(spec_path: str) -> int:
@@ -2174,6 +2479,10 @@ def multiprocess_worker(spec_path: str) -> int:
                                 "max_abs_err": gspy.hold("multiprocess")["flash_attention_fwd"],
                                 "local_heads": model.decoder.num_heads}
         result["sharded_10s"] = hold_sharded_shape(fa, model.decoder.num_heads)
+        t0 = time.perf_counter()
+        result["split_inference"] = split_inference(spec, fa, model, gen, mesh, os.path.dirname(spec["result"]),
+                                                    tokens)
+        result["split_inference"]["wall_s"] = time.perf_counter() - t0
     with open(spec["result"].format(rank=rank), "w") as f:
         json.dump(result, f)
     tdist.barrier()
@@ -2233,7 +2542,55 @@ def single_run(run_mod, step_mod, argv: list[str]) -> list[dict]:
     return steps
 
 
-def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, fa, work: str, card: str):
+def check_split_inference(ranks: list[dict], work: str, unsplit: dict, layers: int, heads: int) -> dict:
+    """The model=2 ranks' ``split_inference`` results against each other
+    and the unsplit model's: int8 tokens equal to the unsplit int8 run's and
+    every int8 kernel and scale the unsplit view's slice; the stream's codes
+    equal to the split ``generate``'s and the unsplit stream's, in more than
+    one chunk, and its chunks equal on both ranks; the engine's batches (the
+    warmup's and the burst's 4 requests) the same on both ranks and each
+    equal to its direct ``tts``; K1 once per layer per prefill.  Returns the
+    row to emit, with ``ok``."""
+    res = [r["split_inference"] for r in ranks]
+    streams = [np.load(os.path.join(work, f"stream_r{i}.npz")) for i in range(len(ranks))]
+    int8, stream, engine = ([x[k] for x in res] for k in ("int8", "stream", "engine"))
+    row = {
+        "int8": {"same_tokens_as_unsplit_int8": [x["tokens"] == unsplit["int8"] for x in int8],
+                 "view_compared": [x["view_compared"] for x in int8], "view_mismatched": [x["view_mismatched"]
+                                                                                           for x in int8],
+                 "kv_bytes_per_rank": [x["kv_bytes"] for x in int8], "kv_heads": [x["kv_heads"] for x in int8],
+                 "kv_bytes_unsplit": unsplit["kv_bytes"], "k1_launches": [x["k1_launches"] for x in int8]},
+        "stream": {"chunks": [x["chunks"] for x in stream], "codes_equal_split_generate": [
+            x["codes_equal_generate"] for x in stream],
+                   "codes_equal_unsplit_stream": [bool(np.array_equal(z["codes"], unsplit["codes"])) for z in streams],
+                   "chunks_equal_across_ranks": all(np.array_equal(z[k], streams[0][k]) for z in streams
+                                                    for k in ("codes", "audio", "offsets", "lengths")),
+                   "audio_max_abs_diff_vs_unsplit": max(float(np.abs(z["audio"] - unsplit["audio"]).max())
+                                                        if z["audio"].shape == unsplit["audio"].shape else math.inf
+                                                        for z in streams),
+                   "k1_launches": [x["k1_launches"] for x in stream]},
+        "engine": {"following": [x["following"] for x in engine], "stats": [x["stats"] for x in engine],
+                   "latency_s": engine[0]["latency_s"], "batches": engine[0]["batches"],
+                   "same_batches_on_every_rank": all(x["batches"] == engine[0]["batches"] for x in engine),
+                   "bit_equal_direct_tts": [x["bit_equal_direct_tts"] for x in engine],
+                   "k1_launches": [x["k1_launches"] for x in engine]},
+        "wall_s": [x["wall_s"] for x in res],
+    }
+    calls = len(engine[0]["batches"])
+    row["ok"] = (all(row["int8"]["same_tokens_as_unsplit_int8"]) and not any(row["int8"]["view_mismatched"])
+                 and all(n == 6 * layers + 1 for n in row["int8"]["view_compared"])
+                 and all(h == heads for h in row["int8"]["kv_heads"])
+                 and all(x["k1_launches"] == layers for x in int8 + stream)
+                 and min(row["stream"]["chunks"]) > 1 and all(row["stream"]["codes_equal_split_generate"])
+                 and all(row["stream"]["codes_equal_unsplit_stream"]) and row["stream"]["chunks_equal_across_ranks"]
+                 and [x["following"] for x in engine] == [False] + [True] * (len(ranks) - 1)
+                 and row["engine"]["same_batches_on_every_rank"] and calls >= 2
+                 and all(all(x["bit_equal_direct_tts"]) and x["k1_launches"] == 2 * calls * layers for x in engine)
+                 and all(x["stats"]["batches"] == calls and x["stats"]["batched_requests"] == 5 for x in engine))
+    return row
+
+
+def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, streaming_mod, fa, work: str, card: str):
     """Phase 12: ``run_training.main`` over several processes on this one
     card, at Mini width on ``synthetic://12`` (fused T <= 91), 3 steps from a
     seeded Mini artifact with dropout off (masks differ by data rank, so
@@ -2241,12 +2598,14 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, fa, w
     (a) one rank under ``torch.distributed.run`` on NCCL at batch 2; (b) two
     gloo ranks, data=2 at per-device batch 1; (c) two gloo ranks, model=2 at
     batch 2, then greedy generation over the split artifact (fp32) whose
-    tokens must equal the unsplit model's.  Each run's losses and gradient
-    norms against the single-process run at batch 2, run twice here for its
-    own spread, within the bound (``MP_*``); K1 and K4 once per layer per
-    step on every rank, held against their plain versions at each rank's
-    shapes.  Step ms and peak GB are one card's, shared by two processes over
-    gloo: not a scaling figure.  Returns the launches and largest errors."""
+    tokens must equal the unsplit model's, and ``split_inference`` held by
+    ``check_split_inference`` against the unsplit model's int8 tokens, KV
+    bytes and stream.  Each run's losses and gradient norms against the
+    single-process run at batch 2, run twice here for its own spread, within
+    the bound (``MP_*``); K1 and K4 once per layer per step on every rank,
+    held against their plain versions at each rank's shapes.  Step ms and
+    peak GB are one card's, shared by two processes over gloo: not a scaling
+    figure.  Returns the launches and largest errors."""
     t_phase = time.perf_counter()
     base = cfg_mod.mini_600m_config()
     cfg = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder, dropout=0.0))
@@ -2257,7 +2616,25 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, fa, w
                                    eos_token_id=cfg.decoder.eos_token_id)
     ck.save_model(art, model, cfg, gen)
     unsplit_tokens = mp_generation(generate_mod, model, gen)
-    del model
+    unsplit_kv, real_init = [], generate_mod.init_cache
+
+    def keep_cache(*args, **kw):
+        cache = real_init(*args, **kw)
+        unsplit_kv.append(cache.nbytes)
+        return cache
+
+    generate_mod.init_cache = keep_cache
+    try:
+        unsplit_int8 = mp_generation(generate_mod, model, dataclasses.replace(gen, int8_weights=True,
+                                                                              kv_cache_dtype="int8"))
+    finally:
+        generate_mod.init_cache = real_init
+    unsplit_stream = list(streaming_mod.stream_generate(
+        model, dataclasses.replace(gen, max_length=MP_GEN_LEN, do_sample=False), chunk_frames=MP_CHUNK, lookback=48,
+        device="cuda", **mp_generate_inputs(cfg)))
+    unsplit_codes = np.concatenate([c.codes for c in unsplit_stream], axis=2)
+    unsplit_audio = np.concatenate([c.audio for c in unsplit_stream], axis=1)
+    del model, unsplit_stream
     gc.collect()
     torch.cuda.empty_cache()
     argv = MP_ARGV + ["--model_name_or_path", art]
@@ -2318,6 +2695,18 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, fa, w
             run_ok = run_ok and same and all(g["k1_launches"] == layers and g["local_heads"] == heads for g in gens)
             errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], row["generation"]["k1_max_abs_err"])
             launches["flash_attention_fwd"] += sum(g["k1_launches"] for g in gens)
+            split = check_split_inference(ranks, work, {"int8": unsplit_int8.tolist(), "codes": unsplit_codes,
+                                                        "audio": unsplit_audio, "kv_bytes": unsplit_kv[0]},
+                                          layers, heads)
+            emit({"phase": "split_inference", "config": "mini_600m_config, model=2 over gloo on one card; int8 "
+                  "and stream greedy fp32 compute, engine bf16 top-k 50", "card": card, **split})
+            run_ok = run_ok and split["ok"]
+            for r in ranks:
+                for path in r["split_inference"].values():
+                    if isinstance(path, dict) and "k1_launches" in path:
+                        launches["flash_attention_fwd"] += path["k1_launches"]
+                        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], path["k1_max_abs_err"])
+
         row["ok"] = run_ok
         summary[name] = row
         emit({"phase": "multiprocess_run", "run": name, **row})
@@ -2366,6 +2755,7 @@ def main() -> int:
     from parler_tts_tpu_torch.training import data as data_mod
     from parler_tts_tpu_torch.training import run_training as run_mod
     from parler_tts_tpu_torch.training import step as step_mod
+    from parler_tts_tpu_torch.utils import mel as mel_mod
     from parler_tts_tpu_torch.utils import tokenizer as reader_mod
     from parler_tts_tpu_torch.utils import toy_tokenizer as tokenizer_mod
 
@@ -2398,8 +2788,8 @@ def main() -> int:
     tts_launches, model, pipe = run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card)
     new_paths = {
         "decoder_only": run_decoder_only(model.cfg, model, pipe, fa, generate_mod, card),
-        "int8": run_int8(model.cfg, model, pipe, fa, generate_mod, card),
-        "stream": run_stream(model.cfg, model, pipe, fa, generate_mod, streaming_mod, card),
+        "int8": run_int8(model.cfg, model, pipe, fa, generate_mod, mel_mod, card),
+        "stream": run_stream(model.cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card),
         "serving": run_serving(model.cfg, model, pipe, fa, serving_mod, card),
     }
     del model, pipe
@@ -2412,7 +2802,7 @@ def main() -> int:
     ref_tmp = tempfile.mkdtemp(prefix="parler_reference_")
     try:
         new_paths["reference_import"] = run_reference_import(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod,
-                                                             from_reference, card, ref_tmp)
+                                                             from_reference, ck, card, ref_tmp)
     finally:
         shutil.rmtree(ref_tmp, ignore_errors=True)
     gc.collect()
@@ -2444,8 +2834,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mp_dir = tempfile.mkdtemp(prefix="parler_multiprocess_")
     try:
-        mp_launches, mp_errs = run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, fa, mp_dir,
-                                                card)
+        mp_launches, mp_errs = run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, streaming_mod,
+                                                fa, mp_dir, card)
     finally:
         shutil.rmtree(mp_dir, ignore_errors=True)
 

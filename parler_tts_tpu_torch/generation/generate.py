@@ -27,8 +27,10 @@ A model split over a model group (``parallel/mesh.shard_params``) generates
 on every model rank at once, with the same inputs: each rank holds its
 heads' cache, the logits are gathered over the vocabulary, and every rank
 samples from them with the same generator, so all emit the same tokens.
-Its int8 weights and int8 cache wait (ROADMAP.md queue 1, "Multi-process
-placement"): they raise.
+With ``gen.int8_weights`` each rank quantizes its shards (the row-split
+kernels' scales taken over the group, ``ops/quantization.py``), and an int8
+cache holds its heads' rows and scales: every rank's int8 values are the
+slices of the unsplit model's, so the tokens are the unsplit int8 run's.
 """
 
 from __future__ import annotations
@@ -106,9 +108,6 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
     ``input_ids``, ``prompt_input_ids``, ``prompt_hidden_states`` and
     ``decoder_input_codes`` given."""
     decoder = model.decoder
-    if decoder.model_group is not None and (gen.int8_weights or gen.kv_cache_dtype == "int8"):
-        raise NotImplementedError("int8 weights or KV cache of a model split over a model group: ROADMAP.md "
-                                  "queue 1, 'Multi-process placement'")
     first = next((x for x in (input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
                   if x is not None), None)
     if first is None:

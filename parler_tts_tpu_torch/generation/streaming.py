@@ -17,6 +17,16 @@ vocode exactly the frames there are (no left padding: code 0 is not
 silence).
 PyTorch runs eagerly, so there is no counterpart of the JAX module's
 per-signature ``jax.jit`` factory.
+
+A model split over a model group streams on every model rank at once, with
+the same inputs and a generator seeded the same way: the collectives sit
+inside ``prefill`` and ``decode_step``, so the ranks must run the same steps
+in the same order.  They sample from the same gathered logits, so their
+tokens and their stop agree; once per chunk the ranks compare their position,
+their stop and a checksum of their tokens (``tensor_parallel.check_same``)
+and all raise if one has left the others.  The codec is whole on every rank,
+and every rank vocodes and yields the same chunks: no rank waits on another
+for audio, and any rank can serve the stream.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from parler_tts_tpu_torch.generation.generate import (
 from parler_tts_tpu_torch.models import codec as codec_mod
 from parler_tts_tpu_torch.models.delay_pattern import undelay_pattern
 from parler_tts_tpu_torch.models.parler import ParlerTTSModel
+from parler_tts_tpu_torch.parallel import tensor_parallel as tp
 
 DEFAULT_LOOKBACK = 48  # frames of left context per vocoded window
 
@@ -66,9 +77,6 @@ def stream_generate(model: ParlerTTSModel, gen: GenerationConfig, *, input_ids, 
     holding a special id."""
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be at least 1, got {chunk_frames}")
-    if model.decoder.model_group is not None:
-        raise NotImplementedError("streaming a model split over a model group: ROADMAP.md queue 1, "
-                                  "'Multi-process placement'")
     dev = model_device(model, device)
     if vocode:
         check_vocodable(model.cfg)
@@ -77,6 +85,7 @@ def stream_generate(model: ParlerTTSModel, gen: GenerationConfig, *, input_ids, 
     s = prefill(model, gen, max_length=max_length, input_ids=to_device(dev, input_ids),
                 attention_mask=to_device(dev, attention_mask), prompt_input_ids=to_device(dev, prompt_input_ids),
                 prompt_attention_mask=to_device(dev, prompt_attention_mask), decoder_input_codes=codes)
+    group = model.decoder.model_group
     b, num_codebooks = s.tokens.shape[:2]
     cb, hop = model.cfg.audio_encoder.codebook_size, model.cfg.audio_encoder.hop_length
     window = lookback + chunk_frames
@@ -86,6 +95,11 @@ def stream_generate(model: ParlerTTSModel, gen: GenerationConfig, *, input_ids, 
         while s.t < end and not s.done:
             decode_step(model, gen, s, generator=generator, noise=noise)
         done = s.done
+        if group is not None:
+            flat = s.tokens.long().flatten()
+            checksum = (flat * torch.arange(1, flat.numel() + 1, device=flat.device)).sum()
+            tp.check_same(torch.stack([checksum.new_tensor(s.t), checksum.new_tensor(int(done)), checksum]), group,
+                          "the stream's position, stop and tokens")
         ready = max(0, (s.t - 1) - (num_codebooks - 1))
         new_frames = ready - emitted
         if new_frames <= 0 and not done:

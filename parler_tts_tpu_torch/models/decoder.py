@@ -244,10 +244,17 @@ class DecoderLayer(nn.Module):
         return x + dropout(tp.reduce(self.fc2(h), self.model_group), self.dropout, gen)
 
     def decode_weights(self, int8: bool) -> DecodeLayer:
+        """Split over a model group, the fused qkv is this rank's
+        ``[q_r | k_r | v_r]``; the row-split o, cross o and fc2 take their
+        int8 scales over the group (every rank calls this together)."""
         sa, ca = self.self_attn, self.cross_attn
         qkv = torch.cat([sa.q.kernel, sa.k.kernel, sa.v.kernel], dim=-1)
-        return DecodeLayer(*(DenseWeight.of(w, int8) for w in (
-            qkv, sa.o.kernel, ca.q.kernel, ca.o.kernel, self.fc1.kernel, self.fc2.kernel)))
+
+        def of(kernel, input_split=False):
+            return DenseWeight.of(kernel, int8, self.model_group if input_split else None)
+
+        return DecodeLayer(of(qkv), of(sa.o.kernel, True), of(ca.q.kernel), of(ca.o.kernel, True), of(self.fc1.kernel),
+                           of(self.fc2.kernel, True))
 
     def forward_full(self, x, flash_mask, self_mask, enc, enc_mask, seed: int | None = None):
         """Full-sequence layer.  Returns (x, self K/V, cross K/V or None when
@@ -436,7 +443,9 @@ class ParlerDecoder(nn.Module):
         with ``int8``, int8 copies of the fused qkv, self ``o``, cross ``q``
         and ``o``, ``fc1``, ``fc2`` and the LM heads with per-output-channel
         scales.  Embedding tables and layer norms stay as they are.  Build it
-        once per generation: it copies every decode weight."""
+        once per generation: it copies every decode weight.  Split over a
+        model group, every rank builds it at once (the int8 scales of the
+        row-split kernels are a collective)."""
         return DecodeParams([layer.decode_weights(int8) for layer in self.layers],
                             DenseWeight.of(self.lm_heads.kernel, int8))
 

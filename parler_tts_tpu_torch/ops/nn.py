@@ -133,8 +133,11 @@ class DenseWeight(NamedTuple):
     scale: torch.Tensor | None = None
 
     @classmethod
-    def of(cls, kernel: torch.Tensor, int8: bool = False) -> "DenseWeight":
-        return cls(*quantize_dense(kernel)) if int8 else cls(kernel)
+    def of(cls, kernel: torch.Tensor, int8: bool = False, group=None) -> "DenseWeight":
+        """``group``: the model group that splits ``kernel``'s input
+        dimension, whose ranks take the scales together
+        (``ops/quantization.quantize_dense``)."""
+        return cls(*quantize_dense(kernel, group)) if int8 else cls(kernel)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.kernel, scale=self.scale)

@@ -28,6 +28,7 @@ every gather and barrier goes through it.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
 from typing import Any, Sequence
 
@@ -38,12 +39,16 @@ import torch.distributed as tdist
 from parler_tts_tpu_torch.core.device import resolve_device
 
 
+_timeout: datetime.timedelta | None = None  # initialize()'s, for the groups made after it
+
+
 def is_initialized() -> bool:
     return tdist.is_available() and tdist.is_initialized()
 
 
 def initialize(backend: str | None = None, *, device: str | torch.device = "cuda", init_method: str | None = None,
-               rank: int | None = None, world_size: int | None = None) -> torch.device:
+               rank: int | None = None, world_size: int | None = None,
+               timeout: datetime.timedelta | None = None) -> torch.device:
     """Join the process group and return this rank's device.
 
     The group is joined from ``init_method`` / ``rank`` / ``world_size`` when
@@ -52,7 +57,9 @@ def initialize(backend: str | None = None, *, device: str | torch.device = "cuda
     already exists (as the JAX function is when a runtime exists).  ``backend`` defaults to ``nccl``
     for CUDA and ``gloo`` for the CPU.  A CUDA rank uses
     ``cuda:{LOCAL_RANK % device_count}`` (several ranks share a card when
-    there are fewer cards than ranks; NCCL refuses that, gloo does not)."""
+    there are fewer cards than ranks; NCCL refuses that, gloo does not).
+    ``timeout`` bounds every collective's wait (None: the backend's
+    default): a rank left waiting raises after it."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
         dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
@@ -66,8 +73,17 @@ def initialize(backend: str | None = None, *, device: str | torch.device = "cuda
         world_size = int(os.environ["WORLD_SIZE"])
     rank = rank if rank is not None else int(os.environ["RANK"])
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    tdist.init_process_group(backend, init_method=init_method or "env://", rank=rank, world_size=world_size)
+    global _timeout
+    _timeout = timeout
+    tdist.init_process_group(backend, init_method=init_method or "env://", rank=rank, world_size=world_size,
+                             timeout=timeout)
     return dev
+
+
+def new_group(ranks: list[int]) -> tdist.ProcessGroup:
+    """A group of ``ranks`` with ``initialize``'s timeout (``tdist.new_group``
+    would take the backend's default instead)."""
+    return tdist.new_group(ranks, timeout=_timeout)
 
 
 def process_index() -> int:

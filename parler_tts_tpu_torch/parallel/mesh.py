@@ -86,13 +86,13 @@ def make_mesh(data: int | None = None, model: int = 1) -> Mesh:
     if model > 1:
         for d in range(data):
             ranks = [d * model + m for m in range(model)]
-            group = tdist.new_group(ranks)
+            group = dist.new_group(ranks)
             if rank in ranks:
                 model_group = ModelGroup(group, rank % model, model)
     if data > 1:
         for m in range(model):
             ranks = [d * model + m for d in range(data)]
-            group = tdist.new_group(ranks)
+            group = dist.new_group(ranks)
             if rank in ranks:
                 data_group = group
     return Mesh(data, model, rank, data_group, model_group)

@@ -15,6 +15,10 @@ rank's shard, and its forward calls, around each split projection:
   this rank's slice of the gradient.
 
 Every function is the identity when the group is None (one model rank).
+Beside them, :func:`all_reduce_max` gives the int8 decode view the scales of
+a row-split kernel (the max over the whole input dimension, as GSPMD's
+``amax`` over a sharded axis is), and :func:`check_same` holds the model
+ranks of a decode loop in lockstep.
 The sums run in fp32 whatever the activations' dtype: a bf16 all-reduce
 would round each partial sum once more than the unsplit product does, and
 gloo (the CPU tests, and the one-card checks) may not take bf16.  Only
@@ -48,6 +52,28 @@ def _all_reduce(x: torch.Tensor, group: ModelGroup) -> torch.Tensor:
     y = x.float().contiguous() if x.dtype != torch.float32 else x.clone(memory_format=torch.contiguous_format)
     tdist.all_reduce(y, group=group.group)
     return y.to(x.dtype)
+
+
+def all_reduce_max(x: torch.Tensor, group: ModelGroup | None) -> torch.Tensor:
+    """The element-wise max of ``x`` over the group (exact in any dtype: a
+    max rounds nothing); ``x`` itself without a group."""
+    if group is None:
+        return x
+    y = x.clone(memory_format=torch.contiguous_format)
+    tdist.all_reduce(y, op=tdist.ReduceOp.MAX, group=group.group)
+    return y
+
+
+def check_same(x: torch.Tensor, group: ModelGroup | None, what: str) -> None:
+    """Raise on every rank unless every rank of the group holds the same
+    ``x`` (a small integer tensor: a loop position, a checksum).  A model
+    rank whose decode loop left the others would leave them waiting in a
+    collective; this check stops them all at once instead."""
+    if group is None:
+        return
+    ranks = all_gather_cat(x.reshape(1, -1), 0, group)
+    if not bool((ranks == ranks[:1]).all()):
+        raise RuntimeError(f"the model ranks disagree on {what}: {ranks.tolist()} (rank order)")
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group: ModelGroup) -> torch.Tensor:

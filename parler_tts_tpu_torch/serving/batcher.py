@@ -18,6 +18,19 @@ the card: every device call of the engine runs on it.
   ``stats()`` (``bucket_rows``, ``padded_rows``).  One seed per batch,
   ``fold_seeds`` of the requests', seeds the pipeline's ``torch.Generator``.
 * An exception in a batch is set on every future of that batch.
+
+A pipeline whose model is split over a model group (``parallel/mesh.
+shard_params``) runs every batch on every model rank at once, since the
+collectives sit inside ``tts``.  Batches form by timing, so only one rank
+can form them: rank 0 of the group owns the queue and, before it runs a
+batch, broadcasts it (``broadcast_object_list``: the descriptions and
+prompts padded to the batch bucket, ``max_seconds`` and the folded seed).  Every other rank
+builds its engine too and calls ``follow()``, which runs the same batches in
+the same order and returns at the sentinel that ``shutdown`` broadcasts.
+``warmup`` goes through the queue and so through the broadcast.  A failure
+propagates: on rank 0 to the batch's futures, on a follower out of
+``follow()``; a rank left waiting in a collective fails at the group's
+timeout.
 """
 
 from __future__ import annotations
@@ -29,6 +42,8 @@ import time
 from concurrent.futures import Future
 
 import numpy as np
+import torch
+import torch.distributed as tdist
 
 
 @dataclasses.dataclass
@@ -64,8 +79,8 @@ class BatchingEngine:
       fill_wait_ms, fill_threshold: the deferred fill (module docstring);
         ``fill_wait_ms=0`` turns it off.
 
-    A pipeline whose model is split over a model group raises
-    ``NotImplementedError`` (ROADMAP.md queue 1, "Multi-process placement").
+    Over a model group (module docstring) rank 0 takes requests and every
+    other rank calls ``follow()``.
     """
 
     def __init__(self, pipeline, *, max_batch: int = 64, max_wait_ms: float = 30.0,
@@ -73,9 +88,7 @@ class BatchingEngine:
                  length_bucket_seconds: tuple[float, ...] = (5.0, 10.0, 30.0),
                  fill_wait_ms: float = 150.0, fill_threshold: float = 0.6):
         model = getattr(pipeline, "model", None)
-        if getattr(getattr(model, "decoder", None), "model_group", None) is not None:
-            raise NotImplementedError("the batching engine over a model split over a model group: ROADMAP.md "
-                                      "queue 1, 'Multi-process placement'")
+        self.group = getattr(getattr(model, "decoder", None), "model_group", None)
         self.pipeline = pipeline
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
@@ -87,15 +100,26 @@ class BatchingEngine:
         self._pending: list[_Request] = []  # drained, but of another length bucket
         self._stats = {"requests": 0, "batches": 0, "batched_requests": 0, "bucket_rows": 0, "padded_rows": 0}
         self._lock = threading.Lock()
-        self._worker = threading.Thread(target=self._run, name="tts-batcher", daemon=True)
         self._shutdown = False
+        self._worker = None
+        if self.following:
+            return
+        # the worker thread drives the card this thread drives (the CUDA device is per thread)
+        cuda = torch.cuda.current_device() if torch.cuda.is_available() and torch.cuda.is_initialized() else None
+        self._worker = threading.Thread(target=self._run, args=(cuda,), name="tts-batcher", daemon=True)
         self._worker.start()
+
+    @property
+    def following(self) -> bool:
+        """This rank runs the batches rank 0 of its model group forms."""
+        return self.group is not None and self.group.index != 0
 
     # -- public API ---------------------------------------------------------
 
     def submit(self, description: str, prompt: str, *, max_seconds: float | None = None,
                seed: int = 0) -> Future:
         """Enqueue one request; resolves to (sampling_rate, waveform)."""
+        self._refuse_on_follower()
         if self._shutdown:
             raise RuntimeError("engine is shut down")
         fut: Future = Future()
@@ -125,6 +149,7 @@ class BatchingEngine:
         pipeline also buckets the tokenized text lengths; warmup runs the
         buckets of the ``description`` and ``prompt`` given.  Returns
         ``{"BxS": wall_seconds}`` per bucket."""
+        self._refuse_on_follower()
         if self._shutdown:  # a request behind the shutdown sentinel would never resolve
             raise RuntimeError("engine is shut down")
         warm_buckets = batch_buckets or self.batch_buckets
@@ -147,9 +172,35 @@ class BatchingEngine:
         ``submit`` raises from now on, and a request that raced in behind
         the stop fails with RuntimeError instead of waiting forever."""
         self._shutdown = True
+        if self._worker is None:
+            return
         self._queue.put(None)
         if wait:
             self._worker.join(timeout=30)
+
+    def follow(self) -> dict:
+        """On a model rank other than 0: run each batch rank 0 broadcasts,
+        until its ``shutdown``; returns ``stats()``.  Blocks; an error in a
+        batch raises out of it."""
+        if not self.following:
+            raise RuntimeError("follow() is for the model ranks other than 0; rank 0 takes the requests")
+        while (batch := self._broadcast(None)) is not None:
+            self._run_batch(batch)
+        return self.stats()
+
+    def _refuse_on_follower(self) -> None:
+        if self.following:
+            raise RuntimeError(f"model rank {self.group.index} follows rank 0, which takes the requests: "
+                               "call follow() here")
+
+    def _broadcast(self, batch: dict | None) -> dict | None:
+        """Rank 0's ``batch`` on every rank of the model group (None: the
+        shutdown sentinel); ``batch`` as it is without a group."""
+        if self.group is None:
+            return batch
+        box = [batch]
+        tdist.broadcast_object_list(box, src=tdist.get_global_rank(self.group.group, 0), group=self.group.group)
+        return box[0]
 
     # -- worker -------------------------------------------------------------
 
@@ -206,7 +257,9 @@ class BatchingEngine:
             self._pending.extend(leftovers)
             return group
 
-    def _run(self) -> None:
+    def _run(self, cuda: int | None) -> None:
+        if cuda is not None:
+            torch.cuda.set_device(cuda)
         while True:
             group = self._take_batch()
             if group is None:
@@ -222,6 +275,7 @@ class BatchingEngine:
                         left.append(item)
                 for r in left:
                     r.future.set_exception(RuntimeError("engine shut down"))
+                self._broadcast(None)  # the followers return
                 return
             try:
                 self._execute(group)
@@ -252,13 +306,23 @@ class BatchingEngine:
         forced = max((r.force_bucket or 0 for r in group), default=0)
         bucket = max(_batch_bucket(n, self.batch_buckets), forced)
         padded = self.pad_rows(group, bucket)
-        seed = self.fold_seeds(r.seed for r in group)
-        sr, waves = self.pipeline.tts([r.description for r in padded], [r.prompt for r in padded], seed=seed,
-                                      max_seconds=self._length_bucket(group[0]))
+        batch = {"descriptions": [r.description for r in padded], "prompts": [r.prompt for r in padded],
+                 "seed": self.fold_seeds(r.seed for r in group), "max_seconds": self._length_bucket(group[0]),
+                 "requests": n, "warmup": forced > 0}
+        sr, waves = self._run_batch(self._broadcast(batch))
+        for r, wav in zip(group, waves):
+            r.future.set_result((sr, np.asarray(wav)))
+
+    def _run_batch(self, batch: dict):
+        """One padded batch through the pipeline; counted in ``stats()``."""
+        out = self.pipeline.tts(batch["descriptions"], batch["prompts"], seed=batch["seed"],
+                                max_seconds=batch["max_seconds"])
+        bucket, n = len(batch["descriptions"]), batch["requests"]
         with self._lock:
+            if self.following and not batch["warmup"]:  # rank 0 counts them in submit()
+                self._stats["requests"] += n
             self._stats["batches"] += 1
             self._stats["batched_requests"] += n
             self._stats["bucket_rows"] += bucket
             self._stats["padded_rows"] += bucket - n
-        for r, wav in zip(group, waves):
-            r.future.set_result((sr, np.asarray(wav)))
+        return out

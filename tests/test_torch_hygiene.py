@@ -1,8 +1,10 @@
 """The port, its chip smoke script, its card-only tests, its multi-process
-test worker, its reference checkpoint converter and its examples import
-nothing of JAX, of the JAX package, of the HF stack or of ``safetensors``
-(the machine with the card has none of them); ``datasets`` only inside
-``load_multiple_datasets``."""
+test worker, its reference checkpoint converter, its model-init scripts and
+its examples import nothing of JAX, of the JAX package, of the HF stack or
+of ``safetensors`` (the machine with the card has none of them);
+``datasets`` only inside ``load_multiple_datasets``.  The port's quality
+gate imports nothing of JAX or the JAX package (``transformers`` only where
+it runs the torch reference, which is built on it)."""
 
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "parler_tts_tpu"
 # examples run on a machine without JAX, transformers or safetensors
 SOURCES = sorted((REPO / "parler_tts_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py", REPO / "tests" / "torch_multiprocess_worker.py",
-    REPO / "helpers" / "convert_reference_checkpoint_torch.py"] + sorted((REPO / "examples").glob("*_torch.py"))
+    REPO / "helpers" / "convert_reference_checkpoint_torch.py"] + sorted((REPO / "examples").glob("*_torch.py")) + sorted(
+    (REPO / "helpers" / "model_init_scripts").glob("*_torch.py"))
+JAX = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "parler_tts_tpu"}
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -36,6 +40,11 @@ def test_port_imports_no_jax_and_no_jax_package(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
+def test_the_quality_gate_imports_no_jax_and_no_jax_package():
+    path = REPO / "helpers" / "quality_gate_torch.py"
+    assert not _imported_roots(path) & JAX and "parler_tts_tpu_torch" in _imported_roots(path)
+
+
 def test_the_walk_sees_the_whole_port():
     assert len(SOURCES) > 15 and (REPO / "chip_smoke.py").exists()
     port = REPO / "parler_tts_tpu_torch"
@@ -43,7 +52,9 @@ def test_the_walk_sees_the_whole_port():
             port / "core" / "from_reference.py", port / "utils" / "tokenizer.py", port / "utils" / "profiling.py",
             port / "parallel" / "distributed.py", port / "parallel" / "mesh.py", port / "parallel" / "tensor_parallel.py",
             REPO / "examples" / "generate_speech_torch.py", REPO / "examples" / "stream_speech_torch.py",
-            REPO / "examples" / "finetune_torch.py"} <= set(SOURCES)
+            REPO / "examples" / "finetune_torch.py", port / "utils" / "mel.py"} <= set(SOURCES)
+    assert {f"{name}_torch.py" for name in ("init_model_600M", "init_dummy_model", "init_dummy_model_with_encodec")} \
+        <= {p.name for p in SOURCES}
     assert _imported_roots(REPO / "tests" / "test_torch_blocks.py") >= {"jax", "parler_tts_tpu", "torch"}
 
 

@@ -13,6 +13,13 @@ the counterpart of ``tests/multihost_worker.py``), on the tiny composite:
 * ``model=2``: the loss and the gathered gradients, the T5 encoder with its
   sliced relative bias, and greedy tokens against the unsplit model and
   JAX's ``generate``; the CLI against the single-process run;
+* the rest of the inference surface at ``model=2``: int8 weights and KV
+  cache (tokens against JAX's int8 ``generate``; each rank's int8 kernels
+  and scales the slices of the unsplit view's, bit for bit; the cache's
+  local head count), ``stream_generate`` against JAX's stream, and the
+  ``BatchingEngine`` (rank 0 takes requests, rank 1 follows) against direct
+  ``tts`` and the unsplit engine; a rank that stops its stream early fails
+  both ranks within the group's timeout;
 * ``data=2 x model=2`` (4 processes): the CLI's steps;
 * checkpoints: saved at ``model=2``, resumed at ``model=1`` bit for bit,
   and the reverse.
@@ -21,7 +28,10 @@ Tolerances: ``LOSS_TOL`` (1e-5 absolute) on losses and 1e-5 relative on
 gradient norms, those of the single-process CLI test against JAX: the sums
 run in another order over two ranks (row shares, head shares).  Gradients
 1e-5 absolute (``GRAD_TOL``).  Parameters restored from a checkpoint, the
-ranks' shards against the checkpoint, and tokens: exact.
+ranks' shards against the checkpoint, tokens, codes, int8 values and scales,
+and an engine batch against its direct ``tts``: exact.  Stream audio 1e-5
+absolute against JAX's, engine audio 1e-6 absolute against the unsplit
+engine's (other sum orders before the same codes are vocoded).
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import torch
 
 from parler_tts_tpu.core import config as jcfg
 from parler_tts_tpu.generation import generate as jgenerate
+from parler_tts_tpu.generation import streaming as jstreaming
 from parler_tts_tpu.parallel import mesh as jmesh
 from parler_tts_tpu.training import data as jdata
 from parler_tts_tpu.training import optim as joptim
@@ -55,10 +66,13 @@ from parler_tts_tpu_torch.generation import generate as pgenerate
 from parler_tts_tpu_torch.models import parler as pparler
 from parler_tts_tpu_torch.parallel import distributed as pdist
 from parler_tts_tpu_torch.parallel import mesh as pmesh
+from parler_tts_tpu_torch.pipeline import ParlerTTSPipeline
+from parler_tts_tpu_torch.serving import BatchingEngine
 from parler_tts_tpu_torch.training import args as pargs
 from parler_tts_tpu_torch.training import run_training as prun
 from parler_tts_tpu_torch.training import step as pstep
 from parler_tts_tpu_torch.training.optim import map_param_state
+from parler_tts_tpu_torch.utils.tokenizer import Tokenizer
 from tests import torch_tokenizer_fixtures as fx
 from tests.test_torch_blocks import jax_params, port_model, tiny_config
 from tests.test_torch_train import GRAD_TOL, LOSS_TOL
@@ -71,6 +85,15 @@ SPAWN_TIMEOUT = 120  # seconds for one group of workers
 SR = 16000
 SPECIALS = dict(decoder_start_token_id=33, pad_token_id=32, bos_token_id=33, eos_token_id=32)
 GREEDY = dict(max_length=14, do_sample=False, **SPECIALS)
+INT8 = dict(GREEDY, int8_weights=True, kv_cache_dtype="int8")
+CHUNK = 4  # stream chunk frames: 14 positions give several chunks
+# the split engine: a warmup of bucket 2, then 3 requests at once (max_batch 3:
+# one batch, padded to bucket 4), greedy at the GREEDY length
+ENGINE = dict(max_batch=3, max_wait_ms=50.0, batch_buckets=[2, 4], length_bucket_seconds=[0.005], fill_wait_ms=0.0)
+ENGINE_SECONDS = 0.005  # 10 frames at the tiny codec's 2000 Hz: 14 positions
+REQUESTS = [("a calm female voice", "hey how are you"), ("a deep male voice speaking fast", "the weather is fine"),
+            ("an older voice", "we will walk")]
+EARLY_TIMEOUT = 20  # seconds every collective of the early-stop group may wait
 SEED, STEPS = 42, 3
 CLI = ["--train_dataset_name", "synthetic://16", "--logging_steps", "1", "--dtype", "float32",
        "--lr_scheduler_type", "constant", "--max_steps", str(STEPS)]
@@ -81,12 +104,12 @@ CORPUS_FLAGS = ["--target_audio_column_name", "audio_raw", "--min_duration_in_se
                 "--max_duration_in_seconds", "0.12", "--audio_encoder_batch_size", "2"]
 
 
-def _spawn(world: int, workdir: pathlib.Path, jobs: list[dict]) -> dict[str, list[dict]]:
-    """``world`` workers over one gloo group running ``jobs``; each job's
-    result per rank."""
+def _spawn(world: int, workdir: pathlib.Path, jobs: list[dict], **extra) -> dict[str, list[dict]]:
+    """``world`` workers over one gloo group running ``jobs`` (``extra``
+    goes into the spec: ``timeout``); each job's result per rank."""
     workdir.mkdir(parents=True, exist_ok=True)
     spec = workdir / "spec.json"
-    spec.write_text(json.dumps({"workdir": str(workdir), "jobs": jobs}))
+    spec.write_text(json.dumps({"workdir": str(workdir), "jobs": jobs, **extra}))
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(world), str(workdir / "store"), str(spec)],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(world)]
@@ -193,7 +216,9 @@ def two(setup, single):
                                                      "--per_device_train_batch_size", "1", *CLI, *EVAL,
                                                      "--per_device_eval_batch_size", "2"]},
         {"kind": "train", "name": "stream", "argv": corpus_cli},
-        {"kind": "split", "name": "split", "artifact": art, "inputs": setup["inputs"], "generation": GREEDY},
+        {"kind": "split", "name": "split", "artifact": art, "inputs": setup["inputs"], "generation": GREEDY,
+         "chunk_frames": CHUNK, "tok": setup["tok"], "engine_generation": GREEDY, "engine": ENGINE,
+         "engine_seconds": ENGINE_SECONDS, "requests": REQUESTS},
         {"kind": "train", "name": "model2", "argv": [
             "--model_name_or_path", art, "--output_dir", str(base / "model2"), "--per_device_train_batch_size", "2",
             "--model_parallel_size", "2", "--save_steps", "2", *CLI, *EVAL, "--per_device_eval_batch_size", "4"]},
@@ -366,12 +391,34 @@ def unsplit(setup):
                              key=jax.random.PRNGKey(0), vocode=False,
                              **{k: np.asarray(inputs[k]) for k in ("input_ids", "attention_mask", "prompt_input_ids",
                                                                    "prompt_attention_mask")})
-    port = pgenerate.generate(model, pcfg.GenerationConfig(**GREEDY), vocode=False, device="cpu",
-                              **{k: inputs[k] for k in ("input_ids", "attention_mask", "prompt_input_ids",
-                                                        "prompt_attention_mask")})
+    prompt = {k: inputs[k] for k in ("input_ids", "attention_mask", "prompt_input_ids", "prompt_attention_mask")}
+    port = pgenerate.generate(model, pcfg.GenerationConfig(**GREEDY), vocode=False, device="cpu", **prompt)
+    jax_prompt = {k: np.asarray(v) for k, v in prompt.items()}
+    jax_int8 = jgenerate.generate(setup["params"], tiny_config(jcfg), jcfg.GenerationConfig(**INT8),
+                                  key=jax.random.PRNGKey(0), vocode=False, **jax_prompt)
+    jax_stream = list(jstreaming.stream_generate(setup["params"], tiny_config(jcfg), jcfg.GenerationConfig(**GREEDY),
+                                                 key=jax.random.PRNGKey(0), chunk_frames=CHUNK, lookback=8,
+                                                 dtype=np.float32, **jax_prompt))
+    view = model.decoder.decode_params(int8=True)
     return {"t5": t5, "loss": loss, "grads": dict(zip(pstep.trainable_names(model), grads)),
             "grad_norm": state.optimizer.norm(list(grads)), "jax_tokens": np.asarray(ref.tokens),
-            "tokens": port.tokens}
+            "tokens": port.tokens, "jax_int8_tokens": np.asarray(jax_int8.tokens), "jax_stream": jax_stream,
+            "int8_view": view, "engine": _unsplit_engine(setup, model)}
+
+
+def _unsplit_engine(setup, model) -> list[np.ndarray]:
+    """The split job's engine requests through an engine over the unsplit
+    model."""
+    tok = Tokenizer.from_pretrained(setup["tok"])
+    pipe = ParlerTTSPipeline(copy.deepcopy(model), model.cfg, pcfg.GenerationConfig(**GREEDY), tok, tok,
+                             dtype=torch.float32, device="cpu")
+    engine = BatchingEngine(pipe, **ENGINE)
+    try:
+        engine.warmup(batch_buckets=(2,), timeout=60)
+        futures = [engine.submit(d, p, seed=i, max_seconds=ENGINE_SECONDS) for i, (d, p) in enumerate(REQUESTS)]
+        return [f.result(timeout=60)[1] for f in futures]
+    finally:
+        engine.shutdown()
 
 
 def test_split_model_loss_and_gradients_equal_the_unsplit(two, unsplit):
@@ -395,11 +442,118 @@ def test_split_model_greedy_tokens_equal_jax_s(two, unsplit):
         np.testing.assert_array_equal(rank["tokens"].numpy(), unsplit["jax_tokens"])
 
 
-def test_split_model_refuses_what_waits(two):
-    """The int8 decode, streaming and the batching engine of a split model
-    raise ``NotImplementedError`` (ROADMAP.md queue 1)."""
+def test_split_int8_generate_tokens_equal_jax_s(two, unsplit):
+    """int8 weights and the int8 KV cache over model=2, greedy: JAX's int8
+    tokens on both ranks."""
     for rank in two["split"]:
-        assert rank["refused"] == {"int8": True, "stream": True, "engine": True}
+        np.testing.assert_array_equal(rank["int8_tokens"].numpy(), unsplit["jax_int8_tokens"])
+
+
+def _columns(t: torch.Tensor, rank: int, dim: int = -1) -> torch.Tensor:
+    size = t.shape[dim] // 2
+    return t.narrow(dim, rank * size, size)
+
+
+@pytest.mark.parametrize("name", ["qkv", "o", "cross_q", "cross_o", "fc1", "fc2", "lm_heads"])
+def test_split_int8_view_is_the_slice_of_the_unsplit_bit_for_bit(two, unsplit, name):
+    """Each rank's int8 kernel and scales are the slices of the unsplit
+    view's: by columns for the column-split kernels (the fused qkv
+    projection by projection, since a rank's ``[q_r | k_r | v_r]`` is not a
+    slice of ``[q | k | v]``), by rows with the whole scales for the
+    row-split o, cross o and fc2 (their amax taken over the group), by
+    vocabulary for the LM heads."""
+    view = unsplit["int8_view"]
+    for rank, r in enumerate(two["split"]):
+        pairs = ([(r["int8_lm_heads"], view.lm_heads)] if name == "lm_heads" else
+                 [(layer[name], getattr(full, name)) for layer, full in zip(r["int8_view"], view.layers)])
+        for (kernel, scale), full in pairs:
+            assert kernel.dtype == torch.int8 and scale.dtype == torch.float32
+            if name == "qkv":
+                want_kernel = torch.cat([_columns(p, rank) for p in full.kernel.chunk(3, dim=-1)], dim=-1)
+                want_scale = torch.cat([_columns(p, rank) for p in full.scale.chunk(3, dim=-1)], dim=-1)
+            elif name in ("o", "cross_o", "fc2"):
+                want_kernel, want_scale = _columns(full.kernel, rank, 0), full.scale
+            else:
+                want_kernel, want_scale = _columns(full.kernel, rank), _columns(full.scale, rank)
+            assert torch.equal(kernel, want_kernel) and torch.equal(scale, want_scale)
+
+
+def test_local_only_scales_of_a_row_split_kernel_differ(two, unsplit):
+    """Without the group's amax a rank's row-split scales would be its
+    shard's own: they differ from the unsplit view's, so the test above can
+    see that fault."""
+    differ = 0
+    for r in two["split"]:
+        for layer, full in zip(r["int8_local_only"], unsplit["int8_view"].layers):
+            for name in ("o", "cross_o", "fc2"):
+                differ += not torch.equal(layer[name][1], getattr(full, name).scale)
+    assert differ == 2 * 3 * len(unsplit["int8_view"].layers)
+
+
+def test_split_int8_cache_holds_the_local_heads(setup, two):
+    """(L, B, H/m, T, D) int8 rows and (L, B, H/m, T) bf16 scales, self and
+    cross, with this rank's 2 of the 4 heads."""
+    inputs = np.load(setup["inputs"])
+    b, s_len, p_len = inputs["input_ids"].shape[0], inputs["input_ids"].shape[1], inputs["prompt_input_ids"].shape[1]
+    t_max = p_len + GREEDY["max_length"]
+    for rank in two["split"]:
+        (cache,) = rank["int8_cache"]
+        assert cache["self_k"] == cache["self_v"] == (2, b, 2, t_max, 8)
+        assert cache["cross_k"] == cache["cross_v"] == (2, b, 2, s_len, 8)
+        assert cache["self_k_scale"] == cache["self_v_scale"] == (2, b, 2, t_max)
+        assert cache["cross_k_scale"] == cache["cross_v_scale"] == (2, b, 2, s_len)
+        assert {cache["dtypes"][n] for n in ("self_k", "self_v", "cross_k", "cross_v")} == {"torch.int8"}
+        assert {cache["dtypes"][n] for n in ("self_k_scale", "cross_v_scale")} == {"torch.bfloat16"}
+
+
+def test_split_stream_equals_jax_s(two, unsplit):
+    """The split stream's chunks on both ranks: JAX's stream's, codes and
+    offsets exact, audio within 1e-5."""
+    ref = unsplit["jax_stream"]
+    assert len(ref) > 2
+    for rank in two["split"]:
+        chunks = rank["stream"]
+        assert len(chunks) == len(ref)
+        for r, c in zip(ref, chunks):
+            assert (r.frame_offset, r.finished) == (c["frame_offset"], c["finished"])
+            np.testing.assert_array_equal(np.asarray(r.codes), c["codes"])
+            np.testing.assert_array_equal(np.asarray(r.valid_lengths), c["valid_lengths"])
+            np.testing.assert_allclose(np.asarray(r.audio), c["audio"], atol=1e-5, rtol=0)
+    for a, b in zip(*(rank["stream"] for rank in two["split"])):
+        assert np.array_equal(a["audio"], b["audio"]) and np.array_equal(a["codes"], b["codes"])
+
+
+def test_split_engine_batches_equal_direct_tts_and_the_unsplit_engine(two, unsplit):
+    """Rank 0 took the warmup and the burst, rank 1 followed: both ran the
+    same two batches (the warmup's of 2 rows, the burst's 3 padded to 4),
+    each equal bit for bit to a direct ``tts`` of its rows on the split
+    model; the burst's answers are the unsplit engine's."""
+    r0, r1 = (rank["engine"] for rank in two["split"])
+    assert (r0["following"], r1["following"]) == (False, True) and r1["results"] is None
+    for r in (r0, r1):
+        assert [len(c["descs"]) for c in r["calls"]] == [2, 4]
+        assert r["stats"]["batches"] == 2 and r["stats"]["padded_rows"] == 1 + 1
+        for call, replay in zip(r["calls"], r["replays"]):
+            assert all(np.array_equal(a, b) for a, b in zip(call["waves"], replay))
+    assert [{k: c[k] for k in ("descs", "prompts", "seed", "max_seconds")} for c in r0["calls"]] == \
+        [{k: c[k] for k in ("descs", "prompts", "seed", "max_seconds")} for c in r1["calls"]]
+    assert r0["calls"][1]["seed"] == BatchingEngine.fold_seeds(range(len(REQUESTS)))
+    for got, want in zip(r0["results"], unsplit["engine"]):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_a_rank_that_stops_its_stream_early_fails_the_group_in_time(setup):
+    """Rank 1 marks every stream finished after 2 decode steps, in the
+    middle of the first chunk, while rank 0 decodes on: both ranks raise
+    (the mismatched collectives, or the one left waiting at the group's
+    timeout) within that timeout, and the workers end."""
+    results = _spawn(2, setup["base"] / "early", [{
+        "kind": "early_stop", "name": "early", "artifact": setup["art"], "inputs": setup["inputs"],
+        "generation": GREEDY, "chunk_frames": CHUNK, "stop_after": 2}], timeout=EARLY_TIMEOUT)["early"]
+    for rank in results:
+        assert rank["error"] is not None, rank
+        assert rank["seconds"] < EARLY_TIMEOUT + 10, rank
 
 
 def test_model_parallel_cli_matches_one_process(single, two):

@@ -18,10 +18,20 @@ Jobs (``spec["jobs"]``, each a dict with ``kind`` and ``name``):
 * ``split``: the artifact ``job["artifact"]`` split over a model group of
   every process: the T5 encoder's output, one training loss with its
   gradients gathered to full tensors, the gradient norm, and greedy
-  ``generate`` tokens, on the inputs in ``job["inputs"]``; and whether the
-  int8 decode, streaming and the batching engine refuse the split model.
+  ``generate`` tokens, on the inputs in ``job["inputs"]``; then the rest of
+  the inference surface over the split model: greedy int8 ``generate``
+  (int8 weights and KV cache) with the shapes of its cache, the int8 decode
+  view (and, for the row-split kernels, what local scales would give), a
+  greedy ``stream_generate``, and a ``BatchingEngine`` whose rank 0 takes a
+  warmup and a burst of requests while the other ranks ``follow()``, each
+  of its batches replayed as a direct ``tts`` on every rank;
+* ``early_stop``: a stream over the split model in which the last rank
+  stops early (it marks every stream finished after ``job["stop_after"]``
+  decode steps): each rank's error and the seconds until it; the group is
+  left broken, so no job may follow.
 
-Writes ``<workdir>/{name}_r{rank}.pt`` per job.  Imports only the port.
+Writes ``<workdir>/{name}_r{rank}.pt`` per job.  ``spec["timeout"]``, when
+given, bounds every collective's wait (seconds).  Imports only the port.
 """
 
 from __future__ import annotations
@@ -31,8 +41,9 @@ import dataclasses
 import hashlib
 import json
 import os
+import datetime
 import sys
-import types
+import time
 
 import numpy as np
 import torch
@@ -107,10 +118,8 @@ def _split(job: dict) -> dict:
     from parler_tts_tpu_torch.core import checkpoint as ck
     from parler_tts_tpu_torch.core.config import GenerationConfig
     from parler_tts_tpu_torch.generation.generate import generate
-    from parler_tts_tpu_torch.generation.streaming import stream_generate
     from parler_tts_tpu_torch.parallel import distributed as dist
     from parler_tts_tpu_torch.parallel import mesh as pmesh
-    from parler_tts_tpu_torch.serving import BatchingEngine
     from parler_tts_tpu_torch.training import step as tstep
 
     mesh = pmesh.make_mesh(data=1, model=dist.process_count())
@@ -125,39 +134,138 @@ def _split(job: dict) -> dict:
     names, dims = tstep.trainable_names(model), tstep.trainable_dims(model)
     full = {n: pmesh.gather_tensor(g, d, mesh) for n, g, d in zip(names, grads, dims)}
     gen = GenerationConfig(**job["generation"])
-    tokens = generate(model, gen, input_ids=inputs["input_ids"], attention_mask=inputs["attention_mask"],
-                      prompt_input_ids=inputs["prompt_input_ids"],
-                      prompt_attention_mask=inputs["prompt_attention_mask"], vocode=False, device="cpu").tokens
     prompt = {k: inputs[k] for k in ("input_ids", "attention_mask", "prompt_input_ids", "prompt_attention_mask")}
-    refused = {}
-    for what, call in (
-            ("int8", lambda: generate(model, dataclasses.replace(gen, int8_weights=True), vocode=False, device="cpu",
-                                      **prompt)),
-            ("stream", lambda: next(stream_generate(model, gen, vocode=False, device="cpu", **prompt))),
-            ("engine", lambda: BatchingEngine(types.SimpleNamespace(model=model)))):
-        try:
-            call()
-            refused[what] = False
-        except NotImplementedError:
-            refused[what] = True
+    tokens = generate(model, gen, vocode=False, device="cpu", **prompt).tokens
     return {"t5": t5, "loss": loss.detach(), "grads": full, "grad_norm": state.optimizer.norm(list(grads)),
-            "tokens": tokens, "local_heads": model.decoder.num_heads, "refused": refused,
-            "local_t5_heads": model.text_encoder.layers[0].attn.num_heads}
+            "tokens": tokens, "local_heads": model.decoder.num_heads,
+            "local_t5_heads": model.text_encoder.layers[0].attn.num_heads,
+            **_int8(model, gen, prompt), "stream": _stream(model, gen, prompt, job["chunk_frames"]),
+            "engine": _engine(model, cfg, job)}
 
 
-JOBS = {"prepare": _prepare, "train": _train, "split": _split}
+def _int8(model, gen, prompt: dict) -> dict:
+    """Greedy int8 generation (int8 weights and KV cache) over the split
+    model and the shapes of its cache; the int8 decode view, and the
+    row-split kernels quantized with local scales only."""
+    from parler_tts_tpu_torch.generation import generate as G
+    from parler_tts_tpu_torch.ops.nn import DenseWeight
+
+    caches, real = [], G.init_cache
+
+    def spy(*args, **kw):
+        cache = real(*args, **kw)
+        caches.append({name: tuple(t.shape) for name, t in vars(cache).items() if torch.is_tensor(t)})
+        caches[-1]["dtypes"] = {name: str(t.dtype) for name, t in vars(cache).items() if torch.is_tensor(t)}
+        return cache
+
+    G.init_cache = spy
+    try:
+        out = G.generate(model, dataclasses.replace(gen, int8_weights=True, kv_cache_dtype="int8"), vocode=False,
+                         device="cpu", **prompt)
+    finally:
+        G.init_cache = real
+    view = model.decoder.decode_params(int8=True)
+    layers = [{name: (w.kernel, w.scale) for name, w in layer._asdict().items()} for layer in view.layers]
+    local = [{name: DenseWeight.of(kernel, True) for name, kernel in (
+        ("o", layer.self_attn.o.kernel), ("cross_o", layer.cross_attn.o.kernel), ("fc2", layer.fc2.kernel))}
+        for layer in model.decoder.layers]
+    return {"int8_tokens": out.tokens, "int8_cache": caches, "int8_view": layers,
+            "int8_lm_heads": (view.lm_heads.kernel, view.lm_heads.scale),
+            "int8_local_only": [{name: (w.kernel, w.scale) for name, w in layer.items()} for layer in local]}
+
+
+def _stream(model, gen, prompt: dict, chunk_frames: int) -> list[dict]:
+    from parler_tts_tpu_torch.generation.streaming import stream_generate
+
+    return [c._asdict() for c in stream_generate(model, gen, chunk_frames=chunk_frames, lookback=8, device="cpu",
+                                                 **prompt)]
+
+
+def _engine(model, cfg, job: dict) -> dict:
+    """The batching engine over the split model: rank 0 takes a warmup and
+    ``job["requests"]`` at once, the other ranks follow; every rank records
+    the batches it ran and then replays each as a direct ``tts``."""
+    from parler_tts_tpu_torch.core.config import GenerationConfig
+    from parler_tts_tpu_torch.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.serving import BatchingEngine
+    from parler_tts_tpu_torch.utils.tokenizer import Tokenizer
+
+    tok = Tokenizer.from_pretrained(job["tok"])
+    pipe = ParlerTTSPipeline(model, cfg, GenerationConfig(**job["engine_generation"]), tok, tok,
+                             dtype=torch.float32, device="cpu")
+    calls, direct = [], pipe.tts
+
+    def recorded(descs, prompts, *, seed=0, max_seconds=None):
+        out = direct(descs, prompts, seed=seed, max_seconds=max_seconds)
+        calls.append({"descs": list(descs), "prompts": list(prompts), "seed": seed, "max_seconds": max_seconds,
+                      "waves": out[1]})
+        return out
+
+    pipe.tts = recorded
+    engine = BatchingEngine(pipe, **job["engine"])
+    results = None
+    if engine.following:
+        stats = engine.follow()
+    else:
+        try:
+            engine.warmup(batch_buckets=(2,), timeout=60)
+            futures = [engine.submit(d, p, seed=i, max_seconds=job["engine_seconds"])
+                       for i, (d, p) in enumerate(job["requests"])]
+            results = [f.result(timeout=60)[1] for f in futures]
+        finally:
+            engine.shutdown()
+        stats = engine.stats()
+    replays = [direct(c["descs"], c["prompts"], seed=c["seed"], max_seconds=c["max_seconds"])[1] for c in calls]
+    return {"calls": calls, "replays": replays, "results": results, "stats": stats, "following": engine.following}
+
+
+def _early_stop(job: dict) -> dict:
+    from parler_tts_tpu_torch.core import checkpoint as ck
+    from parler_tts_tpu_torch.core.config import GenerationConfig
+    from parler_tts_tpu_torch.generation import streaming
+    from parler_tts_tpu_torch.parallel import distributed as dist
+    from parler_tts_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(data=1, model=dist.process_count())
+    model, _, _ = ck.load_model(job["artifact"], device="cpu", mesh=mesh)
+    inputs = {k: torch.from_numpy(v) for k, v in np.load(job["inputs"]).items()}
+    prompt = {k: inputs[k] for k in ("input_ids", "attention_mask", "prompt_input_ids", "prompt_attention_mask")}
+    steps, real = [0], streaming.decode_step
+
+    def stop_early(model, gen, s, **kw):
+        real(model, gen, s, **kw)
+        steps[0] += 1
+        if steps[0] >= job["stop_after"]:
+            s.finished.fill_(True)
+
+    if mesh.model_index == mesh.model - 1:
+        streaming.decode_step = stop_early
+    t0 = time.perf_counter()
+    try:
+        chunks = len(list(streaming.stream_generate(model, GenerationConfig(**job["generation"]),
+                                                    chunk_frames=job["chunk_frames"], vocode=False, device="cpu",
+                                                    **prompt)))
+        return {"error": None, "chunks": chunks, "seconds": time.perf_counter() - t0}
+    except Exception as e:  # the result the test reads
+        return {"error": f"{type(e).__name__}: {e}", "seconds": time.perf_counter() - t0}
+
+
+JOBS = {"prepare": _prepare, "train": _train, "split": _split, "early_stop": _early_stop}
 
 
 def main() -> None:
     rank, world, store, spec_path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     from parler_tts_tpu_torch.parallel import distributed as dist
 
-    dist.initialize("gloo", device="cpu", init_method=f"file://{store}", rank=rank, world_size=world)
     with open(spec_path) as f:
         spec = json.load(f)
+    timeout = datetime.timedelta(seconds=spec["timeout"]) if "timeout" in spec else None
+    dist.initialize("gloo", device="cpu", init_method=f"file://{store}", rank=rank, world_size=world, timeout=timeout)
     for job in spec["jobs"]:
         result = JOBS[job["kind"]](job)
         torch.save(result, os.path.join(spec["workdir"], f"{job['name']}_r{rank}.pt"))
+        if job["kind"] == "early_stop":  # its group failed on purpose: nothing more runs over it
+            return
         dist.barrier(job["name"])
     torch.distributed.destroy_process_group()
 
