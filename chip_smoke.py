@@ -45,7 +45,13 @@ Phases, in order; any failure exits non-zero before the result line:
    ``stream_generate`` (batch 4, 2.5 s, chunks of 86, lookback 48: codes
    equal ``generate``'s, each fp32 chunk a one-shot vocode of the frames so
    far); ``BatchingEngine`` (warmup of the burst's batch buckets, a burst
-   of 6 requests from threads, each batch replayed as a direct ``tts``).
+   of 6 requests from threads, each batch replayed as a direct ``tts``);
+   the demo server ``helpers/gradio_demo/app_torch.py`` over an engine on
+   a ``pcm16`` pipeline, bound to 127.0.0.1:0 (a burst of 6 ``POST /api``
+   requests, each response the WAV bytes of its batch's direct ``tts``
+   replay, and ``GET /stats`` the recorded batches), then ``app_torch.py``
+   itself as a subprocess on an artifact of the model, answering ``POST
+   /api`` and ``POST /``.
    Reported with ``utils/mel.py`` on the card, not gated: the mel distance
    of the stream from a one-shot vocode of the whole utterance, and of the
    int8 call's waveforms from the bf16 call's (same input ids and seed);
@@ -1710,6 +1716,199 @@ def run_serving(cfg, model, pipe, fa, serving_mod, card: str) -> tuple[int, floa
     return launches, err
 
 
+HTTP_REQUESTS = (0.25, 0.5, 0.25, 0.5, 1.0, 0.75)  # max_seconds of the burst's 6 requests
+HTTP_LENGTH_BUCKETS = (0.5, 1.0)
+
+
+def _http(url: str, fields: dict | None = None, timeout: float = 600) -> tuple[str, bytes, float]:
+    """One request to the demo server on this host: POST of ``fields`` as a
+    form, or GET; -> (Content-Type, body, seconds)."""
+    import urllib.parse
+    import urllib.request
+
+    data = None if fields is None else urllib.parse.urlencode(fields).encode()
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=timeout) as resp:
+        kind, body = resp.headers["Content-Type"], resp.read()
+    return kind, body, time.perf_counter() - t0
+
+
+def _wav_rate(body: bytes) -> tuple[int, int]:
+    """(sampling rate, frames) of a mono 16-bit WAV body; raises otherwise."""
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(body), "rb") as f:
+        if f.getnchannels() != 1 or f.getsampwidth() != 2:
+            raise AssertionError(f"not a mono 16-bit WAV: {f.getnchannels()} channels, width {f.getsampwidth()}")
+        return f.getframerate(), f.getnframes()
+
+
+def run_http_serving(cfg, model, pipe, fa, serving_mod, ck, reader_mod, card: str, tmp: str):
+    """The demo server (``helpers/gradio_demo/app_torch.py``) over phase 4's
+    model with a ``pcm16`` pipeline.  In this process: ``make_http_server``
+    on 127.0.0.1:0 over a ``BatchingEngine`` (batch buckets 1, 2, 4, 8;
+    length buckets 0.5 s and 1 s) whose pipeline records its calls; a burst
+    of 6 ``POST /api`` requests of 0.25-1 s from 6 threads, then ``GET
+    /stats``.  Each response must be a 44.1 kHz WAV equal, byte for byte, to
+    ``wav_bytes`` of its row of a direct ``tts`` replay of its batch; the
+    counters must be the recorded calls'; K1 once per layer per prefill,
+    held against its plain version.  Then the entry point as a user starts
+    it: ``app_torch.py`` in a subprocess, with no ``--warmup``, on an
+    artifact of this model (``ck.save_model``, the T5-shaped tokenizer
+    fixture bundled, its generation length cut to 1 s, which caps every
+    length bucket), answering one ``POST /api`` and one ``POST /``; the
+    subprocess is stopped and the artifact deleted by the caller.  Returns
+    K1's launches, its largest error held and its time row."""
+    import base64
+    import re
+    import threading
+
+    app = load_helper("helpers/gradio_demo/app_torch.py")
+    layers = cfg.decoder.num_hidden_layers
+    pipe16 = dataclasses.replace(pipe, pcm16=True)
+    calls = []
+
+    class Recorder:
+        """The pcm16 pipeline, recording each call the engine makes."""
+        cfg, gen = pipe16.cfg, pipe16.gen
+
+        def tts(self, descs, prompts, *, seed=0, max_seconds=None):
+            out = pipe16.tts(descs, prompts, seed=seed, max_seconds=max_seconds)
+            calls.append((list(descs), list(prompts), seed, max_seconds, out))
+            return out
+
+    requests = [dict(description=DESCRIPTIONS[i % 4], prompt=f"{_prompts(10)[i % 4]} {WORDS[i]}",
+                     seed=str(SEED + i), max_seconds=str(seconds)) for i, seconds in enumerate(HTTP_REQUESTS)]
+
+    def serve():
+        engine = serving_mod.BatchingEngine(Recorder(), max_batch=8, batch_buckets=(1, 2, 4, 8),
+                                            length_bucket_seconds=HTTP_LENGTH_BUCKETS)
+        server = app.make_http_server(engine, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            responses, failed = [None] * len(requests), []
+            barrier = threading.Barrier(len(requests))
+
+            def client(i):
+                barrier.wait(timeout=60)
+                try:
+                    responses[i] = _http(f"{url}/api", requests[i])
+                except Exception as e:  # re-raised below, on the main thread
+                    failed.append(e)
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            if failed:
+                raise failed[0]
+            if any(th.is_alive() for th in threads) or None in responses:
+                raise AssertionError("a request to the demo server did not complete")
+            kind, body, stats_s = _http(f"{url}/stats")
+            return responses, json.loads(body), engine.stats(), kind, stats_s
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.shutdown()
+            thread.join(timeout=60)
+
+    replays = []
+
+    def serve_and_replay():
+        result = serve()
+        for descs, prompts, seed, max_seconds, _ in calls:
+            replays.append(pipe16.tts(descs, prompts, seed=seed, max_seconds=max_seconds))
+        return result
+
+    (responses, served_stats, stats, stats_kind, stats_s), launches, spy, err = counted(
+        fa, layers, serve_and_replay, place="http serving", calls=lambda: len(calls) + len(replays))
+    checks, rows = [], []
+    for req, (kind, body, latency) in zip(requests, responses):
+        call = next(c for c, (descs, prompts, *_) in enumerate(calls)
+                    if (req["description"], req["prompt"]) in zip(descs, prompts))
+        row = list(zip(calls[call][0], calls[call][1])).index((req["description"], req["prompt"]))
+        sr, waves = replays[call]
+        t0 = time.perf_counter()
+        want = app.wav_bytes(waves[row], sr)
+        wav_ms = 1e3 * (time.perf_counter() - t0)
+        rate, frames = _wav_rate(body)
+        checks.append(kind == "audio/wav" and rate == 44100 and frames > 0 and body == want)
+        rows.append({"max_seconds": float(req["max_seconds"]), "latency_s": latency, "batch": call,
+                     "audio_s": frames / rate, "wav_bytes_ms": wav_ms, "equal_to_direct_tts": body == want})
+    batches = [{"rows": len(descs), "max_seconds": max_seconds, "seed": seed,
+                "requests": sum(r["batch"] == c for r in rows)} for c, (descs, _, seed, max_seconds, _)
+               in enumerate(calls)]
+    pads = sum(b["rows"] - b["requests"] for b in batches)
+    stats_ok = (stats_kind == "application/json" and served_stats == stats and stats["requests"] == len(requests)
+                and stats["batches"] == len(calls) and stats["batched_requests"] == len(requests)
+                and stats["bucket_rows"] == sum(b["rows"] for b in batches) and stats["padded_rows"] == pads)
+    (args, kw, _) = next(iter(spy.captured.values()))
+    k1 = {"kernel": "flash_attention_fwd", "path": "http serving prefill", **k1_row(fa, *args, kw)}
+    emit({"phase": "k1_time", **k1})
+
+    # the entry point in its own process, as a user starts it
+    art = os.path.join(tmp, "artifact")
+    t0 = time.perf_counter()
+    ck.save_model(art, model, cfg, dataclasses.replace(pipe.gen, max_length=pipe.max_length(1.0)),
+                  tokenizer=reader_mod.Tokenizer.from_pretrained(os.path.join(TOKENIZER_FIXTURES, "t5_unigram")))
+    save_s = time.perf_counter() - t0
+    log = os.path.join(tmp, "app_torch.log")
+    with open(log, "w") as err_file:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, os.path.join(REPO, "helpers", "gradio_demo", "app_torch.py"), art,
+                                 "--port", "0"], cwd=REPO, stdout=subprocess.PIPE, stderr=err_file, text=True)
+        try:
+            lines = []
+
+            def read_stdout():
+                for line in proc.stdout:
+                    lines.append(line)
+
+            threading.Thread(target=read_stdout, daemon=True).start()
+            port = None
+            started = re.compile(r"serving on http://0\.0\.0\.0:(\d+)")
+            while port is None and time.perf_counter() - t0 < 600 and proc.poll() is None:
+                time.sleep(0.2)
+                port = next((m.group(1) for line in list(lines) if (m := started.search(line))), None)
+            if port is None:
+                raise AssertionError(f"app_torch.py did not start serving (rc {proc.poll()}): "
+                                     + open(log).read()[-4000:])
+            started_s = time.perf_counter() - t0
+            fields = dict(description=DESCRIPTIONS[1], prompt=_prompts(10)[0], seed="3", max_seconds="0.25")
+            api_kind, api_body, api_s = _http(f"http://127.0.0.1:{port}/api", fields)
+            first_response_s = time.perf_counter() - t0
+            page_kind, page, page_s = _http(f"http://127.0.0.1:{port}/", fields)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    api_rate, api_frames = _wav_rate(api_body)
+    tags = re.findall(r'<audio controls src="data:audio/wav;base64,([A-Za-z0-9+/=]+)"></audio>', page.decode())
+    page_rate, page_frames = _wav_rate(base64.b64decode(tags[0])) if len(tags) == 1 else (0, 0)
+    entry_ok = (api_kind == "audio/wav" and api_rate == 44100 and api_frames > 0
+                and page_kind == "text/html; charset=utf-8" and page_rate == 44100 and page_frames > 0)
+    ok = all(checks) and stats_ok and entry_ok
+    emit({"phase": "http_serving", "config": "mini_600m_config bf16 pcm16, random weights (seed 0), top-k 50",
+          "card": card, "requests": rows, "batches": batches, "pad_rows": pads, "stats": stats,
+          "stats_equal_recorder": stats_ok, "stats_request_s": stats_s, "k1_launches": launches,
+          "k1_max_abs_err": err,
+          "entry_point": {"artifact_save_s": save_s, "serving_after_s": started_s, "first_response_s": first_response_s,
+                          "api_s": api_s, "page_s": page_s, "api_audio_s": api_frames / max(api_rate, 1),
+                          "page_audio_s": page_frames / max(page_rate, 1), "ok": entry_ok},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("the demo server's answers are not the direct tts calls' WAVs, its counters are not "
+                             f"the recorder's, or its entry point did not answer (see the http_serving line; {log})")
+    return launches, err, k1
+
+
 def encodec_mini_config(cfg_mod):
     """Mini with ``facebook/encodec_24khz``'s geometry as its codec (32
     filters, ratios 8/5/4/2, a 2-layer 512-wide LSTM, 32 codebooks of 1024 x
@@ -2792,6 +2991,12 @@ def main() -> int:
         "stream": run_stream(model.cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card),
         "serving": run_serving(model.cfg, model, pipe, fa, serving_mod, card),
     }
+    http_tmp = tempfile.mkdtemp(prefix="parler_http_")
+    try:
+        new_paths["http_serving"] = run_http_serving(model.cfg, model, pipe, fa, serving_mod, ck, reader_mod, card,
+                                                     http_tmp)
+    finally:
+        shutil.rmtree(http_tmp, ignore_errors=True)
     del model, pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -2857,7 +3062,8 @@ def main() -> int:
                            mp_errs["flash_attention_fwd"], *(path[1] for path in new_paths.values())),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
-        "per_shape": k1["per_shape"] + [new_paths["decoder_only"][2], new_paths["encodec"][2]]
+        "per_shape": k1["per_shape"] + [new_paths["decoder_only"][2], new_paths["encodec"][2],
+                                        new_paths["http_serving"][2]]
         + bwd["flash_attention_fwd"]["per_shape"],
     }]
     for name in BWD_NAMES:

@@ -39,9 +39,22 @@ def encode(codec: Codec, audio: torch.Tensor, *, n_quantizers: int | None = None
     return codec.encode(audio, n_quantizers)
 
 
+#: the most output samples one codec call decodes.  The eager vocoders hold
+#: several fp32 temporaries of their last blocks' activations (the DAC's
+#: Snakes at 96 and 192 channels), some kilobytes per output sample, where
+#: XLA fuses them: one call over 64 rows of 5 s (14 M samples) runs an 80 GB
+#: card out of memory, a call of this many samples takes about 10 GB
+VOCODE_SAMPLES = 2**21
+
+
 def decode(codec: Codec, codes: torch.Tensor) -> torch.Tensor:
-    """(B, K, T_frames) codes -> (B, T_frames * hop) waveform."""
-    return codec.decode(codes)
+    """(B, K, T_frames) codes -> (B, T_frames * hop) waveform, decoded in
+    groups of rows of at most ``VOCODE_SAMPLES`` output samples (at least
+    one row per group)."""
+    rows = max(1, VOCODE_SAMPLES // max(1, codes.shape[2] * codec.cfg.hop_length))
+    if codes.shape[0] <= rows:
+        return codec.decode(codes)
+    return torch.cat([codec.decode(group) for group in codes.split(rows)])
 
 
 def import_torch(sd, cfg) -> dict[str, torch.Tensor]:

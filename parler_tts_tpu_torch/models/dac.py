@@ -10,11 +10,13 @@ the hop (``prod(downsampling_ratios)``, 512 at 44.1 kHz) to latents, then
 the residual nearest-codebook walk (``ResidualVQ.encode``) in fp32.  The
 convolutions are ``nn.Conv1d`` / ``nn.ConvTranspose1d`` on NCW activations;
 these and the quantizer's small matmuls are XLA ops in the JAX package, not
-Pallas kernels.  At bf16 the Snake activation is the polynomial
-``snake_fast``; at fp32 it is the exact one.  cuDNN runs fp32 convolutions
-in TF32 unless told otherwise (``torch.backends.cudnn.allow_tf32`` defaults
-to True), so encode and decode turn TF32 off around their conv stacks: an
-fp32 codec is fp32, as the JAX package's offline tokenizer is.
+Pallas kernels.  The encoder's Snake activations are exact at every dtype;
+the decoder's take the polynomial ``snake_fast`` at bf16 and the exact one
+otherwise, as the JAX ``encoder_forward`` and ``decoder_forward`` do.  cuDNN
+runs fp32 convolutions in TF32 unless told otherwise
+(``torch.backends.cudnn.allow_tf32`` defaults to True), so encode and
+decode turn TF32 off around their conv stacks: an fp32 codec is fp32, as
+the JAX package's offline tokenizer is.
 """
 
 from __future__ import annotations
@@ -62,25 +64,30 @@ def snake_fast(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 
 class Snake(nn.Module):
-    def __init__(self, dim: int):
+    """``fast``: the decoder's Snake, ``snake_fast`` on bf16 inputs (exact
+    on others); otherwise the encoder's, exact at every dtype."""
+
+    def __init__(self, dim: int, *, fast: bool):
         super().__init__()
+        self.fast = fast
         self.alpha = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (snake_fast if x.dtype == torch.bfloat16 else snake)(x, self.alpha)
+        return (snake_fast if self.fast and x.dtype == torch.bfloat16 else snake)(x, self.alpha)
 
 
 _DILATIONS = (1, 3, 9)
 
 
 class ResUnit(nn.Module):
-    """Snake -> dilated conv7 -> Snake -> conv1, residual add."""
+    """Snake -> dilated conv7 -> Snake -> conv1, residual add; ``fast`` as
+    ``Snake``'s."""
 
-    def __init__(self, dim: int, dilation: int):
+    def __init__(self, dim: int, dilation: int, *, fast: bool):
         super().__init__()
-        self.snake1 = Snake(dim)
+        self.snake1 = Snake(dim, fast=fast)
         self.conv1 = nn.Conv1d(dim, dim, 7, dilation=dilation, padding=3 * dilation)
-        self.snake2 = Snake(dim)
+        self.snake2 = Snake(dim, fast=fast)
         self.conv2 = nn.Conv1d(dim, dim, 1)
 
     def forward(self, x):
@@ -93,8 +100,8 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, dim: int, stride: int):
         super().__init__()
-        self.res1, self.res2, self.res3 = (ResUnit(dim // 2, d) for d in _DILATIONS)
-        self.snake = Snake(dim // 2)
+        self.res1, self.res2, self.res3 = (ResUnit(dim // 2, d, fast=False) for d in _DILATIONS)
+        self.snake = Snake(dim // 2, fast=False)
         self.conv_down = nn.Conv1d(dim // 2, dim, 2 * stride, stride=stride, padding=math.ceil(stride / 2))
 
     def forward(self, x):
@@ -114,7 +121,7 @@ class DACEncoder(nn.Module):
             d *= 2
             blocks.append(EncoderBlock(d, stride))
         self.blocks = nn.ModuleList(blocks)
-        self.snake_out = Snake(d)
+        self.snake_out = Snake(d, fast=False)
         self.conv_out = nn.Conv1d(d, cfg.latent_dim, 3, padding=1)
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
@@ -127,10 +134,10 @@ class DACEncoder(nn.Module):
 class DecoderBlock(nn.Module):
     def __init__(self, dim: int, stride: int):
         super().__init__()
-        self.snake = Snake(dim)
+        self.snake = Snake(dim, fast=True)
         self.conv_up = nn.ConvTranspose1d(dim, dim // 2, 2 * stride, stride=stride,
                                           padding=math.ceil(stride / 2))
-        self.res1, self.res2, self.res3 = (ResUnit(dim // 2, d) for d in _DILATIONS)
+        self.res1, self.res2, self.res3 = (ResUnit(dim // 2, d, fast=True) for d in _DILATIONS)
 
     def forward(self, x):
         x = self.conv_up(self.snake(x))
@@ -149,7 +156,7 @@ class DACDecoder(nn.Module):
             blocks.append(DecoderBlock(d, stride))
             d //= 2
         self.blocks = nn.ModuleList(blocks)
-        self.snake_out = Snake(d)
+        self.snake_out = Snake(d, fast=True)
         self.conv_out = nn.Conv1d(d, 1, 7, padding=3)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """The port's DAC encode side and offline audio tokenization against the JAX
-package at fp32 on CPU: encoder latents, the residual quantizer's codes
+package at fp32 on CPU (and a bf16 encode against JAX's bf16 encode, with
+the Snake each side of the codec takes): encoder latents, the residual quantizer's codes
 (equal except at near-ties, which are counted), ``pad_audio``, the weight
 carry-over of the encode side, ``tokenize_audio_batches``, ``CodesCache``
 (each package reads the other's part files) and ``parse_dataset_spec``.
@@ -9,20 +10,28 @@ widths, so the JAX init stays quick."""
 
 from __future__ import annotations
 
+import copy
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from parler_tts_tpu.core import config as jcfg
+from parler_tts_tpu.generation import generate as jgenerate
 from parler_tts_tpu.models import codec as jcodec
 from parler_tts_tpu.models import dac as jdac
 from parler_tts_tpu.training import data as jdata
 from parler_tts_tpu_torch.core import config as pcfg
+from parler_tts_tpu.ops.nn import astype_tree
 from parler_tts_tpu_torch.core.from_jax import load_jax_params
+from parler_tts_tpu_torch.generation import generate as pgenerate
 from parler_tts_tpu_torch.models import codec as pcodec
 from parler_tts_tpu_torch.models import dac as pdac
 from parler_tts_tpu_torch.training import data as pdata
-from tests.test_torch_blocks import T, jax_init, tiny_config
+from tests.test_torch_blocks import T, jax_init, jax_params, port_model, tiny_config
+from tests.test_torch_generate import SPECIALS, _batch
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
 
@@ -30,6 +39,10 @@ LATENT_RTOL = 1e-4  # relative Frobenius error of the encoder's latents
 # a code may differ from JAX's only where the port's score of JAX's code is
 # within this of its best (scores of unit vectors lie in [-1, 3])
 CODE_TIE_TOL = 1e-4
+# bf16 encodes in both packages: bf16's unit roundoff bounds the latents'
+# relative error and the score gap of a code taken at a near-tie
+BF16_LATENT_RTOL = 2.0**-8
+BF16_CODE_TIE_TOL = 2.0**-8
 WIDTHS = dict(num_codebooks=9, codebook_size=64, codebook_dim=8, latent_dim=64, encoder_hidden_size=8,
               decoder_hidden_size=32)
 
@@ -228,3 +241,95 @@ def test_codec_convolutions_run_with_tf32_off_and_restore_the_flag(codecs, side,
             codec.decode(torch.zeros((1, 9, 3), dtype=torch.int64))
         assert torch.backends.cudnn.allow_tf32 is flag
     assert seen == [False, False]
+
+
+def _bf16(audio: np.ndarray):
+    """The same bf16 waveform for both packages (JAX's encoder computes in
+    the audio's dtype, the port's in the codec's)."""
+    jax_audio = jnp.asarray(audio, jnp.bfloat16)
+    return jax_audio, torch.from_numpy(np.array(jax_audio.astype(jnp.float32))).to(torch.bfloat16)
+
+
+def test_bf16_encode_matches_jax_bf16_encode(codecs):
+    """A bf16 ``DAC.encode`` against JAX's bf16 ``dac.encode`` on the same
+    (bf16-rounded) params: latents within bf16's roundoff, codes equal but
+    at near-ties (``code_gaps``), whose count is reported.  The encoder's
+    Snakes are the exact ones, as JAX's ``encoder_forward``'s; the
+    polynomial (the decoder's bf16 Snake) puts the latents 2.7e-2 away and
+    takes codes 1.9e-2 below the best score."""
+    params, codec = codecs
+    codec = copy.deepcopy(codec).to(torch.bfloat16)
+    jax_audio, audio = _bf16(_audio(3, 512 * 40 + 77, seed=1))
+    jparams = astype_tree(params, jnp.bfloat16)
+    ref = np.asarray(jdac.encode(jparams, narrow_dac(jcfg), jax_audio))
+    ref_z = jdac.encoder_forward(jparams["encoder"], narrow_dac(jcfg), jdac.pad_audio(jax_audio, 512))
+    got = codec.encode(audio)
+    with torch.no_grad():
+        z = codec.encoder(pdac.pad_audio(audio, 512)[:, None]).transpose(1, 2)
+    assert z.dtype == torch.bfloat16 and got.shape == ref.shape == (3, 9, 41)
+    assert _rel(np.asarray(ref_z.astype(jnp.float32)), z.float().numpy()) <= BF16_LATENT_RTOL
+    gaps = codec.quantizer.code_gaps(z, T(ref))
+    print(f"bf16 codes differing from JAX's (near-ties): {int((got.numpy() != ref).sum())} of {ref.size}")
+    assert float(gaps.max()) <= BF16_CODE_TIE_TOL
+
+
+def test_encoder_snakes_are_exact_and_decoder_snakes_fast(codecs):
+    """Every Snake of the encoder is exact at bf16 too; every Snake of the
+    decoder is the polynomial at bf16 and exact at fp32."""
+    _, codec = codecs
+    sides = {side: [m for m in getattr(codec, side).modules() if isinstance(m, pdac.Snake)]
+             for side in ("encoder", "decoder")}
+    # per block: 3 residual units x 2 + the block's own; + the stack's last
+    assert len(sides["encoder"]) == len(sides["decoder"]) == 4 * 7 + 1
+    assert not any(m.fast for m in sides["encoder"]) and all(m.fast for m in sides["decoder"])
+    x = torch.from_numpy(4 * np.random.default_rng(3).standard_normal((2, 8, 50)).astype(np.float32))
+    for side, fn in (("encoder", pdac.snake), ("decoder", pdac.snake_fast)):
+        m = copy.deepcopy(sides[side][0]).to(torch.bfloat16)
+        m.alpha.data = torch.linspace(0.2, 2.0, 8, dtype=torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        assert torch.equal(m(xb), fn(xb, m.alpha)), side
+        assert torch.equal(m.float()(x), pdac.snake(x, m.alpha)), side
+
+
+def test_bf16_generate_from_input_values_matches_jax():
+    """Composite ``generate(input_values=...)`` on the tiny model in bf16,
+    greedy, against JAX's with bf16 params and waveform: the same frame
+    counts and, over each row's valid frames, the same codes (the audio
+    prompt's 40 encoded frames and what follows them)."""
+    params = jax_params(tiny_config(jcfg), seed=1)
+    model = port_model(params).to(torch.bfloat16)
+    rng = np.random.default_rng(5)
+    hop = tiny_config(pcfg).audio_encoder.hop_length
+    wave = (0.3 * np.sin(np.arange(40 * hop) * rng.uniform(0.2, 0.9, (2, 1)))
+            + 0.05 * rng.standard_normal((2, 40 * hop))).astype(np.float32)
+    jax_wave, torch_wave = _bf16(wave)
+    jgen = jcfg.GenerationConfig(max_length=60, **SPECIALS, do_sample=False)
+    ref = jgenerate.generate(astype_tree(params, jnp.bfloat16), tiny_config(jcfg), jgen, key=jax.random.PRNGKey(4),
+                             input_values=jax_wave, **_batch())
+    out = pgenerate.generate(model, pcfg.GenerationConfig.from_dict(jgen.to_dict()), input_values=torch_wave,
+                             device="cpu", **_batch())
+    lengths = np.asarray(ref.code_lengths)
+    np.testing.assert_array_equal(lengths, out.code_lengths.numpy())
+    assert lengths.min() > 40
+    for row, n in enumerate(lengths):
+        np.testing.assert_array_equal(np.asarray(ref.codes)[row, :, :n], out.codes[row, :, :n].numpy())
+
+
+def test_codec_decode_splits_rows_by_the_sample_budget(codecs, monkeypatch):
+    """``models/codec.decode`` vocodes at most ``VOCODE_SAMPLES`` output
+    samples per call, in row order: 5 rows of 3 frames under a budget of 2
+    such rows decode in 3 calls, as one call would."""
+    _, codec = codecs
+    codes = torch.from_numpy(np.random.default_rng(9).integers(0, 64, (5, 9, 3)))
+    whole = codec.decode(codes)
+    calls = []
+    real = codec.decode
+    monkeypatch.setattr(codec, "decode", lambda c: calls.append(c.shape[0]) or real(c))
+    monkeypatch.setattr(pcodec, "VOCODE_SAMPLES", 2 * 3 * 512 + 511)
+    split = pcodec.decode(codec, codes)
+    assert calls == [2, 2, 1] and split.shape == whole.shape == (5, 3 * 512)
+    np.testing.assert_allclose(split.detach().numpy(), whole.detach().numpy(), atol=1e-6, rtol=0)
+    calls.clear()
+    monkeypatch.setattr(pcodec, "VOCODE_SAMPLES", 1)  # a row longer than the budget still decodes
+    pcodec.decode(codec, codes[:2])
+    assert calls == [1, 1]
