@@ -42,6 +42,10 @@ Phases, in order; any failure exits non-zero before the result line:
    decoder-only continuation of two DAC-encoded 2 s waveforms and composite
    ``generate(input_values=...)`` (batch 2, CFG 3.0); the int8 KV cache and
    int8 weights beside bf16 (decode ms/step, KV bytes, first-step logits);
+   the decode loop replayed from CUDA graphs against the per-step eager
+   loop (``decode_graph``: greedy fp32 and bf16, int8 weights and KV, CFG
+   3.0 with top-k 50 sampled; the same tokens, ms/step both ways, launches
+   per step, capture seconds, peak memory; a ``tts`` call that replays);
    ``stream_generate`` (batch 4, 2.5 s, chunks of 86, lookback 48: codes
    equal ``generate``'s, each fp32 chunk a one-shot vocode of the frames so
    far); ``BatchingEngine`` (warmup of the burst's batch buckets, a burst
@@ -178,6 +182,9 @@ TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-4}
 # below its best by this much (scores of unit vectors lie in [-1, 3]; the
 # latents of the two devices differ by fp32 rounding), a near-tie
 CODE_TIE_TOL = 1e-4
+# a captured decode's first token that differs from the eager loop's must sit at a
+# near-tie: its score gap within 2 bf16 ulps of the row's largest score
+GRAPH_TIE_TOL = 2.0**-6
 BWD_OPS_PER_PAIR = {"flash_attention_dq": 6, "flash_attention_dkv": 8, "flash_attention_dqkv": 10}  # x D
 BWD_OUTPUTS = {"flash_attention_dq": 1, "flash_attention_dkv": 2, "flash_attention_dqkv": 3}
 REPLACES = {
@@ -1482,22 +1489,22 @@ def run_int8(cfg, model, pipe, fa, generate_mod, mel_mod, card: str) -> tuple[in
     layers = cfg.decoder.num_hidden_layers
     pipes = {"bf16": pipe, "int8": dataclasses.replace(pipe, gen=dataclasses.replace(
         pipe.gen, kv_cache_dtype="int8", int8_weights=True))}
-    caches, real_init = {}, generate_mod.init_cache
+    caches, real_prefill = {}, generate_mod.prefill
 
-    def keep_cache(*args, **kw):
-        cache = real_init(*args, **kw)
-        caches["int8" if kw.get("kv_dtype") else "bf16"] = cache.nbytes
-        return cache
+    def keep_cache(*args, **kw):  # the cache the prefill writes: the signature's static one on the card
+        state = real_prefill(*args, **kw)
+        caches["int8" if state.cache.self_k.dtype == torch.int8 else "bf16"] = state.cache.nbytes
+        return state
 
     timings, results = {"bf16": [], "int8": []}, {"bf16": [], "int8": []}
-    generate_mod.init_cache = keep_cache
+    generate_mod.prefill = keep_cache
     try:
         def calls():
             for name in ("bf16", "int8", "int8", "bf16"):
                 timings[name].append(time_phases(model, pipes[name], _prompts(50), 2.5, out=results[name]))
         _, launches, _, err = counted(fa, layers, calls, place="int8 and bf16 tts", calls=4)
     finally:
-        generate_mod.init_cache = real_init
+        generate_mod.prefill = real_prefill
     tensors = {key: torch.from_numpy(value).cuda() for key, value in pipe.tokenize(DESCRIPTIONS, _prompts(50)).items()}
     greedy = dataclasses.replace(pipe.gen, do_sample=False, max_length=pipe.max_length(2.5))
     logits = {}
@@ -1522,6 +1529,209 @@ def run_int8(cfg, model, pipe, fa, generate_mod, mel_mod, card: str) -> tuple[in
     emit({"phase": "int8", **summary})
     if not (math.isfinite(diff) and caches["int8"] < caches["bf16"]):
         raise AssertionError(f"int8 decode gave non-finite logits or a cache no smaller than bf16's: {summary}")
+    return launches, err
+
+
+DECODE_PROFILE_STEPS = 16  # decode steps under torch.profiler, per loop
+# the host's kernel-launch calls: a graph's replay is one cudaGraphLaunch
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def launch_profile(fn, steps: int) -> dict:
+    """``fn()`` (``steps`` decode steps) under torch.profiler: the host's
+    launch calls per step (graph launches among them), the device's kernels
+    and their busy ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = graphs = kernels = 0
+    busy_us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            kernels += 1
+            busy_us += e.time_range.elapsed_us()
+        elif e.name in LAUNCH_CALLS:
+            launches += 1
+            graphs += e.name == "cudaGraphLaunch"
+    return {"host_launches_per_step": launches / steps, "graph_launches_per_step": graphs / steps,
+            "device_kernels_per_step": kernels / steps, "device_busy_ms_per_step": busy_us / 1e3 / steps}
+
+
+def first_difference(a: torch.Tensor, b: torch.Tensor):
+    """(b, k, t) of the earliest position where two token buffers differ,
+    or None."""
+    diff = (a != b).nonzero()
+    if not len(diff):
+        return None
+    return tuple(int(x) for x in diff[diff[:, 2].argmin()])
+
+
+def tie_gap(model, gen, tensors, seed: int, where, tokens) -> dict:
+    """The eager loop run again up to the step that sampled ``where`` =
+    (b, k, t): the score (processed logits, plus the Gumbel noise when
+    sampling) of the eager token and of the captured token ``tokens[where]``
+    at that step, their gap and the score's scale."""
+    from parler_tts_tpu_torch.generation import generate as generate_mod
+    from parler_tts_tpu_torch.generation import sampling
+
+    b, k, t = where
+    s = generate_mod.prefill(model, gen, max_length=gen.max_length, **tensors)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    while s.t < t:
+        generate_mod.decode_step(model, gen, s, generator=generator)
+    logits = s.logits.float()
+    n = s.tokens.shape[0]
+    if s.use_cfg:
+        logits = sampling.apply_cfg(logits[:n], logits[n:], gen.guidance_scale)
+    scores = sampling.process_logits(logits, gen)
+    generate_mod.decode_step(model, gen, s, generator=generator)
+    if gen.do_sample:
+        scores = scores + sampling.gumbel_of(s.draw)
+    row = scores[b, k]
+    eager, captured = int(s.tokens[b, k, t]), int(tokens[b, k, t])
+    return {"at": [b, k, t], "eager_token": eager, "captured_token": captured,
+            "gap": abs(row[eager] - row[captured]).item(), "score_scale": row.abs().max().item()}
+
+
+def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int, float]:
+    """The decode loop replayed from CUDA graphs (``generate_tokens`` on a
+    CUDA model) against the per-step eager loop (``prefill`` then
+    ``decode_step`` until ``done``), at Mini, 4 requests x 2.5 s, prefill T
+    = 65 (the ladder [256, 280]): greedy fp32 (an fp32 copy of the model),
+    greedy bf16, int8 weights with the int8 KV cache, and CFG 3.0 with top-k
+    50 sampled from a seed.  fp32's tokens must be the eager loop's bit for
+    bit; the others' equal, or their first difference at a near-tie (score
+    gap within ``GRAPH_TIE_TOL`` of the score's scale), its gap printed.
+    Each: the stop positions, decode ms/step both ways (the captured loop's
+    second call, by segment; the eager loop whole), capture seconds per
+    graph, launches and device kernels per step under torch.profiler.  Then
+    one ``tts`` call must replay its steps (no eager ``decode_step``).  Peak
+    memory allocated and nvidia-smi's memory.used.  Returns K1's launches
+    and its largest error held."""
+    layers = cfg.decoder.num_hidden_layers
+    tensors = {key: torch.from_numpy(value).cuda() for key, value in pipe.tokenize(DESCRIPTIONS, _prompts(50)).items()}
+    inputs = {"prompt_hidden_states": None, "decoder_input_codes": None, **tensors}
+    greedy = dataclasses.replace(pipe.gen, do_sample=False, max_length=pipe.max_length(2.5))
+    model32 = copy.deepcopy(model).float()
+    cases = {
+        "greedy_fp32": (model32, greedy),
+        "greedy_bf16": (model, greedy),
+        "int8_weights_and_kv": (model, dataclasses.replace(greedy, kv_cache_dtype="int8", int8_weights=True)),
+        "cfg3_topk50_sampled": (model, dataclasses.replace(pipe.gen, guidance_scale=3.0,
+                                                           max_length=greedy.max_length)),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    prefills, real_prefill = [0], generate_mod.prefill
+
+    def counting_prefill(*args, **kw):
+        prefills[0] += 1
+        return real_prefill(*args, **kw)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def cases_run():
+        rows = []
+        for name, (m, gen) in cases.items():
+            captures, capture_s = generate_mod.CAPTURES, generate_mod.CAPTURE_SECONDS
+            with timed_decode(generate_mod) as loops:
+                first, t_first = generate_mod.generate_tokens(m, gen, max_length=gen.max_length, generator=seeded(),
+                                                              **tensors)
+                replays = generate_mod.REPLAYS
+                second, t_second = generate_mod.generate_tokens(m, gen, max_length=gen.max_length,
+                                                                generator=seeded(), **tensors)
+                replays = generate_mod.REPLAYS - replays
+            captured = generate_mod.CAPTURES - captures
+            s = generate_mod.prefill(m, gen, max_length=gen.max_length, **tensors)
+            t0, generator = s.t, seeded()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            while not s.done:
+                generate_mod.decode_step(m, gen, s, generator=generator)
+            torch.cuda.synchronize()
+            eager_ms = 1e3 * (time.perf_counter() - start) / (s.t - t0)
+            where = first_difference(first, s.tokens)
+            gap = None if where is None else tie_gap(m, gen, tensors, SEED + 14, where, first)
+            # launches: 16 eager steps, then 16 replays of the first bucket's graph
+            p = generate_mod.prefill(m, gen, max_length=gen.max_length, **tensors)
+            generator = seeded()
+            eager_prof = launch_profile(lambda: [generate_mod.decode_step(m, gen, p, generator=generator)
+                                                 for _ in range(DECODE_PROFILE_STEPS)], DECODE_PROFILE_STEPS)
+            graphs = generate_mod._graphs_of(m)
+            with graphs.lock:
+                state, segment = generate_mod._captured_generation(m, gen, graphs, max_length=gen.max_length,
+                                                                   generator=seeded(), noise=None, **inputs)
+                size = state.limits[0]
+                graph_prof = launch_profile(lambda: segment(size, min(gen.max_length, size - state.p_len),
+                                                            DECODE_PROFILE_STEPS), DECODE_PROFILE_STEPS)
+            spans = loops[1]
+            steps = sum(n for _, n in spans)
+            near_tie = gap is not None and gap["gap"] <= GRAPH_TIE_TOL * max(1.0, gap["score_scale"])
+            row = {
+                "case": name, "dtype": str(next(m.parameters()).dtype).removeprefix("torch."),
+                "kv_read_buckets": state.limits, "stop_captured": t_first, "stop_eager": s.t,
+                "same_tokens": where is None, "first_difference": gap,
+                "second_call_same": bool(torch.equal(first, second)) and t_first == t_second,
+                "graphs_captured": captured, "capture_s_per_graph": (generate_mod.CAPTURE_SECONDS - capture_s)
+                / max(captured, 1),
+                "replays_second_call": replays, "captured_steps": steps,
+                "captured_ms_per_step": sum(ms for ms, _ in spans) / steps, "eager_ms_per_step": eager_ms,
+                "eager": eager_prof, "captured": graph_prof,
+            }
+            row["speedup"] = row["eager_ms_per_step"] / row["captured_ms_per_step"]
+            row["ok"] = (row["second_call_same"] and replays == steps and t_first == s.t
+                         and (where is None or (name != "greedy_fp32" and near_tie)))
+            emit({"phase": "decode_graph", **row})
+            rows.append(row)
+        # the tts path replays the captured steps; no eager step runs
+        eager_steps, real_step = [0], generate_mod.decode_step
+
+        def counting_step(*args, **kw):
+            eager_steps[0] += 1
+            return real_step(*args, **kw)
+
+        generate_mod.decode_step = counting_step
+        try:
+            replays = generate_mod.REPLAYS
+            sr, wavs = pipe.tts(DESCRIPTIONS, _prompts(50), seed=SEED, max_seconds=2.5)
+            replays = generate_mod.REPLAYS - replays
+        finally:
+            generate_mod.decode_step = real_step
+        return rows, {"replays": replays, "eager_decode_steps": eager_steps[0],
+                      "finite": all(bool(np.isfinite(w).all()) for w in wavs)}
+
+    generate_mod.prefill = counting_prefill
+    try:
+        (rows, tts), launches, _, err = counted(fa, layers, cases_run, place="decode_graph",
+                                                calls=lambda: prefills[0])
+    finally:
+        generate_mod.prefill = real_prefill
+    graphs = generate_mod._graphs_of(model)
+    summary = {
+        "config": "mini_600m_config, random weights (seed 0), 4 requests x 2.5 s, prefill T = 65", "card": card,
+        "cases": {r["case"]: {key: r[key] for key in ("same_tokens", "captured_ms_per_step", "eager_ms_per_step",
+                                                       "speedup", "capture_s_per_graph")} for r in rows},
+        "tts_replays": tts["replays"], "tts_eager_decode_steps": tts["eager_decode_steps"],
+        "static_bytes_bf16_model": sum(c.nbytes for c in graphs.sets.values()),
+        "decode_view_bytes_bf16_model": sum(x.numel() * x.element_size() for view in graphs.views.values()
+                                            for x in generate_mod._view_tensors(view)),
+        "graph_memory_share": generate_mod.GRAPH_MEMORY_SHARE,
+        "peak_mem_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "memory_used_mib": subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                                          capture_output=True, text=True, timeout=60).stdout.strip(),
+        "k1_launches": launches, "k1_max_abs_err": err,
+    }
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = all(r["ok"] for r in rows) and tts["replays"] > 0 and tts["eager_decode_steps"] == 0 and tts["finite"]
+    emit({"phase": "decode_graph_summary", **summary, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the captured decode loop is not the eager loop's, or tts did not replay it: {rows}")
     return launches, err
 
 
@@ -2367,13 +2577,46 @@ def run_reference_import(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, from_
     return launches + gate_launches + init_launches, max(err, gate_err, init_err)
 
 
+@contextlib.contextmanager
+def timed_decode(generate_mod):
+    """Each decode loop of ``generate_mod`` (``_decode``, over the captured
+    or the eager steps) with every segment synchronised and host-timed:
+    yields a list that gets, per loop, a list of (ms, steps) per segment.
+    Replays bypass ``ParlerDecoder.decode_step``, so segments are what can
+    be timed; a segment's steps are its own, masked ones included."""
+    loops: list[list[tuple[float, int]]] = []
+    real = generate_mod._decode
+
+    def timed(s, max_length, segment):
+        spans = []
+        loops.append(spans)
+
+        def run(size, t_hi, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            segment(size, t_hi, n)
+            torch.cuda.synchronize()
+            spans.append((1e3 * (time.perf_counter() - t0), n))
+
+        return real(s, max_length, run)
+
+    generate_mod._decode = timed
+    try:
+        yield loops
+    finally:
+        generate_mod._decode = real
+
+
 def time_phases(model, pipe, prompts, max_seconds, out: list | None = None) -> dict:
     """One more tts call with each phase synchronised and host-timed: T5
-    encode, decoder prefill, each decode step, DAC vocode.  The call's
-    result is appended to ``out`` when given."""
-    spans: dict[str, list[float]] = {"encode": [], "prefill": [], "decode_step": [], "vocode": []}
+    encode, decoder prefill, the decode loop segment by segment (ms/step:
+    the loop's time over its steps; the median over its segments), DAC
+    vocode.  The call's result is appended to ``out`` when given."""
+    from parler_tts_tpu_torch.generation import generate as generate_mod
+
+    spans: dict[str, list[float]] = {"encode": [], "prefill": [], "vocode": []}
     targets = {"encode": (model, "encode_text"), "prefill": (model.decoder, "forward"),
-               "decode_step": (model.decoder, "decode_step"), "vocode": (model.audio_encoder, "decode")}
+               "vocode": (model.audio_encoder, "decode")}
 
     def timed(name, fn):
         def run(*args, **kwargs):
@@ -2388,18 +2631,20 @@ def time_phases(model, pipe, prompts, max_seconds, out: list | None = None) -> d
     for name, (obj, attr) in targets.items():
         setattr(obj, attr, timed(name, getattr(obj, attr)))
     try:
-        t0 = time.perf_counter()
-        result = pipe.tts(DESCRIPTIONS, prompts, seed=SEED, max_seconds=max_seconds)
-        wall = time.perf_counter() - t0
+        with timed_decode(generate_mod) as loops:
+            t0 = time.perf_counter()
+            result = pipe.tts(DESCRIPTIONS, prompts, seed=SEED, max_seconds=max_seconds)
+            wall = time.perf_counter() - t0
         if out is not None:
             out.append(result)
     finally:
         for obj, attr in targets.values():
             delattr(obj, attr)
-    steps = spans["decode_step"]
+    segments = [span for loop in loops for span in loop]
+    steps = sum(n for _, n in segments)
     return {"encode_ms": sum(spans["encode"]), "prefill_ms": sum(spans["prefill"]),
-            "decode_steps": len(steps), "decode_ms_per_step": sum(steps) / len(steps),
-            "decode_ms_per_step_median": sorted(steps)[len(steps) // 2],
+            "decode_steps": steps, "decode_ms_per_step": sum(ms for ms, _ in segments) / steps,
+            "decode_ms_per_step_median": sorted(ms / n for ms, n in segments)[len(segments) // 2],
             "vocode_ms": sum(spans["vocode"]), "synced_wall_s": wall}
 
 
@@ -2988,6 +3233,7 @@ def main() -> int:
     new_paths = {
         "decoder_only": run_decoder_only(model.cfg, model, pipe, fa, generate_mod, card),
         "int8": run_int8(model.cfg, model, pipe, fa, generate_mod, mel_mod, card),
+        "decode_graph": run_decode_graph(model.cfg, model, pipe, fa, generate_mod, card),
         "stream": run_stream(model.cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card),
         "serving": run_serving(model.cfg, model, pipe, fa, serving_mod, card),
     }

@@ -45,10 +45,6 @@ from parler_tts_tpu_torch.parallel.mesh import (Mesh, composite_param_specs, gat
 _CKPT_RE = re.compile(r"checkpoint-(\d+)-epoch-(\d+)")
 STATE_FILE = "state.pt"
 WEIGHTS_FILE = "weights.pt"
-# keys of the JAX package's generation config that the port's has not (the
-# TPU decode loop's KV length buckets), written last with the JAX defaults so
-# that generation_config.json is the JAX package's byte for byte
-_JAX_ONLY_GENERATION_KEYS = {"kv_read_buckets": 8}
 
 
 def checkpoint_name(step: int, epoch: int) -> str:
@@ -164,10 +160,8 @@ def save_model(path: str, model: ParlerTTSModel, cfg: ParlerTTSConfig, gen: Gene
                tokenizer: Any = None, mesh: Mesh | None = None) -> None:
     """The model artifact: the three JSON files as the JAX ``save_model``
     writes them (``preprocessor_config.json`` is its EnCodec-feature-extractor
-    record of the codec's audio contract; ``generation_config.json`` carries
-    ``kv_read_buckets`` at the JAX default, not a value read from a JAX
-    artifact), ``weights.pt``, and ``tokenizer.save_pretrained(path)`` when
-    a tokenizer is given (the JAX package saves one, prompts and
+    record of the codec's audio contract), ``weights.pt``, and
+    ``tokenizer.save_pretrained(path)`` when a tokenizer is given (the JAX package saves one, prompts and
     descriptions sharing it).  With a ``mesh``, every rank calls it: the
     split parameters are gathered, and rank 0 alone writes."""
     state = model.state_dict()
@@ -179,7 +173,7 @@ def save_model(path: str, model: ParlerTTSModel, cfg: ParlerTTSConfig, gen: Gene
     os.makedirs(path, exist_ok=True)
     cfg.save(os.path.join(path, "config.json"))
     with open(os.path.join(path, "generation_config.json"), "w") as f:
-        json.dump({**(gen or GenerationConfig()).to_dict(), **_JAX_ONLY_GENERATION_KEYS}, f, indent=2)
+        json.dump((gen or GenerationConfig()).to_dict(), f, indent=2)
     if tokenizer is not None:
         tokenizer.save_pretrained(path)
     acfg = cfg.audio_encoder

@@ -252,7 +252,11 @@ class GenerationConfig:
     """Decode-time defaults.  ``kv_cache_dtype="int8"`` stores the decode
     KV cache as int8 with per-position scales; ``int8_weights`` runs the
     decode steps' matmuls and LM heads on int8 weights with per-channel
-    scales (the prefill keeps the model's own weights)."""
+    scales (the prefill keeps the model's own weights).
+    ``kv_read_buckets`` is the most KV-read buckets of the decode loop
+    (``generation/generate._kv_read_limits``; <= 1: one, the whole
+    length): each step reads the cache over its bucket's length, not over
+    ``max_length``."""
 
     max_length: int = 2580  # 30 s x 86 Hz
     do_sample: bool = True
@@ -266,6 +270,7 @@ class GenerationConfig:
     eos_token_id: int = 1024
     kv_cache_dtype: str | None = None
     int8_weights: bool = False
+    kv_read_buckets: int = 8
 
     to_dict = _asdict
     from_dict = classmethod(_fromdict)

@@ -2,9 +2,7 @@
 waveform, decoder-only continuation, and the prefill and step that
 streaming shares.
 
-Port of ``parler_tts_tpu/generation/generate.py``.  The JAX
-``lax.while_loop`` becomes a Python loop over ``decode_step`` with the same
-semantics:
+Port of ``parler_tts_tpu/generation/generate.py``, with the same semantics:
 
 * classifier-free guidance runs ``[cond; uncond]`` rows.  With text
   conditioning the uncond rows get zeroed encoder states and a zeroed
@@ -23,6 +21,42 @@ semantics:
   before delay forcing (``where(pattern == -1, sampled, forced)``);
 * the loop ends early once every ``(batch, codebook)`` stream has finished.
 
+The decode loop is JAX's loop nest.  For each KV-read bucket
+(``_kv_read_limits``: fused lengths, at most ``gen.kv_read_buckets``) the
+steps below the bucket's end ``t_hi`` run in segments of ``STAGE`` masked
+steps, and the host reads whether every stream has finished once per
+segment, as JAX's ``make_cond`` does.  A step reads the cache over its
+bucket's static length and keeps its new position, tokens, ``finished`` and
+logits only where ``(t < t_hi) & ~all(finished)`` holds on the device; a
+masked step's cache write lands at the position the next real step
+rewrites.  The host knows ``t`` at each segment's start (it advances by one
+per step until every stream has finished), so a bucket's last segment runs
+only its ``t_hi - t`` steps, which JAX's fixed-length scan runs masked.
+
+Where the steps run:
+
+* on a CUDA model without a model group, each bucket's step is captured once
+  per signature (rows, prompt and encoder lengths, ``max_length``, the
+  dtype, the generation config, injected noise or not, the decoder's weight
+  addresses) in a ``torch.cuda.CUDAGraph`` and replayed ``STAGE`` times per
+  segment.  The state, cache, masks, the decode view and the sampler's draws
+  live in static buffers kept on the model (``_DecodeGraphs``); the prefill
+  stays eager and writes into them.  A capture or replay that fails raises:
+  nothing falls back to the eager loop;
+* on the CPU the same segment loop runs the same step eagerly;
+* a model split over a model group keeps the per-step eager loop
+  (``decode_step`` until ``done``): gloo collectives cannot be captured,
+  and a capture of NCCL collectives over several ranks cannot be checked on
+  the one card there is.  ``streaming.stream_generate`` keeps it too.
+
+Sampling draws its uniform numbers from the caller's generator outside the
+graph, one ``uniform_`` per step into the static draw buffer, exactly as the
+eager step draws them; the Gumbel transform runs inside the step.  So a
+seed gives the per-step eager loop's draws on the card, and its tokens
+wherever the two loops' kernels agree bit for bit (they run the same
+kernels at the same shapes).  Injected ``noise(t)`` is copied into the same
+buffer before each step.
+
 A model split over a model group (``parallel/mesh.shard_params``) generates
 on every model rank at once, with the same inputs: each rank holds its
 heads' cache, the logits are gathered over the vocabulary, and every rank
@@ -35,7 +69,10 @@ slices of the unsplit model's, so the tokens are the unsplit int8 run's.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
+import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -44,12 +81,25 @@ from parler_tts_tpu_torch.core.config import GenerationConfig, ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
 from parler_tts_tpu_torch.generation import sampling
 from parler_tts_tpu_torch.models import codec as codec_mod
-from parler_tts_tpu_torch.models.decoder import DecodeParams, KVCache, init_cache
+from parler_tts_tpu_torch.models.decoder import DecodeLayer, DecodeParams, KVCache, init_cache
 from parler_tts_tpu_torch.models.delay_pattern import build_delay_pattern, undelay_pattern
 from parler_tts_tpu_torch.models.parler import ParlerTTSModel
+from parler_tts_tpu_torch.ops.nn import DenseWeight
 
 #: ``noise(t)`` -> (B, K, V) Gumbel noise for the token sampled at position t
 NoiseFn = Callable[[int], torch.Tensor]
+
+#: decode steps per segment (JAX ``models/decoder.STAGE``)
+STAGE = 64
+#: a model's captured signatures keep static buffers (state and KV cache) of
+#: at most this share of the card's memory; the least recently used go first
+GRAPH_MEMORY_SHARE = 0.25
+
+#: decode steps replayed from CUDA graphs, graphs captured, seconds spent
+#: capturing them (warm-up step included)
+REPLAYS = 0
+CAPTURES = 0
+CAPTURE_SECONDS = 0.0
 
 
 class GenerateOutput(NamedTuple):
@@ -67,11 +117,16 @@ class GenerateOutput(NamedTuple):
 @dataclasses.dataclass
 class DecodeState:
     """The decode loop between two steps.  ``t`` is the position sampled
-    next and ``logits`` (rows, K, V) predict it; ``tokens`` (B, K,
-    max_length) is the delayed buffer, ``pattern`` its forced ids (-1 where
-    the model samples)."""
+    next as the host counts it and ``position`` the same on the device,
+    which the steps read and advance; ``logits`` (rows, K, V) predict it.
+    ``tokens`` (B, K, max_length) is the delayed buffer, ``pattern`` its
+    forced ids (-1 where the model samples).  ``limits`` are the KV-read
+    buckets (fused lengths) and ``p_len`` the prompt's length; ``draw`` (B,
+    K, V) fp32 holds the next step's uniform draws or injected Gumbel noise
+    (None when greedy).  Every tensor is updated in place."""
 
     t: int
+    position: torch.Tensor  # 0-d int64
     tokens: torch.Tensor
     pattern: torch.Tensor
     finished: torch.Tensor  # (B, K) bool: the stream emitted EOS
@@ -81,6 +136,9 @@ class DecodeState:
     enc_mask: torch.Tensor | None  # (rows, S), None without cross-attention
     params: DecodeParams
     use_cfg: bool
+    limits: list[int]
+    p_len: int
+    draw: torch.Tensor | None
 
     @property
     def done(self) -> bool:
@@ -96,26 +154,70 @@ def _null_rows(x: torch.Tensor, use_cfg: bool) -> torch.Tensor:
     return torch.cat([x, torch.zeros_like(x)], dim=0) if use_cfg else x
 
 
-@torch.no_grad()
-def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
-            input_ids: torch.Tensor | None = None, attention_mask: torch.Tensor | None = None,
-            prompt_input_ids: torch.Tensor | None = None, prompt_attention_mask: torch.Tensor | None = None,
-            prompt_hidden_states: torch.Tensor | None = None,
-            decoder_input_codes: torch.Tensor | None = None) -> DecodeState:
-    """Text encode, prompt embed, CFG rows, delay pattern and the decoder
-    prefill over ``[prompt | BOS frame | audio-prompt codes]``.  Inputs are
-    tensors on the model's device; the batch size comes from the first of
-    ``input_ids``, ``prompt_input_ids``, ``prompt_hidden_states`` and
-    ``decoder_input_codes`` given."""
-    decoder = model.decoder
+def _kv_read_limits(min_limit: int, t_fused_max: int, max_buckets: int,
+                    batch_rows: int | None = None) -> list[int]:
+    """The decode loop's KV-read buckets (JAX ``_kv_read_limits``): fused
+    lengths, multiples of a step, at most ``max_buckets`` of them, the last
+    ``t_fused_max``, the first at least ``min_limit`` so that the prefill
+    fits.  The step is at least 256 for at most 4 rows (``batch_rows``) and
+    128 otherwise; JAX's trace-time ``PARLER_KV_MIN_STEP`` is not read."""
+    if max_buckets <= 1 or t_fused_max <= 256:
+        return [t_fused_max]
+    floor = 256 if batch_rows is not None and batch_rows <= 4 else 128
+    step = max(floor, -(-t_fused_max // max_buckets // 128) * 128)
+    limits = [size for size in range(step, t_fused_max, step) if size >= max(min_limit, step)]
+    return limits + [t_fused_max]
+
+
+class _Plan(NamedTuple):
+    """What a generation's inputs fix before anything runs."""
+
+    batch: int
+    device: torch.device
+    rows: int
+    use_cfg: bool
+    p_len: int
+    enc_len: int
+    limits: list[int]
+
+
+def _plan(model: ParlerTTSModel, gen: GenerationConfig, max_length: int, input_ids, prompt_input_ids,
+          prompt_hidden_states, decoder_input_codes) -> _Plan:
+    """The inputs' batch, CFG rows, prompt and encoder lengths and KV-read
+    buckets; raises when the fused length exceeds the position table."""
     first = next((x for x in (input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
                   if x is not None), None)
     if first is None:
         raise ValueError("need input_ids, prompt_input_ids, prompt_hidden_states or decoder_input_codes "
                          "for the batch size")
-    b, device = first.shape[0], first.device
+    b = first.shape[0]
     use_cfg = gen.guidance_scale is not None and gen.guidance_scale > 1.0
     rows = 2 * b if use_cfg else b
+    prompt = prompt_hidden_states if prompt_hidden_states is not None else prompt_input_ids
+    p_len = 0 if prompt is None else prompt.shape[1]
+    t0 = 1 + (0 if decoder_input_codes is None else decoder_input_codes.shape[2])
+    model.decoder.check_positions(p_len + max_length)
+    limits = _kv_read_limits(p_len + t0, p_len + max_length, gen.kv_read_buckets, batch_rows=rows)
+    return _Plan(b, first.device, rows, use_cfg, p_len, 0 if input_ids is None else input_ids.shape[1], limits)
+
+
+@torch.no_grad()
+def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
+            input_ids: torch.Tensor | None = None, attention_mask: torch.Tensor | None = None,
+            prompt_input_ids: torch.Tensor | None = None, prompt_attention_mask: torch.Tensor | None = None,
+            prompt_hidden_states: torch.Tensor | None = None,
+            decoder_input_codes: torch.Tensor | None = None, cache: KVCache | None = None) -> DecodeState:
+    """Text encode, prompt embed, CFG rows, delay pattern and the decoder
+    prefill over ``[prompt | BOS frame | audio-prompt codes]``.  Inputs are
+    tensors on the model's device; the batch size comes from the first of
+    ``input_ids``, ``prompt_input_ids``, ``prompt_hidden_states`` and
+    ``decoder_input_codes`` given.  Raises when the fused length exceeds
+    ``max_position_embeddings``.  ``cache``: an allocated cache of this
+    generation's shapes to write (its contents are overwritten), else a new
+    one."""
+    decoder = model.decoder
+    plan = _plan(model, gen, max_length, input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
+    b, device, rows, use_cfg = plan.batch, plan.device, plan.rows, plan.use_cfg
 
     enc_hidden = enc_mask = None
     if input_ids is not None:
@@ -150,9 +252,10 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
     )
     tokens = torch.where(pattern == -1, gen.pad_token_id, pattern).to(torch.int32)
 
-    p_len = p_mask.shape[1]
-    cache = init_cache(decoder.cfg, rows, p_len + max_length, 0 if enc_hidden is None else enc_hidden.shape[1],
-                       dtype=decoder.dtype, device=device, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
+    if cache is None:
+        cache = init_cache(decoder.cfg, rows, plan.p_len + max_length, plan.enc_len, dtype=decoder.dtype,
+                           device=device, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
+    cache.index = 0
     fused_mask = torch.cat(
         [p_mask.to(torch.int32), torch.ones((rows, max_length), dtype=torch.int32, device=device)], dim=1
     )
@@ -164,38 +267,258 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
         attention_mask=fused_mask,
         cache=cache,
     )
+    logits = decoder.logits(hidden, num_labels=1)[:, :, 0]
     return DecodeState(
-        t=t0, tokens=tokens, pattern=pattern,
+        t=t0, position=torch.tensor(t0, device=device), tokens=tokens, pattern=pattern,
         finished=torch.zeros((b, decoder.cfg.num_codebooks), dtype=torch.bool, device=device),
-        cache=cache, logits=decoder.logits(hidden, num_labels=1)[:, :, 0],
-        fused_mask=fused_mask, enc_mask=enc_mask,
-        params=decoder.decode_params(gen.int8_weights), use_cfg=use_cfg,
+        cache=cache, logits=logits, fused_mask=fused_mask, enc_mask=enc_mask,
+        params=decoder.decode_params(gen.int8_weights), use_cfg=use_cfg, limits=plan.limits, p_len=plan.p_len,
+        draw=torch.empty((b, *logits.shape[1:]), dtype=torch.float32, device=device) if gen.do_sample else None,
     )
+
+
+def _advance(model: ParlerTTSModel, gen: GenerationConfig, s: DecodeState, *, t_hi: int, read_len: int,
+             injected: bool) -> None:
+    """One masked step, in place: sample position ``s.position`` from
+    ``s.logits`` (with ``s.draw``: Gumbel noise when ``injected``, else
+    uniform draws), write it, run one cached decoder step on it over the
+    cache's first ``read_len`` positions, and keep the new position, token,
+    ``finished`` and logits only where ``position < t_hi`` and some stream
+    is unfinished (JAX ``make_segment_body``).  Reads nothing on the host:
+    the segment loop replays it from a CUDA graph.  Positions are clamped
+    to the token buffer, so a step at ``t = max_length`` (a warm-up or
+    capture run over stale buffers) writes inside it."""
+    b, max_length = s.tokens.shape[0], s.tokens.shape[2]
+    t = s.position
+    keep = (t < t_hi) & ~s.finished.all()
+    logits = s.logits
+    if s.use_cfg:
+        logits = sampling.apply_cfg(logits[:b], logits[b:], gen.guidance_scale)
+    logits = sampling.process_logits(logits, gen)
+    noise = None
+    if gen.do_sample:
+        noise = s.draw if injected else sampling.gumbel_of(s.draw)
+    sampled = sampling.select_tokens(logits, gen, noise=noise).to(torch.int32)
+    sampled = sampled.masked_fill(s.finished, gen.pad_token_id)
+    finished = s.finished | (sampled == gen.eos_token_id)
+    col = t.clamp(max=max_length - 1).view(1)
+    forced = s.tokens.index_select(2, col)
+    token_t = torch.where(s.pattern.index_select(2, col) == -1, sampled[:, :, None], forced)
+    decoder = model.decoder
+    hidden = decoder.step(_rows(token_t, s.use_cfg), s.cache, col + s.p_len, read_len, params=s.params,
+                          attention_mask=s.fused_mask, encoder_attention_mask=s.enc_mask)
+    new_logits = decoder.logits(hidden, num_labels=1, heads=s.params.lm_heads)[:, :, 0]
+    s.tokens.index_copy_(2, col, torch.where(keep, token_t, forced))
+    s.finished.copy_(torch.where(keep, finished, s.finished))
+    s.logits.copy_(torch.where(keep, new_logits, s.logits))
+    s.position.copy_(t + keep.to(t.dtype))
+
+
+def _draw(gen: GenerationConfig, s: DecodeState, generator: torch.Generator | None, noise: NoiseFn | None,
+          t: int) -> None:
+    """Fill ``s.draw`` for the step at position ``t``: ``noise(t)``, or one
+    ``uniform_`` from ``generator`` (``torch.rand``'s draws)."""
+    if not gen.do_sample:
+        return
+    if noise is not None:
+        s.draw.copy_(noise(t))
+    elif generator is None:
+        raise ValueError("sampling needs a torch.Generator or injected noise")
+    else:
+        s.draw.uniform_(generator=generator)
+
+
+def _read_len(s: DecodeState) -> int:
+    """The KV-read bucket of the step at ``s.t``."""
+    return next(size for size in s.limits if size > s.p_len + s.t)
 
 
 @torch.no_grad()
 def decode_step(model: ParlerTTSModel, gen: GenerationConfig, s: DecodeState, *,
                 generator: torch.Generator | None = None, noise: NoiseFn | None = None) -> None:
     """Sample position ``s.t`` from ``s.logits``, write it, run one cached
-    decoder step on it and advance ``s`` in place.  ``generate`` and
-    ``stream_generate`` both loop over this function."""
-    b = s.tokens.shape[0]
-    logits = s.logits
-    if s.use_cfg:
-        logits = sampling.apply_cfg(logits[:b], logits[b:], gen.guidance_scale)
-    logits = sampling.process_logits(logits, gen)
-    sampled = sampling.select_tokens(
-        logits, gen, generator=generator, noise=None if noise is None else noise(s.t)
-    ).to(torch.int32)
-    sampled = sampled.masked_fill(s.finished, gen.pad_token_id)
-    s.finished = s.finished | (sampled == gen.eos_token_id)
-    token_t = torch.where(s.pattern[:, :, s.t] == -1, sampled, s.tokens[:, :, s.t])
-    s.tokens[:, :, s.t] = token_t
-    decoder = model.decoder
-    hidden = decoder.decode_step(_rows(token_t[:, :, None], s.use_cfg), s.cache, attention_mask=s.fused_mask,
-                                 encoder_attention_mask=s.enc_mask, params=s.params)
-    s.logits = decoder.logits(hidden, num_labels=1, heads=s.params.lm_heads)[:, :, 0]
+    decoder step on it and advance ``s`` in place: the segment loop's step,
+    eager, over its KV-read bucket, so both loops read the same lengths.
+    Call it while ``not s.done``.  ``stream_generate`` and the split
+    models' loop run on this function."""
+    _draw(gen, s, generator, noise, s.t)
+    _advance(model, gen, s, t_hi=s.tokens.shape[2], read_len=_read_len(s), injected=noise is not None)
     s.t += 1
+
+
+#: runs ``n`` steps of one bucket: (bucket's fused length, its t_hi, n)
+Segment = Callable[[int, int, int], None]
+
+
+def _decode(s: DecodeState, max_length: int, segment: Segment) -> int:
+    """The loop nest over the buckets and their segments; returns the
+    position the loop stopped at (JAX ``generate_tokens``' ``final.t``).
+    The host reads ``all(finished)`` once per segment."""
+    for size in s.limits:
+        t_hi = min(max_length, size - s.p_len)
+        while s.t < t_hi:
+            n = min(STAGE, t_hi - s.t)
+            segment(size, t_hi, n)
+            if bool(s.finished.all()):
+                s.t = int(s.position)
+                return s.t
+            s.t += n
+    return s.t
+
+
+def _eager_segment(model, gen, s: DecodeState, generator, noise) -> Segment:
+    def run(size: int, t_hi: int, n: int) -> None:
+        for i in range(n):
+            _draw(gen, s, generator, noise, s.t + i)
+            _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=noise is not None)
+    return run
+
+
+class _Captured:
+    """One signature's static decode state and its captured steps, one
+    graph per KV-read bucket (keyed by the bucket's fused length), sharing
+    one memory pool."""
+
+    def __init__(self, state: DecodeState):
+        self.state = state
+        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.pool = torch.cuda.graph_pool_handle()
+        self.nbytes = state.cache.nbytes + sum(
+            x.numel() * x.element_size() for x in (state.position, state.tokens, state.pattern, state.finished,
+                                                   state.logits, state.fused_mask, state.enc_mask, state.draw)
+            if x is not None)
+
+
+class _DecodeGraphs:
+    """The captured decode steps of one model, kept on it (so they die with
+    it): the decode views by ``int8_weights`` and dtype (shared by every
+    signature, refreshed from the weights at each call) and the signatures'
+    static state in least-recently-used order, their bytes bounded by
+    ``GRAPH_MEMORY_SHARE`` of the card's memory (the newest is kept even
+    alone over it).  One generation at a time runs on them.  A copied
+    model captures its own."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.views: dict[tuple, DecodeParams] = {}
+        self.sets: collections.OrderedDict[tuple, _Captured] = collections.OrderedDict()
+
+    def __deepcopy__(self, memo) -> "_DecodeGraphs":
+        return _DecodeGraphs()
+
+    def make_room(self, nbytes: int, device: torch.device) -> None:
+        budget = GRAPH_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
+        while self.sets and sum(c.nbytes for c in self.sets.values()) + nbytes > budget:
+            self.sets.popitem(last=False)
+
+
+def _graphs_of(model: ParlerTTSModel) -> _DecodeGraphs:
+    graphs = model.__dict__.get("_decode_graphs")
+    return graphs if graphs is not None else model.__dict__.setdefault("_decode_graphs", _DecodeGraphs())
+
+
+def _clone_view(p: DecodeParams) -> DecodeParams:
+    def clone(w: DenseWeight) -> DenseWeight:
+        return DenseWeight(w.kernel.clone(), None if w.scale is None else w.scale.clone())
+
+    return DecodeParams([DecodeLayer(*map(clone, layer)) for layer in p.layers], clone(p.lm_heads))
+
+
+def _view_tensors(p: DecodeParams) -> list[torch.Tensor]:
+    weights = [w for layer in p.layers for w in layer] + [p.lm_heads]
+    return [x for w in weights for x in (w.kernel, w.scale) if x is not None]
+
+
+def _capture(model, gen, s: DecodeState, pool, *, size: int, t_hi: int, injected: bool) -> torch.cuda.CUDAGraph:
+    """One warm-up step (library set-up stays out of the capture), then the
+    step captured, both on the capture's own stream: the libraries' per-stream
+    workspaces are then made once, not once per warm-up stream.  Both run
+    over the static buffers before the prefill fills them, so the prefill
+    overwrites what they wrote."""
+    global CAPTURES, CAPTURE_SECONDS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    capture = torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")
+    side = capture.capture_stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected)
+    torch.cuda.current_stream().wait_stream(side)
+    with capture:
+        _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected)
+    torch.cuda.synchronize()
+    CAPTURES += 1
+    CAPTURE_SECONDS += time.perf_counter() - t0
+    return graph
+
+
+def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _DecodeGraphs, *, max_length: int,
+                         generator, noise, **inputs) -> tuple[DecodeState, Segment]:
+    """The static state of this call's signature (allocated and its
+    buckets' steps captured on first use), filled by an eager prefill, and
+    the segment that replays its graphs."""
+    decoder = model.decoder
+    plan = _plan(model, gen, max_length, inputs["input_ids"], inputs["prompt_input_ids"],
+                 inputs["prompt_hidden_states"], inputs["decoder_input_codes"])
+    device = next(decoder.parameters()).device
+    key = (plan.rows, plan.p_len, plan.enc_len, max_length, decoder.dtype, gen, noise is not None,
+           tuple(p.data_ptr() for p in decoder.parameters()), decoder.positions.data_ptr())
+    # the decode view, refreshed from the weights at every call: a copy of
+    # its own, never the parameters a plain view shares
+    fresh = decoder.decode_params(gen.int8_weights)
+    view = graphs.views.get((gen.int8_weights, decoder.dtype))
+    if view is None:
+        view = graphs.views[(gen.int8_weights, decoder.dtype)] = _clone_view(fresh)
+    for dst, src in zip(_view_tensors(view), _view_tensors(fresh)):
+        dst.copy_(src)
+    del fresh
+    captured = graphs.sets.get(key)
+    if captured is None:
+        k, v = decoder.cfg.num_codebooks, decoder.cfg.vocab_size
+
+        def cache_on(where):
+            return init_cache(decoder.cfg, plan.rows, plan.p_len + max_length, plan.enc_len, dtype=decoder.dtype,
+                              device=where, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
+
+        graphs.make_room(cache_on(torch.device("meta")).nbytes, device)  # before the new cache is allocated
+        cache = cache_on(device)
+
+        def zeros(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        state = DecodeState(
+            t=0, position=zeros(dtype=torch.int64), tokens=zeros(plan.batch, k, max_length, dtype=torch.int32),
+            pattern=zeros(plan.batch, k, max_length, dtype=torch.int32),
+            finished=zeros(plan.batch, k, dtype=torch.bool), cache=cache,
+            logits=zeros(plan.rows, k, v, dtype=decoder.dtype),
+            fused_mask=zeros(plan.rows, plan.p_len + max_length, dtype=torch.int32),
+            enc_mask=zeros(plan.rows, plan.enc_len, dtype=torch.int64) if plan.enc_len else None,
+            params=view, use_cfg=plan.use_cfg, limits=[], p_len=plan.p_len,
+            draw=zeros(plan.batch, k, v, dtype=torch.float32) if gen.do_sample else None)
+        captured = graphs.sets[key] = _Captured(state)
+    graphs.sets.move_to_end(key)
+    s = captured.state
+    for size in plan.limits:
+        if size not in captured.graphs:
+            t_hi = min(max_length, size - plan.p_len)
+            captured.graphs[size] = _capture(model, gen, s, captured.pool, size=size, t_hi=t_hi,
+                                             injected=noise is not None)
+    f = prefill(model, gen, max_length=max_length, cache=s.cache, **inputs)
+    for name in ("position", "tokens", "pattern", "finished", "logits", "fused_mask", "enc_mask"):
+        if getattr(s, name) is not None:
+            getattr(s, name).copy_(getattr(f, name))
+    s.t, s.limits = f.t, f.limits
+
+    def replay(size: int, t_hi: int, n: int) -> None:
+        global REPLAYS
+        graph = captured.graphs[size]
+        for i in range(n):
+            _draw(gen, s, generator, noise, s.t + i)
+            graph.replay()
+        REPLAYS += n
+
+    return s, replay
 
 
 @torch.no_grad()
@@ -212,13 +535,26 @@ def generate_tokens(model: ParlerTTSModel, gen: GenerationConfig, *, max_length:
     ``prompt_input_ids`` None drops the prompt prefix, unless
     ``prompt_hidden_states`` (B, P, H) supplies it embedded.  Returns
     (delayed tokens (B, K, max_length) int32, the position the loop stopped
-    at)."""
-    s = prefill(model, gen, max_length=max_length, input_ids=input_ids, attention_mask=attention_mask,
-                prompt_input_ids=prompt_input_ids, prompt_attention_mask=prompt_attention_mask,
-                prompt_hidden_states=prompt_hidden_states, decoder_input_codes=decoder_input_codes)
-    while not s.done:
-        decode_step(model, gen, s, generator=generator, noise=noise)
-    return s.tokens, s.t
+    at).  The loop is the module docstring's: CUDA graphs on a CUDA model
+    without a model group, the same steps eagerly on the CPU, the per-step
+    loop on a split model."""
+    inputs = dict(input_ids=input_ids, attention_mask=attention_mask, prompt_input_ids=prompt_input_ids,
+                  prompt_attention_mask=prompt_attention_mask, prompt_hidden_states=prompt_hidden_states,
+                  decoder_input_codes=decoder_input_codes)
+    if model.decoder.model_group is not None:
+        s = prefill(model, gen, max_length=max_length, **inputs)
+        while not s.done:
+            decode_step(model, gen, s, generator=generator, noise=noise)
+        return s.tokens, s.t
+    if next(model.parameters()).device.type == "cuda":
+        graphs = _graphs_of(model)
+        with graphs.lock:
+            s, segment = _captured_generation(model, gen, graphs, max_length=max_length, generator=generator,
+                                              noise=noise, **inputs)
+            t = _decode(s, max_length, segment)
+            return s.tokens.clone(), t
+    s = prefill(model, gen, max_length=max_length, **inputs)
+    return s.tokens, _decode(s, max_length, _eager_segment(model, gen, s, generator, noise))
 
 
 def postprocess_tokens(tokens: torch.Tensor, cfg: ParlerTTSConfig) -> tuple[torch.Tensor, torch.Tensor]:

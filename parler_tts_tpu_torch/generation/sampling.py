@@ -3,9 +3,10 @@
 Port of ``parler_tts_tpu/generation/sampling.py``: classifier-free guidance,
 temperature, top-k, top-p, then argmax (greedy) or Gumbel-max sampling per
 ``(batch, codebook)`` row.  ``jax.random.categorical`` is
-``argmax(logits + gumbel)``; here the Gumbel noise comes from an explicit
-``torch.Generator`` or is passed in (``noise=``), which lets a test feed the
-noise the JAX package drew and get its tokens.
+``argmax(logits + gumbel)``; here the Gumbel noise is passed in
+(``noise=``): ``gumbel_of`` uniform draws from a ``torch.Generator``
+(``generation/generate.py`` draws them outside the captured step), or the
+noise the JAX package drew, which lets a test get its tokens.
 """
 
 from __future__ import annotations
@@ -58,23 +59,18 @@ def process_logits(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
     return logits
 
 
-def gumbel(shape, generator: torch.Generator, device: torch.device) -> torch.Tensor:
-    """Standard Gumbel noise ``-log(-log(u))``, u uniform in [tiny, 1)."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device).clamp_(min=tiny)
-    return -torch.log(-torch.log(u))
+def gumbel_of(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` of uniform draws ``u`` in [0,
+    1), clamped to [tiny, 1) first."""
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 
 def select_tokens(logits: torch.Tensor, gen: GenerationConfig, *,
-                  generator: torch.Generator | None = None,
                   noise: torch.Tensor | None = None) -> torch.Tensor:
     """logits (..., V) -> ids (...): argmax when greedy, else
-    ``argmax(logits.float() + g)`` with Gumbel noise ``g`` taken from
-    ``noise`` when given, else drawn from ``generator``."""
+    ``argmax(logits.float() + noise)`` with Gumbel ``noise``."""
     if not gen.do_sample:
         return torch.argmax(logits, dim=-1)
     if noise is None:
-        if generator is None:
-            raise ValueError("sampling needs a torch.Generator or injected noise")
-        noise = gumbel(logits.shape, generator, logits.device)
+        raise ValueError("sampling needs Gumbel noise")
     return torch.argmax(logits.float() + noise.to(logits.device), dim=-1)

@@ -15,8 +15,10 @@ them; the JAX design holds back no frames for it, and neither does this
 port.  Early windows
 vocode exactly the frames there are (no left padding: code 0 is not
 silence).
-PyTorch runs eagerly, so there is no counterpart of the JAX module's
-per-signature ``jax.jit`` factory.
+The stream keeps the per-step eager loop (``decode_step``, which reads the
+cache over ``generate``'s KV-read buckets, so its codes are ``generate``'s):
+it has no counterpart of the JAX module's per-signature ``jax.jit`` factory,
+nor of ``generate``'s captured steps.
 
 A model split over a model group streams on every model rank at once, with
 the same inputs and a generator seeded the same way: the collectives sit

@@ -28,12 +28,17 @@ recomputed layer replays its dropout masks.  Torch's random bits are not
 JAX's: masks agree in distribution, not value.
 
 The KV cache is not the JAX package's: its time-minor ``(L, B, H, D, T)``
-buffers, staged flushes and growing buckets exist for the TPU's tiling.
-Here the self K/V is one ``(L, B, H, T_max, D)`` pair allocated once at
-``prompt_len + max_length`` and written in place at ``index``.  With
-``kv_dtype="int8"`` every K/V row is stored as int8 with a per-position
-bf16 scale (JAX ``_store_kv``); the decode folds the scales out of both
-products and attends to its own position unquantized, as JAX does.
+buffers, staged flushes and physically grown buckets exist for the TPU's
+tiling.  Here the self K/V is one ``(L, B, H, T_max, D)`` pair allocated
+once at ``prompt_len + max_length`` and written in place.  A decode step
+(``ParlerDecoder.step``) takes its fused position as a device tensor and
+reads the cache over a static length, its KV-read bucket's, with the
+positions at or past its own masked, as JAX's bucket reads are: one step is
+then one set of shapes for a whole bucket, which a CUDA graph can capture.
+With ``kv_dtype="int8"`` every K/V row is stored as int8 with a
+per-position bf16 scale (JAX ``_store_kv``); the decode folds the scales
+out of both products and attends to its own position unquantized, as JAX
+does.
 
 Split over a model group (``parallel/mesh.shard_params``), every layer
 holds its rank's heads and FFN columns, the LM heads its rank's vocabulary,
@@ -96,7 +101,9 @@ class KVCache:
     ``cross_k``/``cross_v`` ``(L, B, H, S, D)`` are written once at prefill,
     or are None when the decoder runs without cross-attention.  In an int8
     cache the ``*_scale`` buffers ``(L, B, H, T)`` hold each row's bf16
-    scale; they are None otherwise."""
+    scale; they are None otherwise.  ``index`` is the prefill's length,
+    advanced by ``ParlerDecoder.decode_step``; ``ParlerDecoder.step`` takes
+    its position from the caller and leaves ``index`` alone."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
@@ -141,17 +148,25 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *,
                    scales(enc_len) if cross else None)
 
 
-def _put(buf: torch.Tensor, scales: torch.Tensor | None, layer: int, pos, values: torch.Tensor) -> None:
-    """Write K or V ``values`` ((B, H, t, D), or (B, H, D) for one position)
-    at positions ``pos`` of layer ``layer``: as they are, or int8 with bf16
-    scales (rounded to bf16 before they are stored, as JAX does) when the
-    cache is int8."""
-    if scales is None:
-        buf[layer, :, :, pos] = values
+def _put(buf: torch.Tensor, scales: torch.Tensor | None, layer: int, pos: slice | torch.Tensor,
+         values: torch.Tensor) -> None:
+    """Write K or V ``values`` (B, H, t, D) at positions ``pos`` of layer
+    ``layer``: a slice (the prefill), or a (1,) index tensor on the device (a
+    decode step, written by ``index_copy_``).  As they are, or int8 with
+    bf16 scales (rounded to bf16 before they are stored, as JAX does) when
+    the cache is int8."""
+    s = None
+    if scales is not None:
+        values, s = quantize_kv(values)
+        s = s.to(scales.dtype)
+    if isinstance(pos, torch.Tensor):
+        buf[layer].index_copy_(2, pos, values)
+        if s is not None:
+            scales[layer].index_copy_(2, pos, s)
         return
-    q, s = quantize_kv(values)
-    buf[layer, :, :, pos] = q
-    scales[layer, :, :, pos] = s.to(scales.dtype)
+    buf[layer, :, :, pos] = values
+    if s is not None:
+        scales[layer, :, :, pos] = s
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
@@ -287,25 +302,27 @@ class DecoderLayer(nn.Module):
             x = x + dropout(tp.reduce(ca.o(merge_heads(out)), group), self.dropout, gen)
         return self._ffn(x, gen, split_gen), (k, v), cross_kv
 
-    def forward_decode(self, x, cache: KVCache, layer: int, kv_mask, enc_mask, p: DecodeLayer):
-        """One cached token at ``cache.index`` with the decode weights ``p``.
-        An unquantized cache is written first and read over ``[0, index]``;
-        an int8 cache is read over ``[0, index)`` with the new position
-        attended unquantized, then written."""
-        i, n = cache.index, self.self_attn.num_heads
+    def forward_decode(self, x, cache: KVCache, layer: int, position: torch.Tensor, kv_mask, enc_mask,
+                       p: DecodeLayer):
+        """One cached token at fused ``position`` ((1,) on the device) with
+        the decode weights ``p``, reading the self K/V over ``kv_mask``'s
+        static length (B, R).  An unquantized cache is written first and read
+        with ``kv_mask`` covering ``[0, position]``; an int8 cache is read
+        with it covering ``[0, position)``, the new position attended
+        unquantized, then written."""
+        n, r = self.self_attn.num_heads, kv_mask.shape[1]
         q, k, v = (split_heads(t, n) for t in p.qkv(self.ln_self(x)).chunk(3, dim=-1))
         q = q * self.self_attn.scale
         if cache.self_k_scale is None:
-            _put(cache.self_k, None, layer, i, k[:, :, 0])
-            _put(cache.self_v, None, layer, i, v[:, :, 0])
-            out = _attend(q, cache.self_k[layer, :, :, : i + 1], cache.self_v[layer, :, :, : i + 1],
-                          kv_mask[:, : i + 1])
+            _put(cache.self_k, None, layer, position, k)
+            _put(cache.self_v, None, layer, position, v)
+            out = _attend(q, cache.self_k[layer, :, :, :r], cache.self_v[layer, :, :, :r], kv_mask)
         else:
-            out = _attend(q, cache.self_k[layer, :, :, :i], cache.self_v[layer, :, :, :i], kv_mask[:, :i],
-                          k_scale=cache.self_k_scale[layer, :, :, :i], v_scale=cache.self_v_scale[layer, :, :, :i],
+            out = _attend(q, cache.self_k[layer, :, :, :r], cache.self_v[layer, :, :, :r], kv_mask,
+                          k_scale=cache.self_k_scale[layer, :, :, :r], v_scale=cache.self_v_scale[layer, :, :, :r],
                           current=(k, v))
-            _put(cache.self_k, cache.self_k_scale, layer, i, k[:, :, 0])
-            _put(cache.self_v, cache.self_v_scale, layer, i, v[:, :, 0])
+            _put(cache.self_k, cache.self_k_scale, layer, position, k)
+            _put(cache.self_v, cache.self_v_scale, layer, position, v)
         group = self.model_group
         x = x + tp.reduce(p.o(merge_heads(out)), group)
 
@@ -355,12 +372,13 @@ class ParlerDecoder(nn.Module):
         offsets = (torch.arange(k, device=ids.device, dtype=ids.dtype) * v1)[None, :, None]
         return F.embedding(ids + offsets, tables.reshape(k * v1, h)).sum(dim=1)
 
+    def check_positions(self, end: int) -> None:
+        """Raise unless fused positions ``[0, end)`` have embeddings."""
+        if end > self.positions.shape[0]:
+            raise ValueError(f"positions up to {end} exceed max_position_embeddings={self.positions.shape[0]}")
+
     def _positions(self, start: int, length: int, dtype: torch.dtype | None = None) -> torch.Tensor:
-        if start + length > self.positions.shape[0]:
-            raise ValueError(
-                f"positions [{start}, {start + length}) exceed max_position_embeddings="
-                f"{self.positions.shape[0]}"
-            )
+        self.check_positions(start + length)
         return self.positions[start : start + length].to(dtype or self.dtype)
 
     def forward(self, input_ids: torch.Tensor, *, encoder_hidden_states: torch.Tensor | None = None,
@@ -449,19 +467,42 @@ class ParlerDecoder(nn.Module):
         return DecodeParams([layer.decode_weights(int8) for layer in self.layers],
                             DenseWeight.of(self.lm_heads.kernel, int8))
 
+    def step(self, input_ids: torch.Tensor, cache: KVCache, position: torch.Tensor, read_len: int, *,
+             params: DecodeParams, attention_mask: torch.Tensor,
+             encoder_attention_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """One cached step with the decode view ``params``: ``input_ids`` (B,
+        K, 1) at fused ``position``, a 0-d integer tensor on the decoder's
+        device below ``read_len`` and below ``max_position_embeddings`` (the
+        caller checks both on the host, once).  The self K/V is read over the
+        static ``[0, read_len)`` with the positions past ``position`` masked
+        (and ``position`` itself in an int8 cache, which attends it
+        unquantized), so every position of a KV-read bucket runs the same
+        shapes and nothing here reads the device from the host.
+        ``attention_mask`` (B, >= read_len) is the fused mask.
+        Cross-attention runs when the cache holds cross K/V.  Writes K/V at
+        ``position`` and returns (B, 1, H); ``cache.index`` is left as it
+        is."""
+        position = position.view(1)
+        x = self.embed_codebooks(input_ids) + self.positions.index_select(0, position).to(self.dtype)[None]
+        keys = torch.arange(read_len, device=position.device)
+        seen = keys < position if cache.self_k_scale is not None else keys <= position
+        kv_mask = attention_mask[:, :read_len].bool() & seen
+        for layer_idx, (layer, p) in enumerate(zip(self.layers, params.layers)):
+            x = layer.forward_decode(x, cache, layer_idx, position, kv_mask, encoder_attention_mask, p)
+        return self.final_ln(x)
+
     def decode_step(self, input_ids: torch.Tensor, cache: KVCache, *, params: DecodeParams,
                     attention_mask: torch.Tensor,
                     encoder_attention_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """One cached step with the decode view ``params``: ``input_ids``
-        (B, K, 1) at fused position ``cache.index``; ``attention_mask``
-        (B, >= index+1) is the fused mask.  Cross-attention runs when the
-        cache holds cross K/V.  Returns (B, 1, H) and advances the cache
-        index."""
-        x = self.embed_codebooks(input_ids) + self._positions(cache.index, 1)[None]
-        for layer_idx, (layer, p) in enumerate(zip(self.layers, params.layers)):
-            x = layer.forward_decode(x, cache, layer_idx, attention_mask, encoder_attention_mask, p)
+        """``step`` at fused position ``cache.index``, read over ``[0,
+        index]``: ``attention_mask`` (B, >= index+1) is the fused mask.
+        Returns (B, 1, H) and advances the cache index."""
+        self.check_positions(cache.index + 1)
+        position = torch.tensor(cache.index, device=input_ids.device)
+        hidden = self.step(input_ids, cache, position, cache.index + 1, params=params,
+                           attention_mask=attention_mask, encoder_attention_mask=encoder_attention_mask)
         cache.index += 1
-        return self.final_ln(x)
+        return hidden
 
     def logits(self, hidden: torch.Tensor, num_labels: int | None = None,
                heads: DenseWeight | None = None) -> torch.Tensor:

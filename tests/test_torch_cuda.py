@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the decode loop captured in CUDA graphs against the per-step eager loop.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 file imports no JAX, so it also runs on a machine with the card and without
@@ -256,3 +257,118 @@ def test_tile_check_rejects_a_skipped_tile(cuda, monkeypatch, tmp_path, name):
     print(f"{name} with a skipped tile: max_abs_err {max_err} (tol {max_tol}), "
           f"max_tile_rel_err {tile_err} (tol {TILE_TOL[torch.bfloat16]}){note}")
     assert tile_err > TILE_TOL[torch.bfloat16]
+
+
+# --- the captured decode loop ------------------------------------------------------------------
+
+DECODE_LENGTH = 300  # + 9 prompt positions: the ladder has two buckets at 2 rows, three at 6
+
+
+def _decode_model(dtype):
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.models import parler as pparler
+
+    cfg = pcfg.dummy_config()
+    model = pparler.init(0, cfg, device="cuda", dtype=dtype)
+    with torch.no_grad():  # no special id but EOS: the samples run long, EOS still ends streams
+        model.decoder.lm_heads.kernel[..., cfg.audio_encoder.codebook_size + 1:] = 0
+    return model
+
+
+def _decode_inputs(b: int) -> dict:
+    g = torch.Generator().manual_seed(3)
+    inputs = dict(input_ids=torch.randint(3, 1000, (b, 11), generator=g),
+                  attention_mask=torch.ones((b, 11), dtype=torch.int32),
+                  prompt_input_ids=torch.randint(3, 1000, (b, 9), generator=g),
+                  prompt_attention_mask=torch.ones((b, 9), dtype=torch.int32))
+    inputs["attention_mask"][1, 7:] = 0
+    inputs["prompt_attention_mask"][0, :3] = 0
+    return {k: v.cuda() for k, v in inputs.items()}
+
+
+def _eager_loop(model, gen, inputs, seed):
+    """The per-step eager loop (streaming's and split models')."""
+    from parler_tts_tpu_torch.generation import generate as pgen
+
+    s = pgen.prefill(model, gen, max_length=gen.max_length, **inputs)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    while not s.done:
+        pgen.decode_step(model, gen, s, generator=generator)
+    return s.tokens, s.t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,kw", [
+    (torch.float32, 2, dict(do_sample=False)),
+    (torch.bfloat16, 2, dict(do_sample=False)),
+    (torch.bfloat16, 3, dict(do_sample=False, guidance_scale=3.0, kv_cache_dtype="int8", int8_weights=True)),
+    (torch.bfloat16, 3, dict(do_sample=True, top_k=50, guidance_scale=3.0)),
+], ids=["greedy_fp32", "greedy_bf16", "int8_cfg", "cfg_topk_sampled"])
+def test_captured_decode_loop_equals_the_eager_loop(cuda, dtype, b, kw):
+    """On a CUDA model the decode loop replays captured steps, bucket by
+    bucket; its tokens and stop are the per-step eager loop's, bit for bit
+    (both run the same kernels at the same shapes; sampling draws the same
+    numbers from the same seed).  A second call replays without capturing."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.generation import generate as pgen
+
+    model = _decode_model(dtype)
+    gen = pcfg.GenerationConfig(max_length=DECODE_LENGTH, **kw)
+    inputs = _decode_inputs(b)
+    replays, captures = pgen.REPLAYS, pgen.CAPTURES
+    tokens, t = pgen.generate_tokens(model, gen, max_length=gen.max_length,
+                                     generator=torch.Generator(device="cuda").manual_seed(5), **inputs)
+    buckets = pgen.CAPTURES - captures
+    rows = 2 * b if gen.guidance_scale > 1 else b
+    assert buckets == len(pgen._kv_read_limits(10, 9 + DECODE_LENGTH, 8, batch_rows=rows)) >= 2
+    assert pgen.REPLAYS - replays >= t - 1
+    ref, ref_t = _eager_loop(model, gen, inputs, seed=5)
+    assert t == ref_t
+    assert torch.equal(tokens, ref)
+    again, _ = pgen.generate_tokens(model, gen, max_length=gen.max_length,
+                                    generator=torch.Generator(device="cuda").manual_seed(5), **inputs)
+    assert pgen.CAPTURES - captures == buckets and torch.equal(again, tokens)
+
+
+@pytest.mark.cuda
+def test_captured_loop_reads_weights_changed_between_calls(cuda):
+    """The graphs keep a static decode view refreshed at every call: a
+    weight changed in place between two calls changes the tokens, to the
+    eager loop's with the new weights."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.generation import generate as pgen
+
+    model = _decode_model(torch.float32)
+    gen = pcfg.GenerationConfig(max_length=60, do_sample=False)
+    inputs = _decode_inputs(2)
+    first, _ = pgen.generate_tokens(model, gen, max_length=60, **inputs)
+    with torch.no_grad():
+        model.decoder.layers[0].fc1.kernel.mul_(-1.5)
+        model.decoder.layers[1].self_attn.q.kernel.mul_(2.0)
+    captures = pgen.CAPTURES
+    second, _ = pgen.generate_tokens(model, gen, max_length=60, **inputs)
+    assert pgen.CAPTURES == captures  # the same signature: replayed, not captured again
+    assert not torch.equal(first, second)
+    assert torch.equal(second, _eager_loop(model, gen, inputs, seed=0)[0])
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """No fallback to the eager loop: a step that reads the device on the
+    host cannot be captured, and generation raises."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.generation import generate as pgen
+    from parler_tts_tpu_torch.generation import sampling
+
+    model = _decode_model(torch.float32)
+    real = sampling.process_logits
+
+    def syncing(logits, gen):
+        float(logits.sum())  # a host read: not permitted while a stream is captured
+        return real(logits, gen)
+
+    monkeypatch.setattr(sampling, "process_logits", syncing)
+    gen = pcfg.GenerationConfig(max_length=40, do_sample=False)
+    with pytest.raises(RuntimeError):
+        pgen.generate_tokens(model, gen, max_length=40, **_decode_inputs(2))
+    torch.cuda.synchronize()
