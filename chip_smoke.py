@@ -38,17 +38,25 @@ Phases, in order; any failure exits non-zero before the result line:
    synchronised and timed, and a short call under torch.profiler for the
    device's busy time.  On the same model, each path with the counts set
    to 0 just before it and read just after, K1 once per layer per prefill
-   and held against its plain version on each prefill's own tensors:
-   decoder-only continuation of two DAC-encoded 2 s waveforms and composite
-   ``generate(input_values=...)`` (batch 2, CFG 3.0); the int8 KV cache and
-   int8 weights beside bf16 (decode ms/step, KV bytes, first-step logits);
+   and held against its plain version on each prefill's own tensors (a
+   replayed prefill adds the K1 launches its graph holds, and its K1 is
+   held on an eager prefill of the same inputs, which the replay equals
+   bit for bit): decoder-only continuation of two DAC-encoded 2 s waveforms
+   and composite ``generate(input_values=...)`` (batch 2, CFG 3.0); the
+   int8 KV cache and int8 weights beside bf16 (decode ms/step, KV bytes,
+   first-step logits);
    the decode loop replayed from CUDA graphs against the per-step eager
    loop (``decode_graph``: greedy fp32 and bf16, int8 weights and KV, CFG
    3.0 with top-k 50 sampled; the same tokens, ms/step both ways, launches
-   per step, capture seconds, peak memory; a ``tts`` call that replays);
-   ``stream_generate`` (batch 4, 2.5 s, chunks of 86, lookback 48: codes
-   equal ``generate``'s, each fp32 chunk a one-shot vocode of the frames so
-   far); ``BatchingEngine`` (warmup of the burst's batch buckets, a burst
+   per step, capture seconds, peak memory; a ``tts`` call that replays; the
+   captured prefill against the eager ``prefill`` at T = 17, 65 and 257,
+   int8, CFG 3.0, decoder-only and audio-prompted: the state bit for bit,
+   ms both ways, capture seconds); ``stream_generate`` on the captured
+   programs (no ``decode_step``) and on the per-step eager loop (batch 4,
+   2.5 s, chunks of 86, lookback 48: the codes of both and ``generate``'s
+   equal, first chunk and wall both ways, each chunk's vocode ms and the
+   device's busy share of one, each fp32 chunk a one-shot vocode of the
+   frames so far); ``BatchingEngine`` (warmup of the burst's batch buckets, a burst
    of 6 requests from threads, each batch replayed as a direct ``tts``);
    the demo server ``helpers/gradio_demo/app_torch.py`` over an engine on
    a ``pcm16`` pipeline, bound to 127.0.0.1:0 (a burst of 6 ``POST /api``
@@ -960,38 +968,70 @@ def run_codec_encode(codec_cfg, label: str, codec_mod, data_mod, card: str) -> N
         raise AssertionError(f"the {label} encode side gives wrong shapes or codes that are not the CPU's")
 
 
+REPLAYED = " (replayed prefill, run eagerly)"  # KernelSpy's place suffix for a replay's eager prefill
+
+
 class KernelSpy:
     """While active, the first call of each wrapped kernel wrapper (by
     name, in ``fa``) at each (place, input shapes, dtype) keeps its inputs
     and outputs; the calls and their launch counts are the wrappers' own.
     The caller sets ``place`` to name where the calls come from.  ``hold``
-    then checks every kept call against its plain version (no launch)."""
+    then checks every kept call against its plain version (no launch).
+    A call made while a stream is captured keeps nothing (its tensors are
+    placeholders, and a clone would go into the graph).  A prefill replayed
+    from its graph runs K1 out of reach: the first replay of each model and
+    input shape is noted, and ``hold`` runs an eager ``prefill`` on its
+    inputs, whose K1 calls are kept under the place's name + " (replayed
+    prefill, run eagerly)" (the replay and the eager prefill agree bit for
+    bit: the ``decode_graph`` phase's prefill cases)."""
 
     def __init__(self, fa, names=("flash_attention_fwd",), place: str = ""):
-        self.fa, self.place, self.captured = fa, place, {}
+        from parler_tts_tpu_torch.generation import generate as generate_mod
+
+        self.fa, self.place, self.captured, self.replayed = fa, place, {}, {}
         self.wrappers = {name: getattr(fa, name) for name in names}
+        self.generate_mod, self.real_prefill = generate_mod, generate_mod._captured_prefill
 
     def __enter__(self) -> "KernelSpy":
         for name, wrapper in self.wrappers.items():
             setattr(self.fa, name, self._spy(name, wrapper))
+        self.generate_mod._captured_prefill = self._prefill
         return self
 
     def __exit__(self, *exc) -> None:
         for name, wrapper in self.wrappers.items():
             setattr(self.fa, name, wrapper)
+        self.generate_mod._captured_prefill = self.real_prefill
 
     def _spy(self, name, wrapper):
         def call(*args, **kw):
             result = wrapper(*args, **kw)
+            if torch.cuda.is_current_stream_capturing():
+                return result
             key = (self.place, name, tuple(tuple(a.shape) for a in args[:3]), args[0].dtype)
             if key not in self.captured:
                 self.captured[key] = ([a.detach().clone() for a in args], kw, [r.detach().clone() for r in result])
             return result
         return call
 
+    def _prefill(self, model, gen, captured, plan, *, max_length, **inputs):
+        shapes = self.generate_mod._input_shapes(inputs)
+        key = (id(model), gen, max_length, shapes)
+        if shapes in captured.prefills and key not in self.replayed:
+            self.replayed[key] = (self.place, model, gen, max_length,
+                                  {k: None if v is None else v.clone() for k, v in inputs.items()})
+        return self.real_prefill(model, gen, captured, plan, max_length=max_length, **inputs)
+
     def hold(self, kind: str) -> dict[str, float]:
         """Every kept call against its plain version (``check_k1``,
-        ``check_bwd``); the largest error of each kernel."""
+        ``check_bwd``), after the eager prefills of the noted replays; the
+        largest error of each kernel."""
+        place = self.place
+        with self:
+            for where, model, gen, max_length, inputs in self.replayed.values():
+                self.place = where + REPLAYED
+                self.generate_mod.prefill(model, gen, max_length=max_length, **inputs)
+        self.place, self.replayed = place, {}
         errs = {name: 0.0 for name in self.wrappers}
         for (place, name, shapes, dtype), (args, kw, result) in self.captured.items():
             meta = {"kind": f"{kind} {place}".strip(), "shape": list(shapes[0]), "tk": shapes[1][1], **kw,
@@ -1096,8 +1136,9 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
                             "bit_exact": True}]
           and first["steps"] == 4 and second["steps"] == 6
           # K1 and K4 of the train steps, K1 of the eval loss batches and of the generation prefill
-          and {(place, name) for place, name, _ in held} == {("train step", "flash_attention_fwd"), (
-              "train step", "flash_attention_dqkv"), ("eval", "flash_attention_fwd")}
+          and {(place.removesuffix(REPLAYED), name) for place, name, _ in held} == {
+              ("train step", "flash_attention_fwd"), ("train step", "flash_attention_dqkv"),
+              ("eval", "flash_attention_fwd")}
           and len({shape for place, _, shape in held if place == "eval"}) >= 2)
     if not ok:
         raise AssertionError("the training CLI's run on the card is not as it should be (see the train_cli line)")
@@ -1391,7 +1432,8 @@ def k1_row(fa, q, k, v, start, end, kw) -> dict:
 def counted(fa, layers: int, fn, *, place: str, calls=1):
     """``fn()`` with the kernel counts set to 0 just before it and read just
     after.  K1 must have launched once per layer per prefill (``calls``, or
-    ``calls()`` after ``fn``) and no backward kernel at all.  The first K1
+    ``calls()`` after ``fn``; a prefill replayed from its graph counts the
+    launches the graph holds) and no backward kernel at all.  The first K1
     call at each shape keeps its tensors, which are then held against the
     plain version.  Returns (fn's result, K1's launches, the spy, the
     largest error held)."""
@@ -1489,22 +1531,22 @@ def run_int8(cfg, model, pipe, fa, generate_mod, mel_mod, card: str) -> tuple[in
     layers = cfg.decoder.num_hidden_layers
     pipes = {"bf16": pipe, "int8": dataclasses.replace(pipe, gen=dataclasses.replace(
         pipe.gen, kv_cache_dtype="int8", int8_weights=True))}
-    caches, real_prefill = {}, generate_mod.prefill
+    caches, real_prefill = {}, generate_mod._captured_prefill
 
-    def keep_cache(*args, **kw):  # the cache the prefill writes: the signature's static one on the card
-        state = real_prefill(*args, **kw)
-        caches["int8" if state.cache.self_k.dtype == torch.int8 else "bf16"] = state.cache.nbytes
-        return state
+    def keep_cache(model, gen, captured, *args, **kw):  # the cache the prefill writes: the signature's static one
+        cache = captured.state.cache
+        caches["int8" if cache.self_k.dtype == torch.int8 else "bf16"] = cache.nbytes
+        return real_prefill(model, gen, captured, *args, **kw)
 
     timings, results = {"bf16": [], "int8": []}, {"bf16": [], "int8": []}
-    generate_mod.prefill = keep_cache
+    generate_mod._captured_prefill = keep_cache
     try:
         def calls():
             for name in ("bf16", "int8", "int8", "bf16"):
                 timings[name].append(time_phases(model, pipes[name], _prompts(50), 2.5, out=results[name]))
         _, launches, _, err = counted(fa, layers, calls, place="int8 and bf16 tts", calls=4)
     finally:
-        generate_mod.prefill = real_prefill
+        generate_mod._captured_prefill = real_prefill
     tensors = {key: torch.from_numpy(value).cuda() for key, value in pipe.tokenize(DESCRIPTIONS, _prompts(50)).items()}
     greedy = dataclasses.replace(pipe.gen, do_sample=False, max_length=pipe.max_length(2.5))
     logits = {}
@@ -1597,6 +1639,99 @@ def tie_gap(model, gen, tensors, seed: int, where, tokens) -> dict:
             "gap": abs(row[eager] - row[captured]).item(), "score_scale": row.abs().max().item()}
 
 
+PREFILL_TIMED_CALLS = 5  # prefills timed per case and way; the median is reported
+
+
+def state_difference(s, ref) -> list[str]:
+    """The parts of a captured prefill's static state that are not an eager
+    ``prefill``'s bit for bit: the cache's self K/V (and int8 scales) over
+    the prefill's positions, its cross K/V (and scales), the first logits,
+    tokens, pattern, masks, position, ``t`` and the cache index."""
+    t = ref.cache.index
+    bad = []
+    for name in ("self_k", "self_v", "self_k_scale", "self_v_scale"):
+        a, b = getattr(s.cache, name), getattr(ref.cache, name)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a[:, :, :, :t], b[:, :, :, :t])):
+            bad.append(name)
+    for name in ("cross_k", "cross_v", "cross_k_scale", "cross_v_scale"):
+        a, b = getattr(s.cache, name), getattr(ref.cache, name)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            bad.append(name)
+    for name in ("logits", "tokens", "pattern", "fused_mask"):
+        if not torch.equal(getattr(s, name), getattr(ref, name)):
+            bad.append(name)
+    if (s.enc_mask is None) != (ref.enc_mask is None) or (
+            s.enc_mask is not None and not torch.equal(s.enc_mask, ref.enc_mask.to(s.enc_mask.dtype))):
+        bad.append("enc_mask")
+    if not (s.t == ref.t == int(s.position) and s.cache.index == t and not bool(s.finished.any())):
+        bad.append("position")
+    return bad
+
+
+def prefill_cases(model, pipe, generate_mod) -> list[dict]:
+    """The captured prefill (T5, prompt, delay pattern, the decoder prefill
+    with K1, first logits) against an eager ``prefill`` on the same inputs,
+    at Mini bf16, 4 requests: greedy at prefill T = 17, 65 and 257, int8
+    weights and KV at 65, CFG 3.0 at 65, decoder-only (embedded prompts as
+    ``prompt_hidden_states``, no text, CFG 3.0) and audio-prompted (86
+    frames of codes after the BOS frame, T = 17 + 86).  Each: the static
+    state after a replay must be the eager prefill's bit for bit
+    (``state_difference``); the median of ``PREFILL_TIMED_CALLS`` replays
+    against as many eager prefills (both into an allocated cache, with the
+    decode view given); capture s where the shape was new."""
+    greedy = dataclasses.replace(pipe.gen, do_sample=False, max_length=pipe.max_length(2.5))
+    none = dict(prompt_hidden_states=None, decoder_input_codes=None)
+
+    def tensors(n_words):
+        ids = pipe.tokenize(DESCRIPTIONS, _prompts(n_words))
+        return {**none, **{key: torch.from_numpy(value).cuda() for key, value in ids.items()}}
+
+    short = tensors(10)
+    with torch.no_grad():
+        hidden = model.embed_prompts(short["prompt_input_ids"])
+    k = model.cfg.decoder.num_codebooks
+    codes = torch.randint(0, model.cfg.audio_encoder.codebook_size, (4, k, 86),
+                          generator=torch.Generator().manual_seed(SEED + 15)).cuda()
+    cfg3 = dataclasses.replace(greedy, guidance_scale=3.0)
+    cases = [("T17", greedy, short), ("T65", greedy, tensors(50)), ("T257", greedy, tensors(200)),
+             ("int8_T65", dataclasses.replace(greedy, kv_cache_dtype="int8", int8_weights=True), tensors(50)),
+             ("cfg3_T65", cfg3, tensors(50)),
+             ("decoder_only", cfg3, dict(input_ids=None, attention_mask=None, prompt_input_ids=None,
+                                         prompt_attention_mask=short["prompt_attention_mask"],
+                                         prompt_hidden_states=hidden, decoder_input_codes=codes[:, :, :0])),
+             ("audio_prompted", greedy, {**short, "decoder_input_codes": codes})]
+    graphs = generate_mod._graphs_of(model)
+    rows = []
+    for name, gen, inputs in cases:
+        frames = 0 if inputs["decoder_input_codes"] is None else inputs["decoder_input_codes"].shape[2]
+        max_length = gen.max_length + frames
+        plan = generate_mod._plan(model, gen, max_length, inputs["input_ids"], inputs["prompt_input_ids"],
+                                  inputs["prompt_hidden_states"], inputs["decoder_input_codes"])
+        captures, capture_s = generate_mod.PREFILL_CAPTURES, generate_mod.PREFILL_CAPTURE_SECONDS
+        with graphs.lock:
+            captured, _ = generate_mod._captured_generation(model, gen, graphs, max_length=max_length, generator=None,
+                                                            noise=None, **inputs)
+            new = generate_mod.PREFILL_CAPTURES - captures
+            s = captured.state
+            replay_ms = [1e3 * sync_time(lambda: generate_mod._captured_prefill(
+                model, gen, captured, plan, max_length=max_length, **inputs))[1] for _ in range(PREFILL_TIMED_CALLS)]
+            ref = generate_mod.prefill(model, gen, max_length=max_length, params=s.params, **inputs)
+            bad = state_difference(s, ref)
+            eager_ms = [1e3 * sync_time(lambda: generate_mod.prefill(
+                model, gen, max_length=max_length, cache=ref.cache, params=s.params, **inputs))[1]
+                for _ in range(PREFILL_TIMED_CALLS)]
+        del ref
+        row = {"case": name, "prefill_T": plan.p_len + plan.t0, "rows": plan.rows, "bit_exact": not bad,
+               "differing": bad, "captured_ms": sorted(replay_ms)[len(replay_ms) // 2],
+               "eager_ms": sorted(eager_ms)[len(eager_ms) // 2],
+               "capture_s": (generate_mod.PREFILL_CAPTURE_SECONDS - capture_s) / new if new else None,
+               "k1_launches_per_replay": captured.prefills[generate_mod._input_shapes(inputs)].k1_launches}
+        row["speedup"] = row["eager_ms"] / row["captured_ms"]
+        emit({"phase": "decode_graph_prefill", **row})
+        rows.append(row)
+    return rows
+
+
 def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int, float]:
     """The decode loop replayed from CUDA graphs (``generate_tokens`` on a
     CUDA model) against the per-step eager loop (``prefill`` then
@@ -1609,9 +1744,12 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
     Each: the stop positions, decode ms/step both ways (the captured loop's
     second call, by segment; the eager loop whole), capture seconds per
     graph, launches and device kernels per step under torch.profiler.  Then
-    one ``tts`` call must replay its steps (no eager ``decode_step``).  Peak
-    memory allocated and nvidia-smi's memory.used.  Returns K1's launches
-    and its largest error held."""
+    one ``tts`` call must replay its steps (no eager ``decode_step``), and
+    the captured prefill must write the eager prefill's state
+    (``prefill_cases``).  K1 once per layer per prefill run: eager, replayed,
+    or the warm-up that is a capturing call's prefill.  Peak memory
+    allocated and nvidia-smi's memory.used.  Returns K1's launches and its
+    largest error held."""
     layers = cfg.decoder.num_hidden_layers
     tensors = {key: torch.from_numpy(value).cuda() for key, value in pipe.tokenize(DESCRIPTIONS, _prompts(50)).items()}
     inputs = {"prompt_hidden_states": None, "decoder_input_codes": None, **tensors}
@@ -1625,11 +1763,15 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
                                                            max_length=greedy.max_length)),
     }
     torch.cuda.reset_peak_memory_stats()
-    prefills, real_prefill = [0], generate_mod.prefill
+    prefills, real_prefill, real_captured = [0], generate_mod.prefill, generate_mod._captured_prefill
 
     def counting_prefill(*args, **kw):
         prefills[0] += 1
         return real_prefill(*args, **kw)
+
+    def counting_captured(*args, **kw):  # a replay, or the warm-up that is the capturing call's prefill
+        prefills[0] += 1
+        return real_captured(*args, **kw)
 
     def seeded():
         return torch.Generator(device="cuda").manual_seed(SEED + 14)
@@ -1663,8 +1805,9 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
                                                  for _ in range(DECODE_PROFILE_STEPS)], DECODE_PROFILE_STEPS)
             graphs = generate_mod._graphs_of(m)
             with graphs.lock:
-                state, segment = generate_mod._captured_generation(m, gen, graphs, max_length=gen.max_length,
-                                                                   generator=seeded(), noise=None, **inputs)
+                instance, segment = generate_mod._captured_generation(m, gen, graphs, max_length=gen.max_length,
+                                                                      generator=seeded(), noise=None, **inputs)
+                state = instance.state
                 size = state.limits[0]
                 graph_prof = launch_profile(lambda: segment(size, min(gen.max_length, size - state.p_len),
                                                             DECODE_PROFILE_STEPS), DECODE_PROFILE_STEPS)
@@ -1702,14 +1845,15 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
         finally:
             generate_mod.decode_step = real_step
         return rows, {"replays": replays, "eager_decode_steps": eager_steps[0],
-                      "finite": all(bool(np.isfinite(w).all()) for w in wavs)}
+                      "finite": all(bool(np.isfinite(w).all()) for w in wavs)}, prefill_cases(
+            model, pipe, generate_mod)
 
-    generate_mod.prefill = counting_prefill
+    generate_mod.prefill, generate_mod._captured_prefill = counting_prefill, counting_captured
     try:
-        (rows, tts), launches, _, err = counted(fa, layers, cases_run, place="decode_graph",
-                                                calls=lambda: prefills[0])
+        (rows, tts, prefill_rows), launches, _, err = counted(fa, layers, cases_run, place="decode_graph",
+                                                              calls=lambda: prefills[0])
     finally:
-        generate_mod.prefill = real_prefill
+        generate_mod.prefill, generate_mod._captured_prefill = real_prefill, real_captured
     graphs = generate_mod._graphs_of(model)
     summary = {
         "config": "mini_600m_config, random weights (seed 0), 4 requests x 2.5 s, prefill T = 65", "card": card,
@@ -1724,24 +1868,64 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
         "memory_used_mib": subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
                                           capture_output=True, text=True, timeout=60).stdout.strip(),
         "k1_launches": launches, "k1_max_abs_err": err,
+        "prefill_cases": {r["case"]: {key: r[key] for key in ("bit_exact", "captured_ms", "eager_ms",
+                                                               "capture_s")} for r in prefill_rows},
     }
     del model32
     gc.collect()
     torch.cuda.empty_cache()
-    ok = all(r["ok"] for r in rows) and tts["replays"] > 0 and tts["eager_decode_steps"] == 0 and tts["finite"]
+    ok = (all(r["ok"] for r in rows) and tts["replays"] > 0 and tts["eager_decode_steps"] == 0 and tts["finite"]
+          and all(r["bit_exact"] for r in prefill_rows))
     emit({"phase": "decode_graph_summary", **summary, "ok": ok})
     if not ok:
-        raise AssertionError(f"the captured decode loop is not the eager loop's, or tts did not replay it: {rows}")
+        raise AssertionError(f"the captured decode loop or prefill is not the eager one's, or tts did not replay "
+                             f"it: {rows} {prefill_rows}")
     return launches, err
 
 
-def stream_run(model, streaming_mod, gen, ids) -> dict:
-    """One stream of 86-frame chunks with a lookback of 48, timed."""
+def stream_run(model, streaming_mod, gen, ids, vocode_ms: list | None = None) -> dict:
+    """One stream of 86-frame chunks with a lookback of 48, timed; with
+    ``vocode_ms`` each chunk's vocode is synchronised and timed into it."""
+    from parler_tts_tpu_torch.models import codec as codec_mod
+
+    chunks, first, real_decode = [], None, codec_mod.decode
+    if vocode_ms is not None:
+        def timed(*args, **kw):
+            audio, t = sync_time(lambda: real_decode(*args, **kw))
+            vocode_ms.append(1e3 * t)
+            return audio
+        codec_mod.decode = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for chunk in streaming_mod.stream_generate(model, gen, chunk_frames=86, lookback=48,
+                                                   generator=torch.Generator(device="cuda").manual_seed(SEED), **ids):
+            if first is None:
+                first = time.perf_counter() - t0
+            chunks.append(chunk)
+        wall = time.perf_counter() - t0
+    finally:
+        codec_mod.decode = real_decode
+    return {"chunks": chunks, "first_chunk_s": first, "wall_s": wall}
+
+
+def eager_stream_run(model, streaming_mod, generate_mod, gen, ids) -> dict:
+    """The same stream on the per-step eager loop (``prefill``, then
+    ``decode_step`` position by position, as a split model streams), its
+    chunks cut and vocoded by the stream's own ``_chunks``, timed."""
+    tensors = {key: torch.from_numpy(value).cuda() for key, value in ids.items()}
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
     chunks, first = [], None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for chunk in streaming_mod.stream_generate(model, gen, chunk_frames=86, lookback=48,
-                                               generator=torch.Generator(device="cuda").manual_seed(SEED), **ids):
+    s = generate_mod.prefill(model, gen, max_length=gen.max_length, **tensors)
+
+    def decode_to(end):
+        while s.t < end and not s.done:
+            generate_mod.decode_step(model, gen, s, generator=generator)
+
+    for chunk in streaming_mod._chunks(model, s, decode_to, max_length=gen.max_length, chunk_frames=86, lookback=48,
+                                       vocode=True, dev=torch.device("cuda")):
         if first is None:
             first = time.perf_counter() - t0
         chunks.append(chunk)
@@ -1780,28 +1964,57 @@ def stream_vs_one_shot(codec, chunks, mel_mod) -> tuple[float, float, float, dic
 
 def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card: str) -> tuple[int, float]:
     """``stream_generate`` at Mini, batch 4, 2.5 s, chunks of 86 frames,
-    lookback 48 (bf16, top-k 50, one generator seed): first-chunk latency,
-    wall, audio s per wall s; its codes must be ``generate``'s with the same
-    seed.  Then the same stream with an fp32 copy of the codec: each chunk
-    must equal a one-shot fp32 vocode of the frames ready so far within
-    1e-4; the difference from a one-shot vocode of the whole utterance (the
-    chunks lack right context) and the bf16 codec's differences are
-    reported, with the mel distance of the stream from that whole vocode
-    (the right context its chunks lack).  Returns K1's launches and its
-    largest error held."""
+    lookback 48 (bf16, top-k 50, one generator seed), on the captured
+    programs (the prefill replayed or captured, the bucket graphs replayed
+    chunk by chunk; no ``decode_step`` may run), then on the per-step eager
+    loop (``eager_stream_run``) with the same seed: first-chunk latency,
+    wall, audio s per wall s both ways, prefill replays and captures; the
+    codes of both and of ``generate`` with that seed must be equal bit for
+    bit.  Each chunk's vocode ms (synchronised), and the device's busy share
+    of one chunk's vocode under torch.profiler (the second chunk's window of
+    48 + 86 frames).  Then the captured stream with an fp32 copy of the
+    codec: each chunk must equal a one-shot fp32 vocode of the frames ready
+    so far within 1e-4; the difference from a one-shot vocode of the whole
+    utterance (the chunks lack right context) and the bf16 codec's
+    differences are reported, with the mel distance of the stream from that
+    whole vocode.  Returns K1's launches and its largest error held."""
+    from parler_tts_tpu_torch.models import codec as codec_mod
     from parler_tts_tpu_torch.models.delay_pattern import undelay_pattern
 
     layers, sr = cfg.decoder.num_hidden_layers, cfg.sampling_rate
     ids = pipe.tokenize(DESCRIPTIONS, _prompts(10))
     gen = dataclasses.replace(pipe.gen, max_length=pipe.max_length(2.5))
-    run, launches, _, err = counted(fa, layers, lambda: stream_run(model, streaming_mod, gen, ids), place="stream")
+    steps, real_step = [0], streaming_mod.decode_step
+
+    def counting_step(*args, **kw):
+        steps[0] += 1
+        return real_step(*args, **kw)
+
+    vocode_ms = []
+    replays, captures = generate_mod.PREFILL_REPLAYS, generate_mod.PREFILL_CAPTURES
+    streaming_mod.decode_step = counting_step
+    try:
+        (run, eager), launches, _, err = counted(
+            fa, layers, lambda: (stream_run(model, streaming_mod, gen, ids, vocode_ms),
+                                 eager_stream_run(model, streaming_mod, generate_mod, gen, ids)),
+            place="stream", calls=2)
+    finally:
+        streaming_mod.decode_step = real_step
+    replays, captures = generate_mod.PREFILL_REPLAYS - replays, generate_mod.PREFILL_CAPTURES - captures
     chunks = run["chunks"]
     codes = np.concatenate([c.codes for c in chunks], axis=2)
+    eager_codes = np.concatenate([c.codes for c in eager["chunks"]], axis=2)
     lengths = chunks[-1].valid_lengths
     out = generate_mod.generate(model, gen, generator=torch.Generator(device="cuda").manual_seed(SEED),
                                 vocode=False, **ids)
     offline = undelay_pattern(out.tokens[:, :, 1:]).cpu().numpy()[:, :, : codes.shape[2]]
     as_generate = bool(np.array_equal(codes, offline)) and np.array_equal(lengths, out.code_lengths.cpu().numpy())
+    as_eager = (np.array_equal(codes, eager_codes) and [c.frame_offset for c in chunks]
+                == [c.frame_offset for c in eager["chunks"]])
+    ready = chunks[1].frame_offset + chunks[1].codes.shape[2]
+    window = codes[:, :, max(0, ready - 48 - 86):ready]
+    window = torch.from_numpy(np.where(window >= cfg.audio_encoder.codebook_size, 0, window)).cuda()
+    vocode_profile = profile_call(lambda: codec_mod.decode(model.audio_encoder, window))
     bf16 = stream_vs_one_shot(model.audio_encoder, chunks, mel_mod)
     bf16_codec = model.audio_encoder
     model.audio_encoder = copy.deepcopy(bf16_codec).float()
@@ -1816,9 +2029,17 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card:
         "config": "mini_600m_config bf16, random weights (seed 0), 4 requests x 2.5 s", "card": card,
         "chunk_frames": 86, "lookback": 48, "chunks": len(chunks), "chunk_frames_emitted": [
             int(c.codes.shape[2]) for c in chunks], "first_chunk_s": run["first_chunk_s"], "wall_s": run["wall_s"],
-        "audio_s": audio_s, "audio_s_per_wall_s": audio_s / run["wall_s"], "k1_launches": launches,
-        "k1_max_abs_err": err,
-        "codes_equal_generate": as_generate, "fp32_codec_same_codes": bool(np.array_equal(codes, fp32_codes)),
+        "audio_s": audio_s, "audio_s_per_wall_s": audio_s / run["wall_s"],
+        "eager_first_chunk_s": eager["first_chunk_s"], "eager_wall_s": eager["wall_s"],
+        "eager_audio_s_per_wall_s": audio_s / eager["wall_s"], "prefill_replays": replays,
+        "prefill_captures": captures, "decode_steps_run_by_captured_stream": steps[0],
+        "chunk_vocode_ms": vocode_ms, "chunk_vocode_device_busy_ms": vocode_profile.get("device_busy_ms"),
+        "chunk_vocode_wall_ms_profiled": vocode_profile.get("wall_ms"),
+        "chunk_vocode_device_busy_share": vocode_profile.get("device_busy_share"),
+        "chunk_vocode_top_kernels_ms": vocode_profile.get("top_kernels_ms"),
+        "k1_launches": launches, "k1_max_abs_err": err,
+        "codes_equal_generate": as_generate, "codes_equal_eager_stream": bool(as_eager),
+        "fp32_codec_same_codes": bool(np.array_equal(codes, fp32_codes)),
         "fp32_max_abs_diff_vs_one_shot_so_far": fp32[0], "tol": 1e-4,
         "fp32_max_abs_diff_vs_one_shot_whole": fp32[1], "fp32_one_shot_peak": fp32[2],
         "bf16_max_abs_diff_vs_one_shot_so_far": bf16[0], "bf16_max_abs_diff_vs_one_shot_whole": bf16[1],
@@ -1827,11 +2048,12 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card:
         "fp32_wall_s": fp32_run["wall_s"],
     }
     # fp32: each chunk equal to the one-shot vocode of the frames so far, absolutely and relative to the peak
-    ok = (as_generate and summary["fp32_codec_same_codes"] and fp32[0] <= 1e-4 and fp32[0] <= 1e-4 * fp32[2]
-          and len(chunks) > 1)
+    ok = (as_generate and as_eager and steps[0] == 0 and replays + captures == 1
+          and summary["fp32_codec_same_codes"] and fp32[0] <= 1e-4 and fp32[0] <= 1e-4 * fp32[2] and len(chunks) > 1)
     emit({"phase": "stream", **summary, "ok": ok})
     if not ok:
-        raise AssertionError("the stream's codes are not generate's, or its fp32 audio is not a one-shot vocode's")
+        raise AssertionError("the captured stream's codes are not the eager stream's and generate's, it ran a "
+                             "decode_step, or its fp32 audio is not a one-shot vocode's")
     return launches, err
 
 
@@ -2587,7 +2809,7 @@ def timed_decode(generate_mod):
     loops: list[list[tuple[float, int]]] = []
     real = generate_mod._decode
 
-    def timed(s, max_length, segment):
+    def timed(s, end, segment):
         spans = []
         loops.append(spans)
 
@@ -2598,7 +2820,7 @@ def timed_decode(generate_mod):
             torch.cuda.synchronize()
             spans.append((1e3 * (time.perf_counter() - t0), n))
 
-        return real(s, max_length, run)
+        return real(s, end, run)
 
     generate_mod._decode = timed
     try:
@@ -2608,18 +2830,24 @@ def timed_decode(generate_mod):
 
 
 def time_phases(model, pipe, prompts, max_seconds, out: list | None = None) -> dict:
-    """One more tts call with each phase synchronised and host-timed: T5
-    encode, decoder prefill, the decode loop segment by segment (ms/step:
-    the loop's time over its steps; the median over its segments), DAC
-    vocode.  The call's result is appended to ``out`` when given."""
+    """One more tts call with each phase synchronised and host-timed: the
+    captured prefill (T5 encode, prompt, decoder prefill: a replay, or the
+    warm-up and capture of a new shape), the T5 encode and decoder prefill
+    where they run eagerly (not under a capture; not at all in a replay),
+    the decode loop segment by segment (ms/step: the loop's time over its
+    steps; the median over its segments), DAC vocode.  The call's result is
+    appended to ``out`` when given."""
     from parler_tts_tpu_torch.generation import generate as generate_mod
 
-    spans: dict[str, list[float]] = {"encode": [], "prefill": [], "vocode": []}
+    spans: dict[str, list[float]] = {"encode": [], "prefill": [], "captured_prefill": [], "vocode": []}
     targets = {"encode": (model, "encode_text"), "prefill": (model.decoder, "forward"),
                "vocode": (model.audio_encoder, "decode")}
+    replays = generate_mod.PREFILL_REPLAYS
 
     def timed(name, fn):
         def run(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             result = fn(*args, **kwargs)
@@ -2630,6 +2858,8 @@ def time_phases(model, pipe, prompts, max_seconds, out: list | None = None) -> d
 
     for name, (obj, attr) in targets.items():
         setattr(obj, attr, timed(name, getattr(obj, attr)))
+    real_prefill = generate_mod._captured_prefill
+    generate_mod._captured_prefill = timed("captured_prefill", real_prefill)
     try:
         with timed_decode(generate_mod) as loops:
             t0 = time.perf_counter()
@@ -2638,11 +2868,14 @@ def time_phases(model, pipe, prompts, max_seconds, out: list | None = None) -> d
         if out is not None:
             out.append(result)
     finally:
+        generate_mod._captured_prefill = real_prefill
         for obj, attr in targets.values():
             delattr(obj, attr)
     segments = [span for loop in loops for span in loop]
     steps = sum(n for _, n in segments)
-    return {"encode_ms": sum(spans["encode"]), "prefill_ms": sum(spans["prefill"]),
+    return {"captured_prefill_ms": sum(spans["captured_prefill"]),
+            "prefill_replayed": generate_mod.PREFILL_REPLAYS > replays,
+            "encode_ms": sum(spans["encode"]), "prefill_ms": sum(spans["prefill"]),
             "decode_steps": steps, "decode_ms_per_step": sum(ms for ms, _ in segments) / steps,
             "decode_ms_per_step_median": sorted(ms / n for ms, n in segments)[len(segments) // 2],
             "vocode_ms": sum(spans["vocode"]), "synced_wall_s": wall}

@@ -31,23 +31,31 @@ logits only where ``(t < t_hi) & ~all(finished)`` holds on the device; a
 masked step's cache write lands at the position the next real step
 rewrites.  The host knows ``t`` at each segment's start (it advances by one
 per step until every stream has finished), so a bucket's last segment runs
-only its ``t_hi - t`` steps, which JAX's fixed-length scan runs masked.
+only its ``t_hi - t`` steps, which JAX's fixed-length scan runs masked.  The
+loop stops at a given position too (``_decode``'s ``end``, JAX
+``run_chunk``'s condition): ``generate_tokens`` runs it to ``max_length``,
+a stream once per chunk.
 
 Where the steps run:
 
-* on a CUDA model without a model group, each bucket's step is captured once
-  per signature (rows, prompt and encoder lengths, ``max_length``, the
-  dtype, the generation config, injected noise or not, the decoder's weight
-  addresses) in a ``torch.cuda.CUDAGraph`` and replayed ``STAGE`` times per
-  segment.  The state, cache, masks, the decode view and the sampler's draws
-  live in static buffers kept on the model (``_DecodeGraphs``); the prefill
-  stays eager and writes into them.  A capture or replay that fails raises:
-  nothing falls back to the eager loop;
-* on the CPU the same segment loop runs the same step eagerly;
-* a model split over a model group keeps the per-step eager loop
-  (``decode_step`` until ``done``): gloo collectives cannot be captured,
-  and a capture of NCCL collectives over several ranks cannot be checked on
-  the one card there is.  ``streaming.stream_generate`` keeps it too.
+* on a CUDA model without a model group, the JAX package's jitted programs
+  become CUDA graphs, kept per signature (rows, prompt and encoder lengths,
+  ``max_length``, the dtype, the generation config, injected noise or not,
+  the decoder's weight addresses): each bucket's step, replayed ``STAGE``
+  times per segment, and the prefill (T5 encode, prompt embedding, CFG
+  rows, delay pattern, the decoder prefill with its K1 launches, the first
+  logits), one graph per input shape (the audio-prompt frames included).
+  The state, cache, masks, the decode view, the sampler's draws and the
+  prefill's inputs live in static buffers kept on the model
+  (``_DecodeGraphs``).  A capture or replay that fails raises: nothing
+  falls back to the eager loop.  ``streaming.stream_generate`` runs on the
+  same programs, chunk by chunk;
+* on the CPU the same prefill and segment loop run eagerly;
+* a model split over a model group keeps the eager prefill and the
+  per-step eager loop (``decode_step`` until ``done``), and so does its
+  stream: gloo collectives cannot be captured, and a capture of NCCL
+  collectives over several ranks cannot be checked on the one card there
+  is.
 
 Sampling draws its uniform numbers from the caller's generator outside the
 graph, one ``uniform_`` per step into the static draw buffer, exactly as the
@@ -84,6 +92,7 @@ from parler_tts_tpu_torch.models import codec as codec_mod
 from parler_tts_tpu_torch.models.decoder import DecodeLayer, DecodeParams, KVCache, init_cache
 from parler_tts_tpu_torch.models.delay_pattern import build_delay_pattern, undelay_pattern
 from parler_tts_tpu_torch.models.parler import ParlerTTSModel
+from parler_tts_tpu_torch.ops import flash_attention as fa
 from parler_tts_tpu_torch.ops.nn import DenseWeight
 
 #: ``noise(t)`` -> (B, K, V) Gumbel noise for the token sampled at position t
@@ -95,11 +104,17 @@ STAGE = 64
 #: at most this share of the card's memory; the least recently used go first
 GRAPH_MEMORY_SHARE = 0.25
 
-#: decode steps replayed from CUDA graphs, graphs captured, seconds spent
-#: capturing them (warm-up step included)
+#: decode steps replayed from CUDA graphs, step graphs captured, seconds
+#: spent capturing them (warm-up step included)
 REPLAYS = 0
 CAPTURES = 0
 CAPTURE_SECONDS = 0.0
+#: prefills replayed from CUDA graphs, prefill graphs captured, seconds spent
+#: capturing them (the warm-up, which is the capturing call's prefill,
+#: included)
+PREFILL_REPLAYS = 0
+PREFILL_CAPTURES = 0
+PREFILL_CAPTURE_SECONDS = 0.0
 
 
 class GenerateOutput(NamedTuple):
@@ -178,13 +193,15 @@ class _Plan(NamedTuple):
     use_cfg: bool
     p_len: int
     enc_len: int
+    t0: int  # the first decode position: the BOS frame and the audio-prompt frames
     limits: list[int]
 
 
 def _plan(model: ParlerTTSModel, gen: GenerationConfig, max_length: int, input_ids, prompt_input_ids,
           prompt_hidden_states, decoder_input_codes) -> _Plan:
-    """The inputs' batch, CFG rows, prompt and encoder lengths and KV-read
-    buckets; raises when the fused length exceeds the position table."""
+    """The inputs' batch, CFG rows, prompt and encoder lengths, first
+    decode position and KV-read buckets; raises when the fused length
+    exceeds the position table."""
     first = next((x for x in (input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
                   if x is not None), None)
     if first is None:
@@ -198,25 +215,17 @@ def _plan(model: ParlerTTSModel, gen: GenerationConfig, max_length: int, input_i
     t0 = 1 + (0 if decoder_input_codes is None else decoder_input_codes.shape[2])
     model.decoder.check_positions(p_len + max_length)
     limits = _kv_read_limits(p_len + t0, p_len + max_length, gen.kv_read_buckets, batch_rows=rows)
-    return _Plan(b, first.device, rows, use_cfg, p_len, 0 if input_ids is None else input_ids.shape[1], limits)
+    return _Plan(b, first.device, rows, use_cfg, p_len, 0 if input_ids is None else input_ids.shape[1], t0, limits)
 
 
-@torch.no_grad()
-def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
-            input_ids: torch.Tensor | None = None, attention_mask: torch.Tensor | None = None,
-            prompt_input_ids: torch.Tensor | None = None, prompt_attention_mask: torch.Tensor | None = None,
-            prompt_hidden_states: torch.Tensor | None = None,
-            decoder_input_codes: torch.Tensor | None = None, cache: KVCache | None = None) -> DecodeState:
-    """Text encode, prompt embed, CFG rows, delay pattern and the decoder
-    prefill over ``[prompt | BOS frame | audio-prompt codes]``.  Inputs are
-    tensors on the model's device; the batch size comes from the first of
-    ``input_ids``, ``prompt_input_ids``, ``prompt_hidden_states`` and
-    ``decoder_input_codes`` given.  Raises when the fused length exceeds
-    ``max_position_embeddings``.  ``cache``: an allocated cache of this
-    generation's shapes to write (its contents are overwritten), else a new
-    one."""
+def _prefill_tensors(model: ParlerTTSModel, gen: GenerationConfig, plan: _Plan, cache: KVCache, *, max_length: int,
+                     input_ids, attention_mask, prompt_input_ids, prompt_attention_mask, prompt_hidden_states,
+                     decoder_input_codes):
+    """The prefill's device work: writes the cache and returns (tokens,
+    pattern, first logits, fused mask, encoder mask or None).  It reads
+    nothing on the host and copies nothing from it, so a CUDA graph can
+    capture it."""
     decoder = model.decoder
-    plan = _plan(model, gen, max_length, input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
     b, device, rows, use_cfg = plan.batch, plan.device, plan.rows, plan.use_cfg
 
     enc_hidden = enc_mask = None
@@ -252,9 +261,6 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
     )
     tokens = torch.where(pattern == -1, gen.pad_token_id, pattern).to(torch.int32)
 
-    if cache is None:
-        cache = init_cache(decoder.cfg, rows, plan.p_len + max_length, plan.enc_len, dtype=decoder.dtype,
-                           device=device, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
     cache.index = 0
     fused_mask = torch.cat(
         [p_mask.to(torch.int32), torch.ones((rows, max_length), dtype=torch.int32, device=device)], dim=1
@@ -268,12 +274,42 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
         cache=cache,
     )
     logits = decoder.logits(hidden, num_labels=1)[:, :, 0]
+    return tokens, pattern, logits, fused_mask, enc_mask
+
+
+@torch.no_grad()
+def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
+            input_ids: torch.Tensor | None = None, attention_mask: torch.Tensor | None = None,
+            prompt_input_ids: torch.Tensor | None = None, prompt_attention_mask: torch.Tensor | None = None,
+            prompt_hidden_states: torch.Tensor | None = None,
+            decoder_input_codes: torch.Tensor | None = None, cache: KVCache | None = None,
+            params: DecodeParams | None = None) -> DecodeState:
+    """Text encode, prompt embed, CFG rows, delay pattern and the decoder
+    prefill over ``[prompt | BOS frame | audio-prompt codes]``, eagerly.
+    Inputs are tensors on the model's device; the batch size comes from the
+    first of ``input_ids``, ``prompt_input_ids``, ``prompt_hidden_states``
+    and ``decoder_input_codes`` given.  Raises when the fused length exceeds
+    ``max_position_embeddings``.  ``cache``: an allocated cache of this
+    generation's shapes to write (its contents are overwritten), else a new
+    one.  ``params``: the decode view the steps run, else one built here
+    (``decoder.decode_params`` copies every decode weight)."""
+    decoder = model.decoder
+    plan = _plan(model, gen, max_length, input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
+    if cache is None:
+        cache = init_cache(decoder.cfg, plan.rows, plan.p_len + max_length, plan.enc_len, dtype=decoder.dtype,
+                           device=plan.device, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
+    tokens, pattern, logits, fused_mask, enc_mask = _prefill_tensors(
+        model, gen, plan, cache, max_length=max_length, input_ids=input_ids, attention_mask=attention_mask,
+        prompt_input_ids=prompt_input_ids, prompt_attention_mask=prompt_attention_mask,
+        prompt_hidden_states=prompt_hidden_states, decoder_input_codes=decoder_input_codes)
     return DecodeState(
-        t=t0, position=torch.tensor(t0, device=device), tokens=tokens, pattern=pattern,
-        finished=torch.zeros((b, decoder.cfg.num_codebooks), dtype=torch.bool, device=device),
+        t=plan.t0, position=torch.tensor(plan.t0, device=plan.device), tokens=tokens, pattern=pattern,
+        finished=torch.zeros((plan.batch, decoder.cfg.num_codebooks), dtype=torch.bool, device=plan.device),
         cache=cache, logits=logits, fused_mask=fused_mask, enc_mask=enc_mask,
-        params=decoder.decode_params(gen.int8_weights), use_cfg=use_cfg, limits=plan.limits, p_len=plan.p_len,
-        draw=torch.empty((b, *logits.shape[1:]), dtype=torch.float32, device=device) if gen.do_sample else None,
+        params=decoder.decode_params(gen.int8_weights) if params is None else params, use_cfg=plan.use_cfg,
+        limits=plan.limits, p_len=plan.p_len,
+        draw=torch.empty((plan.batch, *logits.shape[1:]), dtype=torch.float32, device=plan.device)
+        if gen.do_sample else None,
     )
 
 
@@ -350,14 +386,18 @@ def decode_step(model: ParlerTTSModel, gen: GenerationConfig, s: DecodeState, *,
 Segment = Callable[[int, int, int], None]
 
 
-def _decode(s: DecodeState, max_length: int, segment: Segment) -> int:
-    """The loop nest over the buckets and their segments; returns the
-    position the loop stopped at (JAX ``generate_tokens``' ``final.t``).
-    The host reads ``all(finished)`` once per segment."""
+def _decode(s: DecodeState, end: int, segment: Segment) -> int:
+    """The loop nest over the buckets and their segments, from ``s.t`` up to
+    position ``end`` or until every stream has finished (JAX ``run_chunk``'s
+    ``(t < end) & ~all(finished)``): ``generate_tokens`` runs it once with
+    ``end = max_length``, a stream once per chunk, and a chunk that crosses
+    a bucket's end goes on in the next bucket.  Returns the position the
+    loop stopped at (JAX ``generate_tokens``' ``final.t``).  The host reads
+    ``all(finished)`` once per segment."""
     for size in s.limits:
-        t_hi = min(max_length, size - s.p_len)
-        while s.t < t_hi:
-            n = min(STAGE, t_hi - s.t)
+        t_hi = min(s.tokens.shape[2], size - s.p_len)
+        while s.t < min(t_hi, end):
+            n = min(STAGE, t_hi - s.t, end - s.t)
             segment(size, t_hi, n)
             if bool(s.finished.all()):
                 s.t = int(s.position)
@@ -374,28 +414,83 @@ def _eager_segment(model, gen, s: DecodeState, generator, noise) -> Segment:
     return run
 
 
+def _new_pool():
+    return torch.cuda.graph_pool_handle()
+
+
+def _budget(device: torch.device) -> float:
+    """Bytes the captured signatures of one model may hold."""
+    return GRAPH_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
+
+
+def _record(fn: Callable[[], None], pool) -> tuple[torch.cuda.CUDAGraph, int]:
+    """``fn()`` once on the stream ``torch.cuda.graph`` captures on, then
+    captured there into a graph on ``pool``: library set-up (handles,
+    workspaces) stays out of the capture and is made once for that stream.
+    The capture runs nothing, so what the warm-up wrote stays.  Returns the
+    graph and the bytes the capture reserved for the pool (the allocator's
+    reserved bytes around it, after the cached blocks are freed: a capture
+    allocates from the pool alone)."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.graph(graph).capture_stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # as torch.cuda.graph does before a capture
+    reserved = torch.cuda.memory_reserved()
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()
+    return graph, torch.cuda.memory_reserved() - reserved
+
+
+class _Prefill(NamedTuple):
+    """One input shape's captured prefill: its static inputs, its graph (on
+    a pool of its own) and the K1 launches the graph holds."""
+
+    inputs: dict[str, torch.Tensor | None]
+    graph: torch.cuda.CUDAGraph
+    k1_launches: int
+
+
 class _Captured:
-    """One signature's static decode state and its captured steps, one
-    graph per KV-read bucket (keyed by the bucket's fused length), sharing
-    one memory pool."""
+    """One signature's static decode state and its captured programs: a step
+    graph per KV-read bucket (keyed by the bucket's fused length) sharing
+    one memory pool, and a prefill graph per input shape (``_Prefill``).
+    ``nbytes`` counts the state, the static inputs and the pools.  A stream
+    leases the state for its whole life (``leased``)."""
 
     def __init__(self, state: DecodeState):
         self.state = state
         self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
-        self.pool = torch.cuda.graph_pool_handle()
-        self.nbytes = state.cache.nbytes + sum(
-            x.numel() * x.element_size() for x in (state.position, state.tokens, state.pattern, state.finished,
+        self.prefills: dict[tuple, _Prefill] = {}
+        self.pool = _new_pool()
+        self.leased = False
+        self.nbytes = state.cache.nbytes + _nbytes(state.position, state.tokens, state.pattern, state.finished,
                                                    state.logits, state.fused_mask, state.enc_mask, state.draw)
-            if x is not None)
+
+
+def _nbytes(*tensors: torch.Tensor | None) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
 class _DecodeGraphs:
-    """The captured decode steps of one model, kept on it (so they die with
-    it): the decode views by ``int8_weights`` and dtype (shared by every
+    """The captured programs of one model, kept on it (so they die with it):
+    the decode views by ``int8_weights`` and dtype (shared by every
     signature, refreshed from the weights at each call) and the signatures'
-    static state in least-recently-used order, their bytes bounded by
+    static states in least-recently-used order, their bytes bounded by
     ``GRAPH_MEMORY_SHARE`` of the card's memory (the newest is kept even
-    alone over it).  One generation at a time runs on them.  A copied
+    alone over it).  ``lock`` is held while a call runs on them: a whole
+    ``generate_tokens``, or a stream's prefill and each of its chunks, never
+    across a ``yield``.  A state that a stream leases is neither dropped nor
+    handed to another call: that call gets an instance of its own.  A copied
     model captures its own."""
 
     def __init__(self):
@@ -407,14 +502,36 @@ class _DecodeGraphs:
         return _DecodeGraphs()
 
     def make_room(self, nbytes: int, device: torch.device) -> None:
-        budget = GRAPH_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
-        while self.sets and sum(c.nbytes for c in self.sets.values()) + nbytes > budget:
-            self.sets.popitem(last=False)
+        """Drop the least recently used states that no stream leases until
+        ``nbytes`` more fit the budget, or none is left to drop."""
+        budget = _budget(device)
+        for key in [key for key, c in self.sets.items() if not c.leased]:
+            if sum(c.nbytes for c in self.sets.values()) + nbytes <= budget:
+                return
+            del self.sets[key]
+
+    def instance(self, signature: tuple, make: Callable[[], _Captured]) -> _Captured:
+        """The first state of ``signature`` that no stream leases, made by
+        ``make()`` when there is none, as the most recently used."""
+        i = 0
+        while (signature, i) in self.sets and self.sets[(signature, i)].leased:
+            i += 1
+        key = (signature, i)
+        if key not in self.sets:
+            self.sets[key] = make()
+        self.sets.move_to_end(key)
+        return self.sets[key]
 
 
 def _graphs_of(model: ParlerTTSModel) -> _DecodeGraphs:
     graphs = model.__dict__.get("_decode_graphs")
     return graphs if graphs is not None else model.__dict__.setdefault("_decode_graphs", _DecodeGraphs())
+
+
+def _captured_route(model: ParlerTTSModel) -> bool:
+    """Whether generation replays captured programs: a CUDA model without a
+    model group."""
+    return model.decoder.model_group is None and next(model.parameters()).device.type == "cuda"
 
 
 def _clone_view(p: DecodeParams) -> DecodeParams:
@@ -429,35 +546,78 @@ def _view_tensors(p: DecodeParams) -> list[torch.Tensor]:
     return [x for w in weights for x in (w.kernel, w.scale) if x is not None]
 
 
-def _capture(model, gen, s: DecodeState, pool, *, size: int, t_hi: int, injected: bool) -> torch.cuda.CUDAGraph:
-    """One warm-up step (library set-up stays out of the capture), then the
-    step captured, both on the capture's own stream: the libraries' per-stream
-    workspaces are then made once, not once per warm-up stream.  Both run
-    over the static buffers before the prefill fills them, so the prefill
-    overwrites what they wrote."""
+def _capture(model, gen, s: DecodeState, captured: _Captured, *, size: int, t_hi: int,
+             injected: bool) -> torch.cuda.CUDAGraph:
+    """The step of bucket ``size`` captured on the signature's step pool.
+    Its warm-up and capture run over the static buffers before the prefill
+    fills them, so the prefill overwrites what they wrote."""
     global CAPTURES, CAPTURE_SECONDS
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    capture = torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")
-    side = capture.capture_stream
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected)
-    torch.cuda.current_stream().wait_stream(side)
-    with capture:
-        _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected)
-    torch.cuda.synchronize()
+    graph, nbytes = _record(lambda: _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected),
+                            captured.pool)
+    captured.nbytes += nbytes
     CAPTURES += 1
     CAPTURE_SECONDS += time.perf_counter() - t0
     return graph
 
 
+def _prefill_into(model, gen, plan: _Plan, s: DecodeState, max_length: int, inputs: dict) -> None:
+    """The prefill of ``inputs`` written into the static state: the
+    function a prefill graph holds."""
+    tokens, pattern, logits, fused_mask, enc_mask = _prefill_tensors(model, gen, plan, s.cache,
+                                                                      max_length=max_length, **inputs)
+    s.position.fill_(plan.t0)
+    s.tokens.copy_(tokens)
+    s.pattern.copy_(pattern)
+    s.finished.zero_()
+    s.logits.copy_(logits)
+    s.fused_mask.copy_(fused_mask)
+    if s.enc_mask is not None:
+        s.enc_mask.copy_(enc_mask)
+
+
+def _input_shapes(inputs: dict) -> tuple:
+    return tuple((name, None if x is None else (tuple(x.shape), x.dtype)) for name, x in sorted(inputs.items()))
+
+
+def _captured_prefill(model, gen, captured: _Captured, plan: _Plan, *, max_length: int, **inputs) -> None:
+    """The prefill of ``inputs`` into the signature's static state, by the
+    graph of their shapes (the JAX stream's and pipeline's jitted prefill).
+    At the first call of a shape the warm-up, on the call's own inputs
+    copied into new static buffers, is the call's prefill, and the graph is
+    captured after it (a replay would run it twice); later calls copy their
+    inputs into those buffers and replay.  The host then sets what a replay
+    cannot: ``t``, the buckets and the cache's index.  A replay adds the
+    K1 launches its graph holds to ``flash_attention.LAUNCHES``."""
+    global PREFILL_CAPTURES, PREFILL_CAPTURE_SECONDS, PREFILL_REPLAYS
+    s = captured.state
+    shapes = _input_shapes(inputs)
+    known = captured.prefills.get(shapes)
+    if known is None:
+        static = {name: None if x is None else x.to(s.tokens.device, copy=True) for name, x in inputs.items()}
+        t0, recorded = time.perf_counter(), fa.RECORDED
+        graph, nbytes = _record(lambda: _prefill_into(model, gen, plan, s, max_length, static), _new_pool())
+        captured.prefills[shapes] = _Prefill(static, graph, fa.RECORDED - recorded)
+        captured.nbytes += nbytes + _nbytes(*static.values())
+        PREFILL_CAPTURES += 1
+        PREFILL_CAPTURE_SECONDS += time.perf_counter() - t0
+    else:
+        for name, x in inputs.items():
+            if x is not None:
+                known.inputs[name].copy_(x)
+        known.graph.replay()
+        fa.LAUNCHES += known.k1_launches
+        PREFILL_REPLAYS += 1
+    s.t, s.limits = plan.t0, plan.limits
+    s.cache.index = plan.p_len + plan.t0
+
+
 def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _DecodeGraphs, *, max_length: int,
-                         generator, noise, **inputs) -> tuple[DecodeState, Segment]:
-    """The static state of this call's signature (allocated and its
-    buckets' steps captured on first use), filled by an eager prefill, and
-    the segment that replays its graphs."""
+                         generator, noise, **inputs) -> tuple[_Captured, Segment]:
+    """A static state of this call's signature that no stream leases
+    (allocated, and its buckets' steps captured, on first use), filled by
+    the captured prefill, and the segment that replays its step graphs.
+    The caller holds ``graphs.lock``."""
     decoder = model.decoder
     plan = _plan(model, gen, max_length, inputs["input_ids"], inputs["prompt_input_ids"],
                  inputs["prompt_hidden_states"], inputs["decoder_input_codes"])
@@ -473,8 +633,8 @@ def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _
     for dst, src in zip(_view_tensors(view), _view_tensors(fresh)):
         dst.copy_(src)
     del fresh
-    captured = graphs.sets.get(key)
-    if captured is None:
+
+    def make() -> _Captured:
         k, v = decoder.cfg.num_codebooks, decoder.cfg.vocab_size
 
         def cache_on(where):
@@ -482,33 +642,28 @@ def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _
                               device=where, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
 
         graphs.make_room(cache_on(torch.device("meta")).nbytes, device)  # before the new cache is allocated
-        cache = cache_on(device)
 
         def zeros(*shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        state = DecodeState(
+        return _Captured(DecodeState(
             t=0, position=zeros(dtype=torch.int64), tokens=zeros(plan.batch, k, max_length, dtype=torch.int32),
             pattern=zeros(plan.batch, k, max_length, dtype=torch.int32),
-            finished=zeros(plan.batch, k, dtype=torch.bool), cache=cache,
+            finished=zeros(plan.batch, k, dtype=torch.bool), cache=cache_on(device),
             logits=zeros(plan.rows, k, v, dtype=decoder.dtype),
             fused_mask=zeros(plan.rows, plan.p_len + max_length, dtype=torch.int32),
             enc_mask=zeros(plan.rows, plan.enc_len, dtype=torch.int64) if plan.enc_len else None,
             params=view, use_cfg=plan.use_cfg, limits=[], p_len=plan.p_len,
-            draw=zeros(plan.batch, k, v, dtype=torch.float32) if gen.do_sample else None)
-        captured = graphs.sets[key] = _Captured(state)
-    graphs.sets.move_to_end(key)
+            draw=zeros(plan.batch, k, v, dtype=torch.float32) if gen.do_sample else None))
+
+    captured = graphs.instance(key, make)
     s = captured.state
     for size in plan.limits:
         if size not in captured.graphs:
             t_hi = min(max_length, size - plan.p_len)
-            captured.graphs[size] = _capture(model, gen, s, captured.pool, size=size, t_hi=t_hi,
+            captured.graphs[size] = _capture(model, gen, s, captured, size=size, t_hi=t_hi,
                                              injected=noise is not None)
-    f = prefill(model, gen, max_length=max_length, cache=s.cache, **inputs)
-    for name in ("position", "tokens", "pattern", "finished", "logits", "fused_mask", "enc_mask"):
-        if getattr(s, name) is not None:
-            getattr(s, name).copy_(getattr(f, name))
-    s.t, s.limits = f.t, f.limits
+    _captured_prefill(model, gen, captured, plan, max_length=max_length, **inputs)
 
     def replay(size: int, t_hi: int, n: int) -> None:
         global REPLAYS
@@ -518,7 +673,7 @@ def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _
             graph.replay()
         REPLAYS += n
 
-    return s, replay
+    return captured, replay
 
 
 @torch.no_grad()
@@ -546,13 +701,13 @@ def generate_tokens(model: ParlerTTSModel, gen: GenerationConfig, *, max_length:
         while not s.done:
             decode_step(model, gen, s, generator=generator, noise=noise)
         return s.tokens, s.t
-    if next(model.parameters()).device.type == "cuda":
+    if _captured_route(model):
         graphs = _graphs_of(model)
         with graphs.lock:
-            s, segment = _captured_generation(model, gen, graphs, max_length=max_length, generator=generator,
-                                              noise=noise, **inputs)
-            t = _decode(s, max_length, segment)
-            return s.tokens.clone(), t
+            captured, segment = _captured_generation(model, gen, graphs, max_length=max_length,
+                                                     generator=generator, noise=noise, **inputs)
+            t = _decode(captured.state, max_length, segment)
+            return captured.state.tokens.clone(), t
     s = prefill(model, gen, max_length=max_length, **inputs)
     return s.tokens, _decode(s, max_length, _eager_segment(model, gen, s, generator, noise))
 

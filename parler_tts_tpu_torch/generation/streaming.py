@@ -2,27 +2,38 @@
 as soon as it is ready.
 
 Port of ``parler_tts_tpu/generation/streaming.py``.  The decode loop is
-``generate``'s own (``prefill`` then ``decode_step``), stopped every
-``chunk_frames`` positions, so a stream and ``generate`` with the same
-generator (or injected noise) give the same codes.  Each ready chunk is
-vocoded with ``lookback`` frames of left context: the DAC decoder is
-convolutional, so with a lookback at least its left receptive field the
-emitted samples equal a one-shot vocode of every frame ready so far (an
-EnCodec decoder's LSTM restarts at each window, so there they only
-approach it).  The DAC's convolutions are centred, so a chunk's last frames
-lack the right context that a one-shot vocode of the whole utterance gives
-them; the JAX design holds back no frames for it, and neither does this
-port.  Early windows
-vocode exactly the frames there are (no left padding: code 0 is not
-silence).
-The stream keeps the per-step eager loop (``decode_step``, which reads the
-cache over ``generate``'s KV-read buckets, so its codes are ``generate``'s):
-it has no counterpart of the JAX module's per-signature ``jax.jit`` factory,
-nor of ``generate``'s captured steps.
+``generate``'s own, stopped every ``chunk_frames`` positions, so a stream
+and ``generate`` with the same generator (or injected noise) give the same
+codes.  On a CUDA model without a model group it runs ``generate``'s
+captured programs (the counterpart of JAX's per-signature
+``_build_stream_fns``): the prefill graph of its signature, then, chunk by
+chunk, the decode loop's segments replayed from the bucket graphs up to the
+chunk's end (JAX's ``run_chunk``), a chunk that crosses a bucket's end
+switching graphs inside it; no ``decode_step`` runs.  The stream leases its
+signature's static state until it ends or is closed: a call with the same
+signature meanwhile gets an instance of its own.  The model's graph lock is
+held for the prefill and for each chunk's segments, never across a
+``yield``, so a consumer may call ``generate`` on the same model between
+chunks.  The decode view is refreshed from the weights at each call's
+start, so a later chunk reads the view as the last call left it: the
+stream's own unless the weights were changed in place while it was open.
+On the CPU the same chunked loop runs eagerly.  The window vocode is the
+eager ``codec.decode``.
+
+Each ready chunk is vocoded with ``lookback`` frames of left context: the
+DAC decoder is convolutional, so with a lookback at least its left
+receptive field the emitted samples equal a one-shot vocode of every frame
+ready so far (an EnCodec decoder's LSTM restarts at each window, so there
+they only approach it).  The DAC's convolutions are centred, so a chunk's
+last frames lack the right context that a one-shot vocode of the whole
+utterance gives them; the JAX design holds back no frames for it, and
+neither does this port.  Early windows vocode exactly the frames there are
+(no left padding: code 0 is not silence).
 
 A model split over a model group streams on every model rank at once, with
-the same inputs and a generator seeded the same way: the collectives sit
-inside ``prefill`` and ``decode_step``, so the ranks must run the same steps
+the same inputs and a generator seeded the same way, on the eager prefill
+and the per-step loop: the collectives sit inside ``prefill`` and
+``decode_step``, so the ranks must run the same steps
 in the same order.  They sample from the same gathered logits, so their
 tokens and their stop agree; once per chunk the ranks compare their position,
 their stop and a checksum of their tokens (``tensor_parallel.check_same``)
@@ -33,14 +44,21 @@ for audio, and any rank can serve the stream.
 
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple
+import functools
+from typing import Callable, Iterator, NamedTuple
 
 import numpy as np
 import torch
 
 from parler_tts_tpu_torch.core.config import GenerationConfig
 from parler_tts_tpu_torch.generation.generate import (
+    DecodeState,
     NoiseFn,
+    _captured_generation,
+    _captured_route,
+    _decode,
+    _eager_segment,
+    _graphs_of,
     audio_prompt_codes,
     check_vocodable,
     decode_step,
@@ -84,24 +102,59 @@ def stream_generate(model: ParlerTTSModel, gen: GenerationConfig, *, input_ids, 
         check_vocodable(model.cfg)
     codes = audio_prompt_codes(model, to_device(dev, input_values), to_device(dev, decoder_input_codes))
     max_length = max_length or gen.max_length
-    s = prefill(model, gen, max_length=max_length, input_ids=to_device(dev, input_ids),
-                attention_mask=to_device(dev, attention_mask), prompt_input_ids=to_device(dev, prompt_input_ids),
-                prompt_attention_mask=to_device(dev, prompt_attention_mask), decoder_input_codes=codes)
+    inputs = dict(input_ids=to_device(dev, input_ids), attention_mask=to_device(dev, attention_mask),
+                  prompt_input_ids=to_device(dev, prompt_input_ids),
+                  prompt_attention_mask=to_device(dev, prompt_attention_mask), prompt_hidden_states=None,
+                  decoder_input_codes=codes)
+    chunks = functools.partial(_chunks, model, max_length=max_length, chunk_frames=chunk_frames, lookback=lookback,
+                               vocode=vocode, dev=dev)
     group = model.decoder.model_group
+    if group is not None:
+        s = prefill(model, gen, max_length=max_length, **inputs)
+
+        def decode_to(end: int) -> None:
+            while s.t < end and not s.done:
+                decode_step(model, gen, s, generator=generator, noise=noise)
+            flat = s.tokens.long().flatten()
+            checksum = (flat * torch.arange(1, flat.numel() + 1, device=flat.device)).sum()
+            tp.check_same(torch.stack([checksum.new_tensor(s.t), checksum.new_tensor(int(s.done)), checksum]), group,
+                          "the stream's position, stop and tokens")
+
+        yield from chunks(s, decode_to)
+    elif _captured_route(model):
+        graphs = _graphs_of(model)
+        with graphs.lock:
+            captured, segment = _captured_generation(model, gen, graphs, max_length=max_length, generator=generator,
+                                                     noise=noise, **inputs)
+            captured.leased = True
+        try:
+            def decode_to(end: int) -> None:
+                with graphs.lock:
+                    _decode(captured.state, end, segment)
+
+            yield from chunks(captured.state, decode_to)
+        finally:
+            # no lock: a stream dropped unfinished is closed wherever the
+            # collector runs, perhaps on a thread inside ``graphs.lock``
+            captured.leased = False
+    else:
+        s = prefill(model, gen, max_length=max_length, **inputs)
+        segment = _eager_segment(model, gen, s, generator, noise)
+        yield from chunks(s, lambda end: _decode(s, end, segment))
+
+
+def _chunks(model: ParlerTTSModel, s: DecodeState, decode_to: Callable[[int], None], *, max_length: int,
+            chunk_frames: int, lookback: int, vocode: bool, dev: torch.device) -> Iterator[StreamChunk]:
+    """The chunks of a stream whose decode loop is ``decode_to(end)`` over
+    the state ``s``: the undelayed codes are copied to the host at every
+    chunk, so nothing is read from ``s`` after the last."""
     b, num_codebooks = s.tokens.shape[:2]
     cb, hop = model.cfg.audio_encoder.codebook_size, model.cfg.audio_encoder.hop_length
     window = lookback + chunk_frames
     emitted = 0
     while True:
-        end = min(s.t + chunk_frames, max_length)
-        while s.t < end and not s.done:
-            decode_step(model, gen, s, generator=generator, noise=noise)
+        decode_to(min(s.t + chunk_frames, max_length))
         done = s.done
-        if group is not None:
-            flat = s.tokens.long().flatten()
-            checksum = (flat * torch.arange(1, flat.numel() + 1, device=flat.device)).sum()
-            tp.check_same(torch.stack([checksum.new_tensor(s.t), checksum.new_tensor(int(done)), checksum]), group,
-                          "the stream's position, stop and tokens")
         ready = max(0, (s.t - 1) - (num_codebooks - 1))
         new_frames = ready - emitted
         if new_frames <= 0 and not done:

@@ -53,8 +53,11 @@ import torch
 NEG_INF = -1e9
 
 #: kernel launches since the counter was last reset, one counter per kernel
-#: (the plain versions and the CPU path do not count): K1, K2, K3, K4
+#: (the plain versions and the CPU path do not count): K1, K2, K3, K4.  A
+#: K1 call while the current stream is captured launches nothing: it counts
+#: in RECORDED, and whoever replays the graph adds its launches to LAUNCHES
 LAUNCHES = 0
+RECORDED = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DKV = 0
 LAUNCHES_DQKV = 0
@@ -227,13 +230,16 @@ def _dispatch(plain, cuda, **kw):
 
 
 def _fwd_cuda(q, k, v, kv_start, kv_end, *, scale, causal, q_offset):
-    global LAUNCHES
+    global LAUNCHES, RECORDED
     _check("flash_attention_fwd", q, k, v, kv_start, kv_end)
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", (q, k, v, kv_start, kv_end, out, lse), q, k.shape[1], scale,
             causal, q_offset)
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        RECORDED += 1
+    else:
+        LAUNCHES += 1
     return out, lse
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the decode loop captured in CUDA graphs against the per-step eager loop.
+and the decode loop, the stream and the prefill captured in CUDA graphs
+against the per-step eager loop and the eager prefill.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 file imports no JAX, so it also runs on a machine with the card and without
@@ -29,6 +30,18 @@ def cuda():
         pytest.skip("needs a CUDA device and nvcc (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture
+def fresh_rng_after():
+    """A failed capture leaves the default CUDA generator, which every
+    capture registers, mid-capture (its epilogue never runs), and each later
+    draw from it raises: give it a fresh copy of its state afterwards, and
+    draw once.  The failure tests run last."""
+    yield
+    gen = torch.cuda.default_generators[torch.cuda.current_device()]
+    gen.graphsafe_set_state(gen.clone_state())
+    torch.rand(1, device="cuda")
 
 
 @pytest.mark.cuda
@@ -352,8 +365,151 @@ def test_captured_loop_reads_weights_changed_between_calls(cuda):
     assert torch.equal(second, _eager_loop(model, gen, inputs, seed=0)[0])
 
 
+# --- the captured stream and prefill -------------------------------------------------------------
+
+STREAM_CASES = [
+    (torch.float32, 2, dict(do_sample=False)),
+    (torch.bfloat16, 2, dict(do_sample=False)),
+    (torch.bfloat16, 3, dict(do_sample=False, guidance_scale=3.0, kv_cache_dtype="int8", int8_weights=True)),
+    (torch.bfloat16, 3, dict(do_sample=True, top_k=50, guidance_scale=3.0)),
+]
+
+
+def _stream_codes(model, gen, inputs, seed, chunk_frames=40):
+    from parler_tts_tpu_torch.generation import streaming as pstream
+
+    chunks = list(pstream.stream_generate(model, gen, chunk_frames=chunk_frames, vocode=False,
+                                          generator=torch.Generator(device="cuda").manual_seed(seed), **inputs))
+    return np.concatenate([c.codes for c in chunks], axis=2), chunks
+
+
 @pytest.mark.cuda
-def test_a_failed_capture_raises(cuda, monkeypatch):
+@pytest.mark.parametrize("dtype,b,kw", STREAM_CASES, ids=["greedy_fp32", "greedy_bf16", "int8_cfg",
+                                                          "cfg_topk_sampled"])
+def test_captured_stream_equals_the_eager_stream(cuda, monkeypatch, dtype, b, kw):
+    """A stream on a CUDA model runs the captured prefill and replays the
+    bucket graphs chunk by chunk (chunks of 40 cross the bucket ends): no
+    ``decode_step``, one decode view, and its codes are the per-step eager
+    loop's bit for bit, twice (the second stream replays its prefill)."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.generation import generate as pgen
+    from parler_tts_tpu_torch.generation import streaming as pstream
+    from parler_tts_tpu_torch.models.delay_pattern import undelay_pattern
+
+    model = _decode_model(dtype)
+    gen = pcfg.GenerationConfig(max_length=DECODE_LENGTH, **kw)
+    inputs = _decode_inputs(b)
+    steps, views = [], []
+    real_step, real_view = pstream.decode_step, model.decoder.decode_params
+    monkeypatch.setattr(pstream, "decode_step", lambda *a, **k: steps.append(1) or real_step(*a, **k))
+    monkeypatch.setattr(model.decoder, "decode_params", lambda int8=False: views.append(int8) or real_view(int8))
+    replays = pgen.PREFILL_REPLAYS
+    first, _ = _stream_codes(model, gen, inputs, seed=5)
+    second, _ = _stream_codes(model, gen, inputs, seed=5)
+    assert not steps and len(views) == 2 and pgen.PREFILL_REPLAYS - replays == 1
+    ref, _ = _eager_loop(model, gen, inputs, seed=5)
+    want = undelay_pattern(ref[:, :, 1:]).cpu().numpy()[:, :, :first.shape[2]]
+    np.testing.assert_array_equal(first, want)
+    np.testing.assert_array_equal(second, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prompt_len", [9, 33])
+@pytest.mark.parametrize("frames", [0, 6])
+def test_captured_prefill_equals_the_eager_prefill(cuda, prompt_len, frames):
+    """The replayed prefill writes the static state as an eager ``prefill``
+    does, bit for bit: the cache's self and cross K/V over the prefill's
+    positions, the first logits, tokens, pattern and masks; at two prompt
+    lengths, with and without audio-prompt codes, bf16 with CFG."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.generation import generate as pgen
+
+    model = _decode_model(torch.bfloat16)
+    gen = pcfg.GenerationConfig(max_length=120, do_sample=False, guidance_scale=3.0)
+    g = torch.Generator().manual_seed(prompt_len + frames)
+    inputs = dict(_decode_inputs(2), prompt_hidden_states=None, decoder_input_codes=None)
+    inputs["prompt_input_ids"] = torch.randint(3, 1000, (2, prompt_len), generator=g).cuda()
+    inputs["prompt_attention_mask"] = torch.ones((2, prompt_len), dtype=torch.int32).cuda()
+    inputs["prompt_attention_mask"][0, :3] = 0
+    if frames:
+        inputs["decoder_input_codes"] = torch.randint(0, 1024, (2, model.cfg.decoder.num_codebooks, frames),
+                                                      generator=g).cuda()
+    graphs = pgen._graphs_of(model)
+    captures = pgen.PREFILL_CAPTURES
+    for _ in range(2):  # the first call captures, the second replays
+        with graphs.lock:
+            captured, _ = pgen._captured_generation(model, gen, graphs, max_length=120, generator=None, noise=None,
+                                                    **inputs)
+    assert pgen.PREFILL_CAPTURES - captures == 1
+    s = captured.state
+    ref = pgen.prefill(model, gen, max_length=120, **inputs)
+    t = ref.cache.index
+    assert s.t == ref.t == 1 + frames and s.cache.index == t == prompt_len + 1 + frames
+    assert int(s.position) == ref.t and not bool(s.finished.any())
+    for name in ("self_k", "self_v"):
+        assert torch.equal(getattr(s.cache, name)[:, :, :, :t], getattr(ref.cache, name)[:, :, :, :t]), name
+    for name in ("cross_k", "cross_v"):
+        assert torch.equal(getattr(s.cache, name), getattr(ref.cache, name)), name
+    for name in ("logits", "tokens", "pattern", "fused_mask"):
+        assert torch.equal(getattr(s, name), getattr(ref, name)), name
+    assert torch.equal(s.enc_mask, ref.enc_mask.to(s.enc_mask.dtype))
+
+
+@pytest.mark.cuda
+def test_generate_between_two_chunks_of_an_open_stream(cuda):
+    """On the same thread, ``generate`` with the stream's signature between
+    two of its chunks neither deadlocks nor changes the stream's codes: it
+    runs on a second instance of the signature; the stream's end releases
+    its lease, and a stream closed after its first chunk releases it too."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.generation import generate as pgen
+    from parler_tts_tpu_torch.generation import streaming as pstream
+    from parler_tts_tpu_torch.models.delay_pattern import undelay_pattern
+
+    model = _decode_model(torch.bfloat16)
+    gen = pcfg.GenerationConfig(max_length=DECODE_LENGTH, do_sample=False)
+    inputs = _decode_inputs(2)
+    ref, _ = _stream_codes(model, gen, inputs, seed=0)
+    graphs = pgen._graphs_of(model)
+    it = pstream.stream_generate(model, gen, chunk_frames=40, vocode=False, **inputs)
+    codes = [next(it).codes]
+    tokens, _ = pgen.generate_tokens(model, gen, max_length=gen.max_length, **inputs)
+    assert sum(c.leased for c in graphs.sets.values()) == 1 and len(graphs.sets) == 2
+    codes += [c.codes for c in it]
+    np.testing.assert_array_equal(np.concatenate(codes, axis=2), ref)
+    np.testing.assert_array_equal(undelay_pattern(tokens[:, :, 1:]).cpu().numpy()[:, :, :ref.shape[2]], ref)
+    assert not any(c.leased for c in graphs.sets.values())
+    it = pstream.stream_generate(model, gen, chunk_frames=40, vocode=False, **inputs)
+    next(it)
+    assert any(c.leased for c in graphs.sets.values())
+    it.close()
+    assert not any(c.leased for c in graphs.sets.values())
+
+
+@pytest.mark.cuda
+def test_a_failed_prefill_capture_raises(cuda, monkeypatch, fresh_rng_after):
+    """No fallback: a prefill that reads the device on the host cannot be
+    captured, and generation raises."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.generation import generate as pgen
+
+    model = _decode_model(torch.float32)
+    real = pgen._prefill_tensors
+
+    def syncing(*args, **kw):
+        out = real(*args, **kw)
+        float(out[2].sum())  # a host read: not permitted while a stream is captured
+        return out
+
+    monkeypatch.setattr(pgen, "_prefill_tensors", syncing)
+    gen = pcfg.GenerationConfig(max_length=40, do_sample=False)
+    with pytest.raises(RuntimeError):
+        pgen.generate_tokens(model, gen, max_length=40, **_decode_inputs(2))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda, monkeypatch, fresh_rng_after):
     """No fallback to the eager loop: a step that reads the device on the
     host cannot be captured, and generation raises."""
     from parler_tts_tpu_torch.core import config as pcfg
