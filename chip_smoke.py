@@ -83,11 +83,21 @@ Phases, in order; any failure exits non-zero before the result line:
    that artifact and one ``tts``; the directories are deleted;
 7. training path: ``make_train_step`` on Mini at full width and depth, fp32
    parameters with bf16 compute, the Mini recipe (AdamW lr 9.5e-4, beta
-   (0.9, 0.99), wd 0.01, clip 1.0, dropout 0.1, one warmup update): 5 steps
-   on one batch of 3 x 10 s (fused T = 903) launching K1 and K4 24 times per
-   step, an eval step, one step under torch.profiler, then 2 steps at 1 x
-   30 s (fused T = 2623) launching K2 and K3 24 times per step.  Losses must
-   be finite and the last of the 5 below the first;
+   (0.9, 0.99), wd 0.01, clip 1.0, dropout 0.1, one warmup update), at
+   two shapes, each on both routes from the same initial state: twice
+   eagerly and once captured (the default on one card: one CUDA graph per
+   signature, replayed).  Per run: an eval step twice, then 5 steps on one
+   batch of 3 x 10 s (fused T = 903) launching K1 and K4 24 times per step,
+   or 3 steps at 1 x 30 s (fused T = 2623) launching K2 and K3 24 times per
+   step, counted through replays; two steps under torch.profiler for the
+   host's launches and the device's busy ms per step, one more for the
+   device time by category.  Step ms, audio s per wall s, MFU, capture s,
+   graph bytes and peak memory per route.  The captured run's losses,
+   gradient norms and parameters must be the eager run's bit for bit where
+   two eager runs agree bit for bit (K2 and K3 sum in a fixed order), else
+   within ``TRAIN_GRAPH_SPREAD`` times their spread (K4's dq sums with fp32
+   atomics); its eval losses the eager ones bit for bit; losses finite and
+   the last of the 10 s run's below its first;
 8. codec encode: the DAC encode side at Mini's codec (fp32) over 8 waveforms
    of 2-10 s through ``tokenize_audio_batches``: frame counts, and one 1 s
    clip's codes against the CPU's (differences only at near-ties, counted;
@@ -96,9 +106,11 @@ Phases, in order; any failure exits non-zero before the result line:
    ``synthetic://48``, 4 steps with checkpoints, rotation and an eval (loss
    and generation passes), then a second ``main`` that resumes from
    ``checkpoint-4-epoch-0`` (trainable parameters bit for bit) and runs
-   steps 5 and 6; K1 and K4 24 times per train step, and held against
-   their plain versions on the tensors of their first call at each of the
-   run's shapes (train step, eval loss batch, generation prefill);
+   steps 5 and 6, each run on the captured route (its first step captures,
+   the others replay); K1 and K4 24 times per train step, counted through
+   replays, and held against their plain versions on the tensors of their
+   first call at each of the run's shapes (train step, eval loss batch,
+   generation prefill);
 10. ``ParlerTTSPipeline.from_pretrained`` over the CLI's ``final/`` artifact:
     one ``tts`` call with finite audio, and the artifact's tensors those of
     the last checkpoint.  The CLI's temporary output directory is deleted;
@@ -193,6 +205,11 @@ CODE_TIE_TOL = 1e-4
 # a captured decode's first token that differs from the eager loop's must sit at a
 # near-tie: its score gap within 2 bf16 ulps of the row's largest score
 GRAPH_TIE_TOL = 2.0**-6
+# the captured train step against the eager one, from the same state: each
+# difference (loss and gradient norm relative, parameters absolute) within
+# this many times the spread of two eager runs, which is 0 (bit for bit)
+# where every kernel sums in a fixed order; K4 sums dq with fp32 atomics
+TRAIN_GRAPH_SPREAD = 8.0
 BWD_OPS_PER_PAIR = {"flash_attention_dq": 6, "flash_attention_dkv": 8, "flash_attention_dqkv": 10}  # x D
 BWD_OUTPUTS = {"flash_attention_dq": 1, "flash_attention_dkv": 2, "flash_attention_dqkv": 3}
 REPLACES = {
@@ -656,12 +673,13 @@ def check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from
     reset_counts(fa)
     for device, model in (("cpu", cpu_model), ("cuda", gpu_model)):
         tensors = {key: torch.from_numpy(value).to(device) for key, value in batch.items()}
-        loss, _ = model.train_forward(**tensors, dtype=torch.float32)
+        loss = model.train_forward(**tensors, dtype=torch.float32)[0]
         loss.backward()
+        loss = loss.item()  # the autograd graph goes: a captured step meets none of its nodes
         grads = from_jax.to_jax_tree(model, grads=True)
         state = step_mod.create_state(model, learning_rate=1e-3, warmup_steps=1)
         metrics = step_mod.make_train_step(cfg, dtype=torch.float32)(state, batch)
-        results[device] = (loss.item(), grads, metrics["loss"].item(), metrics["grad_norm"].item())
+        results[device] = (loss, grads, metrics["loss"].item(), metrics["grad_norm"].item())
     launched = counts(fa)
     (loss_c, grads_c, step_loss_c, norm_c), (loss_g, grads_g, step_loss_g, norm_g) = results["cpu"], results["cuda"]
     flat_c, flat_g = _flat(grads_c), _flat(grads_g)
@@ -835,25 +853,36 @@ def mini_batch(cfg, data_mod, *, seconds: int, prompt_lens, desc_lens, seed: int
     return data_mod.Collator(0, 0, 48, 32, frames + k + 2)(samples)
 
 
-def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
-    """Phase 7: the training path at full Mini width.  Returns the kernel
-    launches of the whole phase."""
-    cfg = cfg_mod.mini_600m_config()
-    layers = cfg.decoder.num_hidden_layers
-    model = parler.init(SEED, cfg, device="cuda")  # fp32 parameters
+@contextlib.contextmanager
+def train_route(step_mod, captured: bool):
+    """The train and eval steps on the captured route (the default on one
+    card) or, ``captured`` False, on the eager one."""
+    real = step_mod._captured_route
+    if not captured:
+        step_mod._captured_route = lambda model, mesh: False
+    try:
+        yield
+    finally:
+        step_mod._captured_route = real
+
+
+def train_run(cfg, base, fa, step_mod, batch, n_steps: int, captured: bool, profiled: bool = True) -> dict:
+    """On one route, a copy of ``base``: one eval step twice (the captured
+    route captures, then replays), then ``n_steps`` train steps on
+    ``batch`` (the Mini recipe, dropout on): losses, gradient norms, step
+    ms, kernel launches per step, the trained parameters, capture seconds
+    and bytes, peak memory; then, when ``profiled``, two steps under
+    ``launch_profile`` and one under ``profile_call``."""
+    model = copy.deepcopy(base)
     state = step_mod.create_state(model, learning_rate=9.5e-4, warmup_steps=1, b1=0.9, b2=0.99,
                                   weight_decay=0.01, max_grad_norm=1.0)
     train_step = step_mod.make_train_step(cfg, dtype=torch.bfloat16, dropout_seed=SEED)
-    n_params = sum(p.numel() for p in state.optimizer.params)
-    reset_counts(fa)
-    out = {"config": "mini_600m_config, fp32 parameters, bf16 compute, random weights (seed 0)",
-           "card": card, "trainable_params": n_params}
-    for seconds, prompt_lens, desc_lens, n_steps, route in (
-            (10, (32, 20, 27), (48, 31, 40), 5, "flash_attention_dqkv"),
-            (30, (26,), (48,), 2, "flash_attention_dq")):
-        batch = mini_batch(cfg, data_mod, seconds=seconds, prompt_lens=prompt_lens, desc_lens=desc_lens,
-                           seed=SEED + seconds)
-        b, t_lab = batch["labels"].shape[0], batch["labels"].shape[2]
+    eval_step = step_mod.make_eval_step(cfg, dtype=torch.bfloat16)
+    with train_route(step_mod, captured):
+        eval_losses = [eval_step(model, batch)["loss"].item() for _ in range(2)]
+        eval_graphs = step_mod._eval_graphs(model)
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         before = counts(fa)
         steps = []
@@ -861,48 +890,105 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
             timings = {}
             t0 = time.perf_counter()
             metrics = train_step(state, batch, timings)
+            loss = metrics["loss"].item()
             step_ms = 1e3 * (time.perf_counter() - t0)
-            steps.append({"step": metrics["step"], "loss": metrics["loss"].item(),
-                          "grad_norm": metrics["grad_norm"].item(), "step_ms": step_ms, **timings})
-            emit({"phase": "train_step", "seconds": seconds, "batch": b, **steps[-1]})
+            steps.append({"step": metrics["step"], "loss": loss, "grad_norm": metrics["grad_norm"].item(),
+                          "step_ms": step_ms, **timings})
         after = counts(fa)
-        launched = {name: (after[name] - before[name]) / n_steps for name in COUNTERS}
-        losses = [s["loss"] for s in steps]
+        run = {"route": "captured" if captured else "eager", "steps": steps,
+               "launches_per_step": {k: (after[k] - before[k]) / n_steps for k in after},
+               "params": [p.detach().clone() for p in state.optimizer.params],
+               "captures": state.graphs.captures, "replays": state.graphs.replays,
+               "capture_s": state.graphs.capture_seconds, "graph_bytes": state.graphs.nbytes,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "eval_losses": eval_losses,
+               "eval_captures": eval_graphs.captures, "eval_replays": eval_graphs.replays}
+        if profiled:
+            run["launch_profile"] = launch_profile(lambda: [train_step(state, batch) for _ in range(2)], 2)
+            run["profile"] = profile_call(lambda: train_step(state, batch))
+    del state, model
+    return run
+
+
+def train_gap(ref: dict, run: dict) -> dict:
+    """``run``'s largest differences from ``ref``: loss and gradient norm
+    relative over the steps, parameters absolute."""
+    def rel(key):
+        return max(abs(a[key] - b[key]) / abs(a[key]) for a, b in zip(ref["steps"], run["steps"]))
+
+    params = max(float((a - b).abs().max()) for a, b in zip(ref["params"], run["params"]))
+    return {"loss": rel("loss"), "grad_norm": rel("grad_norm"), "params": params}
+
+
+def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
+    """Phase 7: the training path at full Mini width, each shape on both
+    routes from the same initial state: twice eagerly (their spread) and
+    captured (``train_run``).  The captured run's losses, gradient norms
+    and parameters must equal the eager run's bit for bit where two eager
+    runs do, else stay within ``TRAIN_GRAPH_SPREAD`` times their spread;
+    K1 and the shape's backward kernels must launch once per layer per
+    step on each route, counted through replays; the captured route
+    captures once and replays after.  Returns the kernel launches of the
+    whole phase."""
+    cfg = cfg_mod.mini_600m_config()
+    layers = cfg.decoder.num_hidden_layers
+    base = parler.init(SEED, cfg, device="cuda")  # fp32 parameters
+    n_params = sum(p.numel() for p in step_mod.trainable_parameters(base))
+    reset_counts(fa)
+    out = {"config": "mini_600m_config, fp32 parameters, bf16 compute, random weights (seed 0), dropout 0.1",
+           "card": card, "trainable_params": n_params}
+    for seconds, prompt_lens, desc_lens, n_steps, route in (
+            (10, (32, 20, 27), (48, 31, 40), 5, "flash_attention_dqkv"),
+            (30, (26,), (48,), 3, "flash_attention_dq")):
+        batch = mini_batch(cfg, data_mod, seconds=seconds, prompt_lens=prompt_lens, desc_lens=desc_lens,
+                           seed=SEED + seconds)
+        b, t_lab = batch["labels"].shape[0], batch["labels"].shape[2]
+        runs = [train_run(cfg, base, fa, step_mod, batch, n_steps, captured, profiled)
+                for captured, profiled in ((False, True), (False, False), (True, True))]
+        eager, _, captured = runs
+        spread, gap = train_gap(eager, runs[1]), train_gap(eager, captured)
+        for run in runs:
+            del run["params"]
+        tol = {k: TRAIN_GRAPH_SPREAD * v for k, v in spread.items()}
         want = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                 "flash_attention_dqkv": 0}
         if route == "flash_attention_dqkv":
             want["flash_attention_dqkv"] = layers
         else:
             want["flash_attention_dq"] = want["flash_attention_dkv"] = layers
-        steady = steps[1:]
-        step_s = sorted(s["step_ms"] for s in steady)[len(steady) // 2] / 1e3
         flops = train_step_model_flops(cfg, b, t_lab, 48, 32)
-        summary = {
-            "seconds": seconds, "batch": b, "label_frames": t_lab, "fused_T": 32 + t_lab,
-            "losses": losses, "launches_per_step": launched, "median_step_ms": 1e3 * step_s,
-            "forward_ms": [s["forward_ms"] for s in steps], "backward_ms": [s["backward_ms"] for s in steps],
-            "optimizer_ms": [s["optimizer_ms"] for s in steps],
-            "audio_s_per_wall_s": b * seconds / step_s,
-            "codec_tokens_per_wall_s": b * t_lab * cfg.decoder.num_codebooks / step_s,
-            "model_tflop_per_step": flops / 1e12, "mfu_vs_989_tflops": flops / step_s / H100_BF16_FLOPS,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        }
-        emit({"phase": "train", **summary})
+        summary = {"seconds": seconds, "batch": b, "label_frames": t_lab, "fused_T": 32 + t_lab,
+                   "model_tflop_per_step": flops / 1e12, "spread_of_two_eager_runs": spread,
+                   "captured_vs_eager": gap, "tol": tol,
+                   "bit_for_bit": all(v == 0 for v in gap.values())}
+        for run in (eager, captured):
+            steady = run["steps"][1:]
+            step_s = sorted(s["step_ms"] for s in steady)[len(steady) // 2] / 1e3
+            run.update(median_step_ms=1e3 * step_s, audio_s_per_wall_s=b * seconds / step_s,
+                       codec_tokens_per_wall_s=b * t_lab * cfg.decoder.num_codebooks / step_s,
+                       mfu_vs_989_tflops=flops / step_s / H100_BF16_FLOPS)
+            summary[run["route"]] = run
+            emit({"phase": "train", "seconds": seconds, "batch": b, "card": card,
+                  **{k: v for k, v in run.items() if k != "profile"}})
+            emit({"phase": "train_profile", "seconds": seconds, "batch": b, "route": run["route"], **run["profile"]})
+        emit({"phase": "train_routes", **{k: v for k, v in summary.items() if k not in ("eager", "captured")}})
+        losses = [s["loss"] for run in runs for s in run["steps"]] + [x for run in runs for x in run["eval_losses"]]
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite training loss: {losses}")
-        if launched != want:
-            raise AssertionError(f"train steps at {seconds} s launched {launched} per step, want {want}")
-        prof = profile_call(lambda: train_step(state, batch))
-        emit({"phase": "train_profile", "seconds": seconds, "batch": b, **prof})
-        summary["profile"] = prof
-        if seconds == 10:
-            if not losses[-1] < losses[0]:
-                raise AssertionError(f"the loss did not fall over {n_steps} steps: {losses}")
-            eval_loss = step_mod.make_eval_step(cfg, dtype=torch.bfloat16)(model, batch)["loss"].item()
-            if not math.isfinite(eval_loss):
-                raise AssertionError(f"non-finite eval loss {eval_loss}")
-            summary["eval_loss"] = eval_loss
+        if any(run["launches_per_step"] != want for run in runs):
+            raise AssertionError(f"train steps at {seconds} s launched {[r['launches_per_step'] for r in runs]} "
+                                 f"per step, want {want}")
+        if any(gap[k] > tol[k] for k in gap):
+            raise AssertionError(f"the captured train step at {seconds} s is off the eager one: {gap}, tol {tol}")
+        if (captured["captures"], captured["replays"]) != (1, n_steps - 1) or eager["captures"]:
+            raise AssertionError(f"the captured route at {seconds} s did not capture once and replay")
+        if captured["eval_losses"] != eager["eval_losses"] or (captured["eval_captures"],
+                                                               captured["eval_replays"]) != (1, 1):
+            raise AssertionError(f"the captured eval step is not the eager one: {captured['eval_losses']} "
+                                 f"against {eager['eval_losses']}")
+        if seconds == 10 and not eager["steps"][-1]["loss"] < eager["steps"][0]["loss"]:
+            raise AssertionError(f"the loss did not fall over {n_steps} steps: {eager['steps']}")
         out[f"{seconds}s"] = summary
+    del base
     out["launches"] = counts(fa)
     emit({"phase": "train_path", **{k: v for k, v in out.items() if not k.endswith("0s")}})
     return out
@@ -1051,8 +1137,9 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
     eval at step 4 (loss pass over 3 samples, generation of up to 100
     positions), then a second ``main`` to step 6 that must resume from
     ``checkpoint-4-epoch-0`` with its trainable parameters bit for bit and
-    log steps 5 and 6 only.  Each train step must launch K1 and K4 once per
-    layer.  The first call of K1 and of K4 at each shape, in the train steps
+    log steps 5 and 6 only.  Each run's steps take the captured route (the
+    first captures, the others replay).  Each train step must launch K1
+    and K4 once per layer, counted through replays.  The first call of K1 and of K4 at each shape, in the train steps
     and in the eval (loss batches, generation prefill), keeps its inputs and
     outputs, which are then held against the plain versions (no launch).
     Returns the launches of both runs and the largest error of each kernel
@@ -1062,7 +1149,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
             "--max_eval_samples", "3", "--generation_max_length", "100", "--warmup_steps", "1",
             "--output_dir", out_dir]
     layers = cfg_mod.mini_600m_config().decoder.num_hidden_layers
-    per_step, restored, loaded = [], [], {}
+    per_step, routes, restored, loaded = [], [], [], {}
     make_train_step, load_train_state = step_mod.make_train_step, ck.load_train_state
     spy = KernelSpy(fa, ("flash_attention_fwd", "flash_attention_dqkv"), place="eval")
 
@@ -1081,7 +1168,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
                 restored.append({"path": os.path.basename(loaded["path"]), "step": state.step,
                                  "tensors": len(params), "bit_exact": set(own) == set(params) and all(
                                      torch.equal(own[k].cpu(), params[k]) for k in params)})
-            before = counts(fa)
+            before, graphs = counts(fa), (state.graphs.captures, state.graphs.replays)
             spy.place = "train step"
             try:
                 metrics = inner(state, batch, timings)
@@ -1089,6 +1176,8 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
                 spy.place = "eval"
             after = counts(fa)
             per_step.append({k: after[k] - before[k] for k in after})
+            routes.append("captured" if state.graphs.captures > graphs[0] else
+                          "replayed" if state.graphs.replays > graphs[1] else "eager")
             return metrics
         return step
 
@@ -1123,12 +1212,14 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
         "step_ms": t1["step_ms"] + t2["step_ms"], "save": t1["save"] + t2["save"], "load": t2["load"],
         "eval_ms": t1["eval"], "artifact": [t1["artifact"], t2["artifact"]],
         "checkpoints_after_first": ckpts_first, "checkpoints_after_second": ckpts, "restored": restored,
-        "launches_per_step": per_step, "launches_first_run": launches_first, "launches": launches,
+        "launches_per_step": per_step, "step_routes": routes, "launches_first_run": launches_first,
+        "launches": launches,
         "held_against_plain": held, "max_abs_err": errs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     emit({"phase": "train_cli", **summary})
     ok = (all(math.isfinite(x) for x in losses) and summary["steps_logged"] == [1, 2, 3, 4, 5, 6]
           and all(s == want_step for s in per_step) and len(per_step) == 6
+          and routes == ["captured", "replayed", "replayed", "replayed", "captured", "replayed"]
           and all(launches_first[k] == v for k, v in want_first.items())
           and evals and "eval/gen_code_len_mean" in evals[0] and math.isfinite(evals[0]["eval/loss"])
           and ckpts_first == ["checkpoint-4-epoch-0"] and ckpts == ["checkpoint-6-epoch-0"]
@@ -1725,7 +1816,7 @@ def prefill_cases(model, pipe, generate_mod) -> list[dict]:
                "differing": bad, "captured_ms": sorted(replay_ms)[len(replay_ms) // 2],
                "eager_ms": sorted(eager_ms)[len(eager_ms) // 2],
                "capture_s": (generate_mod.PREFILL_CAPTURE_SECONDS - capture_s) / new if new else None,
-               "k1_launches_per_replay": captured.prefills[generate_mod._input_shapes(inputs)].k1_launches}
+               "k1_launches_per_replay": captured.prefills[generate_mod._input_shapes(inputs)].launches["LAUNCHES"]}
         row["speedup"] = row["eager_ms"] / row["captured_ms"]
         emit({"phase": "decode_graph_prefill", **row})
         rows.append(row)
@@ -1750,6 +1841,8 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
     or the warm-up that is a capturing call's prefill.  Peak memory
     allocated and nvidia-smi's memory.used.  Returns K1's launches and its
     largest error held."""
+    from parler_tts_tpu_torch.core import graphs as graphs_mod
+
     layers = cfg.decoder.num_hidden_layers
     tensors = {key: torch.from_numpy(value).cuda() for key, value in pipe.tokenize(DESCRIPTIONS, _prompts(50)).items()}
     inputs = {"prompt_hidden_states": None, "decoder_input_codes": None, **tensors}
@@ -1863,7 +1956,7 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
         "static_bytes_bf16_model": sum(c.nbytes for c in graphs.sets.values()),
         "decode_view_bytes_bf16_model": sum(x.numel() * x.element_size() for view in graphs.views.values()
                                             for x in generate_mod._view_tensors(view)),
-        "graph_memory_share": generate_mod.GRAPH_MEMORY_SHARE,
+        "graph_memory_share": graphs_mod.GRAPH_MEMORY_SHARE,
         "peak_mem_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "memory_used_mib": subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
                                           capture_output=True, text=True, timeout=60).stdout.strip(),

@@ -87,6 +87,9 @@ import torch
 
 from parler_tts_tpu_torch.core.config import GenerationConfig, ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
+from parler_tts_tpu_torch.core.graphs import budget as _budget
+from parler_tts_tpu_torch.core.graphs import new_pool as _new_pool
+from parler_tts_tpu_torch.core.graphs import record as _record
 from parler_tts_tpu_torch.generation import sampling
 from parler_tts_tpu_torch.models import codec as codec_mod
 from parler_tts_tpu_torch.models.decoder import DecodeLayer, DecodeParams, KVCache, init_cache
@@ -100,9 +103,6 @@ NoiseFn = Callable[[int], torch.Tensor]
 
 #: decode steps per segment (JAX ``models/decoder.STAGE``)
 STAGE = 64
-#: a model's captured signatures keep static buffers (state and KV cache) of
-#: at most this share of the card's memory; the least recently used go first
-GRAPH_MEMORY_SHARE = 0.25
 
 #: decode steps replayed from CUDA graphs, step graphs captured, seconds
 #: spent capturing them (warm-up step included)
@@ -414,50 +414,14 @@ def _eager_segment(model, gen, s: DecodeState, generator, noise) -> Segment:
     return run
 
 
-def _new_pool():
-    return torch.cuda.graph_pool_handle()
-
-
-def _budget(device: torch.device) -> float:
-    """Bytes the captured signatures of one model may hold."""
-    return GRAPH_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
-
-
-def _record(fn: Callable[[], None], pool) -> tuple[torch.cuda.CUDAGraph, int]:
-    """``fn()`` once on the stream ``torch.cuda.graph`` captures on, then
-    captured there into a graph on ``pool``: library set-up (handles,
-    workspaces) stays out of the capture and is made once for that stream.
-    The capture runs nothing, so what the warm-up wrote stays.  Returns the
-    graph and the bytes the capture reserved for the pool (the allocator's
-    reserved bytes around it, after the cached blocks are freed: a capture
-    allocates from the pool alone)."""
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.graph(graph).capture_stream
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()  # as torch.cuda.graph does before a capture
-    reserved = torch.cuda.memory_reserved()
-    with torch.cuda.stream(side):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            fn()
-        finally:
-            graph.capture_end()
-    torch.cuda.synchronize()
-    return graph, torch.cuda.memory_reserved() - reserved
-
-
 class _Prefill(NamedTuple):
     """One input shape's captured prefill: its static inputs, its graph (on
-    a pool of its own) and the K1 launches the graph holds."""
+    a pool of its own) and the kernel launches the graph holds (K1's, by
+    ``flash_attention.recorded``)."""
 
     inputs: dict[str, torch.Tensor | None]
     graph: torch.cuda.CUDAGraph
-    k1_launches: int
+    launches: dict[str, int]
 
 
 class _Captured:
@@ -486,7 +450,7 @@ class _DecodeGraphs:
     the decode views by ``int8_weights`` and dtype (shared by every
     signature, refreshed from the weights at each call) and the signatures'
     static states in least-recently-used order, their bytes bounded by
-    ``GRAPH_MEMORY_SHARE`` of the card's memory (the newest is kept even
+    ``core/graphs.GRAPH_MEMORY_SHARE`` of the card's memory (the newest is kept even
     alone over it).  ``lock`` is held while a call runs on them: a whole
     ``generate_tokens``, or a stream's prefill and each of its chunks, never
     across a ``yield``.  A state that a stream leases is neither dropped nor
@@ -595,9 +559,9 @@ def _captured_prefill(model, gen, captured: _Captured, plan: _Plan, *, max_lengt
     known = captured.prefills.get(shapes)
     if known is None:
         static = {name: None if x is None else x.to(s.tokens.device, copy=True) for name, x in inputs.items()}
-        t0, recorded = time.perf_counter(), fa.RECORDED
+        t0, recorded = time.perf_counter(), fa.recorded()
         graph, nbytes = _record(lambda: _prefill_into(model, gen, plan, s, max_length, static), _new_pool())
-        captured.prefills[shapes] = _Prefill(static, graph, fa.RECORDED - recorded)
+        captured.prefills[shapes] = _Prefill(static, graph, {k: n - recorded[k] for k, n in fa.recorded().items()})
         captured.nbytes += nbytes + _nbytes(*static.values())
         PREFILL_CAPTURES += 1
         PREFILL_CAPTURE_SECONDS += time.perf_counter() - t0
@@ -606,7 +570,7 @@ def _captured_prefill(model, gen, captured: _Captured, plan: _Plan, *, max_lengt
             if x is not None:
                 known.inputs[name].copy_(x)
         known.graph.replay()
-        fa.LAUNCHES += known.k1_launches
+        fa.replayed(known.launches)
         PREFILL_REPLAYS += 1
     s.t, s.limits = plan.t0, plan.limits
     s.cache.index = plan.p_len + plan.t0

@@ -24,8 +24,12 @@ Port of ``parler_tts_tpu/models/decoder.py``:
 
 Train mode is entered by passing a ``generator`` (the JAX ``train_key``).
 Its draws seed one device generator per layer inside the layer, so a
-recomputed layer replays its dropout masks.  Torch's random bits are not
-JAX's: masks agree in distribution, not value.
+recomputed layer replays its dropout masks.  A captured train step
+(``training/step.py``) makes the same draws on the host and passes them as
+a ``TrainRandom``: generators made once per signature and seeded before
+each replay, and layerdrop as a mask on the device over layers that all
+run.  Torch's random bits are not JAX's: masks agree in distribution, not
+value.
 
 The KV cache is not the JAX package's: its time-minor ``(L, B, H, D, T)``
 buffers, staged flushes and physically grown buckets exist for the TPU's
@@ -92,6 +96,71 @@ def sinusoidal_positions(num_positions: int, dim: int) -> torch.Tensor:
 
 def _layer_out(layer: DecoderLayer, *args) -> torch.Tensor:
     return layer.forward_full(*args)[0]
+
+
+class SeededRng(NamedTuple):
+    """An eager layer's dropout in train mode: each (re)computation of the
+    layer makes its generator anew from ``seed``, so a recomputed layer
+    draws its forward's masks.  Split over a model group, the split
+    activations draw from a second generator seeded by (``seed``, model
+    rank)."""
+
+    seed: int
+
+    def generators(self, device: torch.device, group) -> tuple[torch.Generator, torch.Generator]:
+        gen = torch.Generator(device=device).manual_seed(self.seed)
+        if group is None:
+            return gen, gen
+        return gen, torch.Generator(device=device).manual_seed(hash((self.seed, group.index)) % 2**62)
+
+
+class ReplayedRng:
+    """A captured layer's dropout in train mode: generators made once per
+    captured signature, which the caller seeds with the layer's seed before
+    each run (a graph replays their draws from their state at replay).  The
+    layer's computations take them in turn: its forward the first and, with
+    remat, its recomputation the second, so both draw the same masks.  The
+    caller sets ``calls`` to 0 before each run.  Unsplit layers only."""
+
+    def __init__(self, generators: list[torch.Generator]):
+        self.gens, self.calls = generators, 0
+
+    def generators(self, device: torch.device, group) -> tuple[torch.Generator, torch.Generator]:
+        if group is not None:
+            raise ValueError("a split layer draws from seeded generators")
+        gen = self.gens[self.calls % len(self.gens)]
+        self.calls += 1
+        return gen, gen
+
+
+def train_draws(generator: torch.Generator, layers: int, layerdrop: float) -> tuple[list[int], list[bool] | None]:
+    """Train mode's draws from the step's host ``generator``: a seed for
+    each layer's dropout and one for the embedded sequence's, then, with
+    ``layerdrop``, whether each layer runs (None: all run)."""
+    seeds = torch.randint(0, 2**62, (layers + 1,), generator=generator, device=generator.device).tolist()
+    if layerdrop <= 0.0:
+        return seeds, None
+    return seeds, (torch.rand(layers, generator=generator, device=generator.device) >= layerdrop).tolist()
+
+
+@dataclasses.dataclass
+class TrainRandom:
+    """Train mode's randomness for one forward: an rng per layer, one for
+    the embedded sequence (``SeededRng`` or ``ReplayedRng``), and which
+    layers layerdrop keeps: None (all), a list (the others are skipped) or
+    a (layers,) bool tensor on the device (every layer runs and the mask
+    picks its output or its input, as JAX does: a captured step's work
+    cannot depend on the draw)."""
+
+    layers: list
+    embed: SeededRng | ReplayedRng
+    keep: list[bool] | torch.Tensor | None = None
+
+    @classmethod
+    def drawn(cls, generator: torch.Generator, layers: int, layerdrop: float) -> "TrainRandom":
+        """The eager step's, drawn from its host ``generator``."""
+        seeds, keep = train_draws(generator, layers, layerdrop)
+        return cls([SeededRng(s) for s in seeds[:layers]], SeededRng(seeds[layers]), keep)
 
 
 @dataclasses.dataclass
@@ -271,19 +340,17 @@ class DecoderLayer(nn.Module):
         return DecodeLayer(of(qkv), of(sa.o.kernel, True), of(ca.q.kernel), of(ca.o.kernel, True), of(self.fc1.kernel),
                            of(self.fc2.kernel, True))
 
-    def forward_full(self, x, flash_mask, self_mask, enc, enc_mask, seed: int | None = None):
+    def forward_full(self, x, flash_mask, self_mask, enc, enc_mask, rng: SeededRng | ReplayedRng | None = None):
         """Full-sequence layer.  Returns (x, self K/V, cross K/V or None when
-        ``enc`` is None).  ``seed`` (train mode) seeds this layer's dropout
-        generator; split activations draw from a second one seeded by
-        (``seed``, model rank) when the layer is split.  ``enc`` must come
+        ``enc`` is None).  ``rng`` (train mode) gives this layer's dropout
+        generators: one for the replicated activations, one for the split
+        ones (the same unless the layer is split).  ``enc`` must come
         through ``tp.copy`` when the layer is split (``ParlerDecoder``
         does that once for every layer)."""
         group = self.model_group
         gen = split_gen = None
-        if seed is not None:
-            gen = split_gen = torch.Generator(device=x.device).manual_seed(seed)
-            if group is not None:
-                split_gen = torch.Generator(device=x.device).manual_seed(hash((seed, group.index)) % 2**62)
+        if rng is not None:
+            gen, split_gen = rng.generators(x.device, group)
         q, k, v = self.self_attn.project(tp.copy(self.ln_self(x), group))
         attn_drop = self.attention_dropout if gen is not None else 0.0
         if q.shape[2] > 1 and not attn_drop:
@@ -388,6 +455,7 @@ class ParlerDecoder(nn.Module):
                 cache: KVCache | None = None,
                 dtype: torch.dtype | None = None,
                 generator: torch.Generator | None = None,
+                train_random: TrainRandom | None = None,
                 remat: bool = False) -> torch.Tensor:
         """Full-sequence forward over the fused (prompt + codes) sequence.
 
@@ -399,9 +467,10 @@ class ParlerDecoder(nn.Module):
         themselves attend over unquantized K/V) and its index advances to
         ``T_fused``.  ``dtype`` is the compute dtype (None = the
         parameters').  Without a cache, ``generator`` turns on train mode
-        (dropout and layerdrop; see the module docstring) and ``remat``
-        recomputes each layer in the backward.  Returns the final-normed
-        hidden states (B, T_fused, H)."""
+        (dropout and layerdrop; see the module docstring), drawing its
+        ``TrainRandom`` from it, or ``train_random`` gives it drawn (a
+        captured step's); ``remat`` recomputes each layer in the backward.
+        Returns the final-normed hidden states (B, T_fused, H)."""
         dtype = dtype or self.dtype
         x = self.embed_codebooks(input_ids, dtype)
         if prompt_hidden_states is not None:
@@ -420,7 +489,7 @@ class ParlerDecoder(nn.Module):
         if cache is not None:
             if cache.index != 0:
                 raise ValueError("prefill needs an empty cache (index 0)")
-            if generator is not None or remat:
+            if generator is not None or train_random is not None or remat:
                 raise ValueError("train mode and remat run without a cache")
             if (enc is None) != (cache.cross_k is None):
                 raise ValueError("the cache's cross K/V and the encoder states must come together")
@@ -435,23 +504,21 @@ class ParlerDecoder(nn.Module):
             return self.final_ln(x)
 
         n = len(self.layers)
-        seeds, keep = [None] * n, [True] * n
         if generator is not None:
-            drawn = torch.randint(0, 2**62, (n + 1,), generator=generator, device=generator.device).tolist()
-            seeds = drawn[:n]
-            emb_gen = torch.Generator(device=x.device).manual_seed(drawn[n])
-            x = dropout(x, self.cfg.dropout, emb_gen)
-            if self.cfg.layerdrop > 0.0:  # per-layer Bernoulli skip
-                draws = torch.rand(n, generator=generator, device=generator.device)
-                keep = (draws >= self.cfg.layerdrop).tolist()
-        for layer, seed, kept in zip(self.layers, seeds, keep):
-            if not kept:
+            train_random = TrainRandom.drawn(generator, n, self.cfg.layerdrop)
+        rngs, keep = [None] * n, None
+        if train_random is not None:
+            x = dropout(x, self.cfg.dropout, train_random.embed.generators(x.device, None)[0])
+            rngs, keep = train_random.layers, train_random.keep
+        for i, (layer, rng) in enumerate(zip(self.layers, rngs)):
+            if isinstance(keep, list) and not keep[i]:  # layerdrop's per-layer Bernoulli skip
                 continue
-            args = (x, flash_mask, self_mask, enc, encoder_attention_mask, seed)
-            if remat:
-                x = checkpoint(_layer_out, layer, *args, use_reentrant=False)
+            args = (x, flash_mask, self_mask, enc, encoder_attention_mask, rng)
+            if remat:  # the layer's rng replays its masks: no default-generator state to keep
+                out = checkpoint(_layer_out, layer, *args, use_reentrant=False, preserve_rng_state=False)
             else:
-                x = _layer_out(layer, *args)
+                out = _layer_out(layer, *args)
+            x = torch.where(keep[i], out, x) if torch.is_tensor(keep) else out
         return self.final_ln(x)
 
     @torch.no_grad()

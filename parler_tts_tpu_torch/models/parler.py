@@ -18,7 +18,7 @@ from parler_tts_tpu_torch.core import torch_import as ti
 from parler_tts_tpu_torch.core.config import ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
 from parler_tts_tpu_torch.models import codec as codec_mod
-from parler_tts_tpu_torch.models.decoder import ParlerDecoder, loss_fn
+from parler_tts_tpu_torch.models.decoder import ParlerDecoder, TrainRandom, loss_fn
 from parler_tts_tpu_torch.models.delay_pattern import labels_to_decoder_inputs
 from parler_tts_tpu_torch.models.t5_encoder import T5Encoder
 from parler_tts_tpu_torch.ops.nn import Dense, Embedding
@@ -60,12 +60,13 @@ class ParlerTTSModel(nn.Module):
     def train_forward(self, *, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                       prompt_input_ids: torch.Tensor, prompt_attention_mask: torch.Tensor,
                       labels: torch.Tensor, decoder_attention_mask: torch.Tensor | None = None,
-                      generator: torch.Generator | None = None, remat: bool = False,
-                      dtype: torch.dtype = torch.float32,
+                      generator: torch.Generator | None = None, train_random: TrainRandom | None = None,
+                      remat: bool = False, dtype: torch.dtype = torch.float32,
                       count_group=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced loss over delay-pattern ``labels`` (B, K, T) with
-        -100 holes.  ``generator`` turns on the decoder's dropout and
-        layerdrop, ``remat`` its per-layer recomputation; ``dtype`` is the
+        -100 holes.  ``generator`` (or ``train_random``, drawn already)
+        turns on the decoder's dropout and layerdrop (``models/decoder``),
+        ``remat`` its per-layer recomputation; ``dtype`` is the
         compute dtype; with ``count_group`` (a data group) the loss is this
         rank's share of the global batch's (``models/decoder.loss_fn``).
         Returns (loss, logits (B, K, T, V))."""
@@ -81,7 +82,8 @@ class ParlerTTSModel(nn.Module):
                                 decoder_attention_mask.to(torch.int32)], dim=1)
         hidden = self.decoder(decoder_input_ids, encoder_hidden_states=enc_hidden,
                               encoder_attention_mask=attention_mask, prompt_hidden_states=prompt_hidden,
-                              attention_mask=fused_mask, dtype=dtype, generator=generator, remat=remat)
+                              attention_mask=fused_mask, dtype=dtype, generator=generator,
+                              train_random=train_random, remat=remat)
         logits = self.decoder.logits(hidden, num_labels=t)
         return loss_fn(logits, labels, decoder_input_ids, dcfg, count_group=count_group), logits
 

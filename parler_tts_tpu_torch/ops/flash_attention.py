@@ -54,13 +54,19 @@ NEG_INF = -1e9
 
 #: kernel launches since the counter was last reset, one counter per kernel
 #: (the plain versions and the CPU path do not count): K1, K2, K3, K4.  A
-#: K1 call while the current stream is captured launches nothing: it counts
-#: in RECORDED, and whoever replays the graph adds its launches to LAUNCHES
+#: call while the current stream is captured launches nothing: it counts in
+#: the kernel's RECORDED counter, and whoever replays the graph adds the
+#: launches it holds (``recorded`` read around its capture) by ``replayed``
 LAUNCHES = 0
-RECORDED = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DKV = 0
 LAUNCHES_DQKV = 0
+RECORDED = 0
+RECORDED_DQ = 0
+RECORDED_DKV = 0
+RECORDED_DQKV = 0
+_RECORDED = {"LAUNCHES": "RECORDED", "LAUNCHES_DQ": "RECORDED_DQ", "LAUNCHES_DKV": "RECORDED_DKV",
+             "LAUNCHES_DQKV": "RECORDED_DQKV"}
 
 FUSED_MAX_LEN = 1024  # the JAX package's default tile: one tile pair -> fused backward
 
@@ -219,6 +225,26 @@ def _launch(name, tensors, q, tk, scale, causal, q_offset) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _count(launches: str) -> None:
+    """One call of the kernel whose launch counter is named ``launches``: a
+    launch, or a record under capture."""
+    name = _RECORDED[launches] if torch.cuda.is_current_stream_capturing() else launches
+    globals()[name] += 1
+
+
+def recorded() -> dict[str, int]:
+    """Each kernel's recorded calls, by its launch counter's name; a graph
+    holds the difference of two readings around its capture."""
+    return {launches: globals()[name] for launches, name in _RECORDED.items()}
+
+
+def replayed(launches: dict[str, int]) -> None:
+    """Add one replay's kernel launches (``recorded`` differences) to the
+    launch counters."""
+    for name, n in launches.items():
+        globals()[name] += n
+
+
 def _dispatch(plain, cuda, **kw):
     """The plain version for CPU tensors, the kernel for CUDA tensors."""
     device = kw["q"].device
@@ -230,16 +256,12 @@ def _dispatch(plain, cuda, **kw):
 
 
 def _fwd_cuda(q, k, v, kv_start, kv_end, *, scale, causal, q_offset):
-    global LAUNCHES, RECORDED
     _check("flash_attention_fwd", q, k, v, kv_start, kv_end)
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", (q, k, v, kv_start, kv_end, out, lse), q, k.shape[1], scale,
             causal, q_offset)
-    if torch.cuda.is_current_stream_capturing():
-        RECORDED += 1
-    else:
-        LAUNCHES += 1
+    _count("LAUNCHES")
     return out, lse
 
 
@@ -250,33 +272,30 @@ def _bwd_rows(q, do, lse, delta):
 
 
 def _dq_cuda(q, k, v, do, lse, delta, kv_start, kv_end, *, scale, causal, q_offset):
-    global LAUNCHES_DQ
     _check("flash_attention_dq", q, k, v, kv_start, kv_end, *_bwd_rows(q, do, lse, delta))
     dq = torch.empty_like(q)
     _launch("flash_attention_dq", (q, k, v, do, lse, delta, kv_start, kv_end, dq), q, k.shape[1],
             scale, causal, q_offset)
-    LAUNCHES_DQ += 1
+    _count("LAUNCHES_DQ")
     return dq
 
 
 def _dkv_cuda(q, k, v, do, lse, delta, kv_start, kv_end, *, scale, causal, q_offset):
-    global LAUNCHES_DKV
     _check("flash_attention_dkv", q, k, v, kv_start, kv_end, *_bwd_rows(q, do, lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_dkv", (q, k, v, do, lse, delta, kv_start, kv_end, dk, dv), q,
             k.shape[1], scale, causal, q_offset)
-    LAUNCHES_DKV += 1
+    _count("LAUNCHES_DKV")
     return dk, dv
 
 
 def _dqkv_cuda(q, k, v, do, lse, delta, kv_start, kv_end, *, scale, causal, q_offset):
-    global LAUNCHES_DQKV
     _check("flash_attention_dqkv", q, k, v, kv_start, kv_end, *_bwd_rows(q, do, lse, delta))
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)  # fp32 atomicAdd target
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_dqkv", (q, k, v, do, lse, delta, kv_start, kv_end, dq, dk, dv), q,
             k.shape[1], scale, causal, q_offset)
-    LAUNCHES_DQKV += 1
+    _count("LAUNCHES_DQKV")
     return dq.to(q.dtype), dk, dv
 
 

@@ -80,11 +80,29 @@ def global_norm(tensors: list[torch.Tensor], split: list[bool] | None = None, gr
     return (split_squares + norms[~mask].square().sum()).sqrt().float()
 
 
+def capturable(device: torch.device) -> bool:
+    """Whether AdamW runs its capturable form on ``device`` (its step count
+    and learning rate on the device, no host reads): on CUDA, where train
+    steps are captured; torch refuses it on the CPU."""
+    return device.type == "cuda"
+
+
 class Optimizer:
     """Clipped AdamW with gradient accumulation over a fixed list of
     parameters, updated in place by :meth:`update`.  ``split`` flags the
     parameters that hold a model rank's shard, ``model_group`` is their
-    group (``global_norm``)."""
+    group (``global_norm``).
+
+    Every tensor it updates is made once, here, and changed in place ever
+    after (AdamW's moments and step counts, the accumulation buffer, the
+    learning rate and the accumulation's divisor on the device), so a
+    captured train step's graph stays valid through updates and loads.
+    An update is three parts: :meth:`stage` on the host (whether this call
+    updates, its learning rate from the schedule, the divisor), :meth:`apply`
+    on the device (all a graph holds) and :meth:`advance` on the host (the
+    counts).  On CUDA, AdamW is torch's capturable form with a device
+    learning rate, on either route, so a captured and an eager step do the
+    same arithmetic."""
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Schedule, *, b1: float, b2: float,
                  eps: float, weight_decay: float, max_grad_norm: float | None, grad_accum_steps: int,
@@ -96,40 +114,74 @@ class Optimizer:
         self.grad_accum_steps = grad_accum_steps
         self.count = 0  # updates applied
         self.mini_step = 0  # micro-batches accumulated towards the next update
-        self._acc: list[torch.Tensor] | None = None
-        self._adamw = torch.optim.AdamW(self.params, lr=0.0, betas=(b1, b2), eps=eps,
-                                        weight_decay=weight_decay)
+        device = self.params[0].device
+        on_device = capturable(device)
+        lr = torch.zeros((), device=device) if on_device else 0.0
+        self._adamw = torch.optim.AdamW(self.params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+                                        capturable=on_device, foreach=on_device or None)
+        for p in self.params:
+            self._adamw.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32, device=device if on_device else "cpu"),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+        self._acc = [torch.zeros_like(p) for p in self.params] if grad_accum_steps > 1 else None
+        self._divisor = torch.ones((), device=device)  # the running mean's n + 1
 
     def update(self, grads: list[torch.Tensor], grad_norm: torch.Tensor | None = None) -> bool:
         """Take one micro-batch of grads (one per parameter).  Returns whether
         the parameters were updated.  ``grad_norm``, the grads' global norm
         if the caller has it, saves recomputing it without accumulation."""
+        updates = self.stage()
+        self.apply(grads, grad_norm, updates)
+        self.advance(updates)
+        return updates
+
+    def stage(self) -> bool:
+        """The next call's host part, before its device work: returns whether
+        it updates; sets its learning rate (``schedule(count)``) and the
+        accumulation's divisor, and zeroes the buffer at an accumulation's
+        start.  It launches only fills."""
+        updates = self.mini_step == self.grad_accum_steps - 1
+        if self._acc is not None:
+            if self.mini_step == 0:
+                torch._foreach_zero_(self._acc)
+            self._divisor.fill_(self.mini_step + 1)
+        if updates:
+            lr = self.schedule(self.count)
+            for group in self._adamw.param_groups:
+                if torch.is_tensor(group["lr"]):
+                    group["lr"].fill_(lr)
+                else:
+                    group["lr"] = lr
+        return updates
+
+    def apply(self, grads: list[torch.Tensor], grad_norm: torch.Tensor | None, updates: bool) -> None:
+        """The device part of a call that :meth:`stage` staged: the running
+        mean of the micro-batch grads (optax's ``acc + (g - acc) / (n + 1)``),
+        then, when ``updates``, clipping and AdamW.  Reads nothing on the
+        host."""
         grads = list(grads)
-        if self.grad_accum_steps > 1:
-            n = self.mini_step
-            if n == 0:
-                self._acc = [g.detach().clone() for g in grads]
-            else:  # optax's running mean: acc + (g - acc) / (n + 1)
-                for a, g in zip(self._acc, grads):
-                    a.add_((g - a) / (n + 1))
-            self.mini_step = (n + 1) % self.grad_accum_steps
-            if self.mini_step:
-                return False
-            grads, self._acc, grad_norm = self._acc, None, None
+        if self._acc is not None:
+            diff = torch._foreach_sub(grads, self._acc)
+            torch._foreach_div_(diff, self._divisor)
+            torch._foreach_add_(self._acc, diff)
+            if not updates:
+                return
+            grads, grad_norm = self._acc, None
         if self.max_grad_norm is not None:
             norm = self.norm(grads) if grad_norm is None else grad_norm
             scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
             grads = torch._foreach_mul(grads, scale)
-        lr = self.schedule(self.count)
-        for group in self._adamw.param_groups:
-            group["lr"] = lr
         for p, g in zip(self.params, grads):
             p.grad = g.to(p.dtype)
         self._adamw.step()
         for p in self.params:
             p.grad = None
-        self.count += 1
-        return True
+
+    def advance(self, updates: bool) -> None:
+        """The counts after a call that :meth:`stage` staged."""
+        self.mini_step = (self.mini_step + 1) % self.grad_accum_steps
+        self.count += int(updates)
 
     def norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """The global norm of a full set of grads, over the model group's
@@ -137,21 +189,31 @@ class Optimizer:
         return global_norm(grads, self.split, self.model_group)
 
     def state_dict(self) -> dict:
-        """AdamW's ``state_dict`` (keyed by the index in ``params``), the
-        update count, the accumulation position and, mid-accumulation, the
-        running mean of the grads."""
-        return {"adamw": self._adamw.state_dict(), "count": self.count, "mini_step": self.mini_step,
-                "acc": None if self._acc is None else list(self._acc)}
+        """AdamW's ``state_dict`` (keyed by the index in ``params``; the
+        learning rate a float), the update count, the accumulation position
+        and, mid-accumulation, the running mean of the grads."""
+        adamw = self._adamw.state_dict()
+        adamw["param_groups"] = [{**g, "lr": float(g["lr"])} for g in adamw["param_groups"]]
+        return {"adamw": adamw, "count": self.count, "mini_step": self.mini_step,
+                "acc": list(self._acc) if self.mini_step else None}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Restore :meth:`state_dict` over the same ``params`` (in the same
-        order); tensors move to the parameters' devices."""
+        order), copied into this optimizer's own tensors (whatever device
+        they were saved from).  The hyperparameters are this optimizer's,
+        as optax keeps them out of its state."""
         acc = state["acc"]
-        if acc is not None and [a.shape for a in acc] != [p.shape for p in self.params]:
-            raise ValueError("the accumulation buffer does not match the parameters")
-        self._adamw.load_state_dict(state["adamw"])
+        if acc is not None and (self._acc is None or [a.shape for a in acc] != [p.shape for p in self.params]):
+            raise ValueError("the accumulation buffer does not match this optimizer's")
+        for i, p in enumerate(self.params):
+            own = self._adamw.state[p]
+            for key, value in state["adamw"]["state"].get(i, {}).items():
+                own[key].copy_(value)
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
-        self._acc = None if acc is None else [a.to(p.device, p.dtype) for a, p in zip(acc, self.params)]
+        if acc is not None:
+            for a, x in zip(self._acc, acc):
+                a.copy_(x)
 
 
 def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float = 9.5e-4, *,

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the decode loop, the stream and the prefill captured in CUDA graphs
-against the per-step eager loop and the eager prefill.
+the decode loop, the stream and the prefill captured in CUDA graphs
+against the per-step eager loop and the eager prefill, the captured train
+and eval steps against the eager ones, and failed captures (they raise,
+and leave every generator they registered usable).
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 file imports no JAX, so it also runs on a machine with the card and without
@@ -30,18 +32,6 @@ def cuda():
         pytest.skip("needs a CUDA device and nvcc (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-@pytest.fixture
-def fresh_rng_after():
-    """A failed capture leaves the default CUDA generator, which every
-    capture registers, mid-capture (its epilogue never runs), and each later
-    draw from it raises: give it a fresh copy of its state afterwards, and
-    draw once.  The failure tests run last."""
-    yield
-    gen = torch.cuda.default_generators[torch.cuda.current_device()]
-    gen.graphsafe_set_state(gen.clone_state())
-    torch.rand(1, device="cuda")
 
 
 @pytest.mark.cuda
@@ -486,8 +476,199 @@ def test_generate_between_two_chunks_of_an_open_stream(cuda):
     assert not any(c.leased for c in graphs.sets.values())
 
 
+# --- the captured train and eval steps -------------------------------------------------------------
+
+TRAIN_STEPS = 4
+
+
+def _train_setup(layerdrop: float = 0.0):
+    """The dummy config (dropout 0.1) at fp32 on the card, and two batches
+    of two rows of one shape (fused T = 10 + 80 + 11)."""
+    import dataclasses
+
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.models import parler as pparler
+    from parler_tts_tpu_torch.training import data as pdata
+    from parler_tts_tpu_torch.training import run_training as prun
+
+    cfg = pcfg.dummy_config()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, dropout=0.1, layerdrop=layerdrop))
+    model = pparler.init(0, cfg, device="cuda")
+    batches = []
+    for seed in (0, 1):
+        samples = prun.prepare_synthetic(2, cfg, seed=seed, desc_len=12, prompt_len=10, codes_len=80)
+        batches.append(pdata.Collator(0, 0, 12, 10, 80 + cfg.decoder.num_codebooks + 2)(samples))
+    return cfg, model, batches
+
+
+def _train_run(cfg, model, batches, *, captured: bool, remat: bool = False, lr: float = 1e-3, steps=TRAIN_STEPS):
+    """``steps`` bf16 train steps of a copy of ``model`` on one route: the
+    losses and norms, the trained parameters, the kernel launches per step
+    and the state's graphs."""
+    import copy
+
+    from parler_tts_tpu_torch.training import step as pstep
+
+    state = pstep.create_state(copy.deepcopy(model), learning_rate=lr, warmup_steps=1)
+    step = pstep.make_train_step(cfg, dtype=torch.bfloat16, dropout_seed=0, remat=remat)
+    real = pstep._captured_route
+    if not captured:
+        pstep._captured_route = lambda model, mesh: False
+    try:
+        before = (pfa.LAUNCHES, pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+        out = [step(state, batches[i % len(batches)]) for i in range(steps)]
+        after = (pfa.LAUNCHES, pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+    finally:
+        pstep._captured_route = real
+    return {"losses": torch.stack([m["loss"] for m in out]), "norms": torch.stack([m["grad_norm"] for m in out]),
+            "params": [p.detach().clone() for p in state.optimizer.params],
+            "launches": [(a - b) / steps for a, b in zip(after, before)], "graphs": state.graphs}
+
+
+def _gap(a: dict, b: dict) -> list[float]:
+    return [float((a["losses"] - b["losses"]).abs().max()), float((a["norms"] - b["norms"]).abs().max()),
+            max(float((x - y).abs().max()) for x, y in zip(a["params"], b["params"]))]
+
+
 @pytest.mark.cuda
-def test_a_failed_prefill_capture_raises(cuda, monkeypatch, fresh_rng_after):
+@pytest.mark.parametrize("backward,remat,layerdrop", [("k2_k3", False, 0.0), ("k2_k3", True, 0.25),
+                                                      ("k4", False, 0.0)])
+def test_captured_train_steps_equal_the_eager_steps(cuda, monkeypatch, backward, remat, layerdrop):
+    """Four steps on each route from the same state, dropout on: one
+    capture, then replays; K1 (twice with remat) and the backward kernels
+    launch once per layer per step on both routes, counted through
+    replays (eagerly, once per layer that layerdrop keeps).  With K2 + K3
+    (forced: every kernel of the step sums in a fixed order; remat and
+    layerdrop's device mask on one case) the captured losses, norms and
+    parameters are the eager ones bit for bit, as two eager runs are; with
+    K4, whose dq sums with fp32 atomics, they are within 8 times the
+    spread of two eager runs."""
+    monkeypatch.setenv("PARLER_FLASH_NO_FUSED_BWD", "1" if backward == "k2_k3" else "0")
+    cfg, model, batches = _train_setup(layerdrop)
+    eager = _train_run(cfg, model, batches, captured=False, remat=remat)
+    again = _train_run(cfg, model, batches, captured=False, remat=remat)
+    captured = _train_run(cfg, model, batches, captured=True, remat=remat)
+    from parler_tts_tpu_torch.models.decoder import train_draws
+    from parler_tts_tpu_torch.training.step import dropout_generator
+
+    layers = cfg.decoder.num_hidden_layers
+    kept = sum(sum(train_draws(dropout_generator(0, s), layers, layerdrop)[1] or [True] * layers)
+               for s in range(TRAIN_STEPS)) / TRAIN_STEPS  # the eager route skips the others
+    assert kept < layers if layerdrop else kept == layers
+    for run, n in ((eager, kept), (captured, layers)):  # the captured route runs every layer
+        k1 = 2 * n if remat else n  # remat runs each layer's forward again in the backward
+        assert run["launches"] == ([k1, n, n, 0] if backward == "k2_k3" else [k1, 0, 0, n])
+    assert (captured["graphs"].captures, captured["graphs"].replays) == (1, TRAIN_STEPS - 1)
+    spread, gap = _gap(eager, again), _gap(eager, captured)
+    print(f"{backward} remat={remat}: spread of two eager runs {spread}, captured vs eager {gap}")
+    if backward == "k2_k3":
+        assert spread == gap == [0.0, 0.0, 0.0]
+    else:
+        assert all(g <= 8 * s for g, s in zip(gap, spread))
+
+
+@pytest.mark.cuda
+def test_replays_at_different_steps_draw_different_masks(cuda, monkeypatch):
+    """At learning rate 0 the parameters stay as they are: replays of one
+    batch at steps 0-3 give four different losses (each its step's masks),
+    each the eager step's bit for bit, and a replay at step 0 again gives
+    step 0's loss."""
+    from parler_tts_tpu_torch.training import step as pstep
+
+    monkeypatch.setenv("PARLER_FLASH_NO_FUSED_BWD", "1")
+    cfg, model, batches = _train_setup()
+    eager = _train_run(cfg, model, batches[:1], captured=False, lr=0.0)
+    state = pstep.create_state(model, learning_rate=0.0, warmup_steps=1)
+    step = pstep.make_train_step(cfg, dtype=torch.bfloat16, dropout_seed=0)
+    losses = torch.stack([step(state, batches[0])["loss"] for _ in range(TRAIN_STEPS)])
+    assert len(set(losses.tolist())) == TRAIN_STEPS and torch.equal(losses, eager["losses"])
+    state.step = 0
+    assert torch.equal(step(state, batches[0])["loss"], losses[0])
+    assert state.graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_captured_eval_step_equals_the_eager_eval(cuda):
+    """The eval pass captured per batch shape (K1 once per layer, counted
+    through the replay) gives the eager pass's loss bit for bit."""
+    from parler_tts_tpu_torch.training import step as pstep
+
+    cfg, model, batches = _train_setup()
+    step = pstep.make_eval_step(cfg, dtype=torch.bfloat16)
+    before = pfa.LAUNCHES
+    got = [step(model, b)["loss"] for b in batches]
+    assert pfa.LAUNCHES - before == 2 * cfg.decoder.num_hidden_layers
+    graphs = pstep._eval_graphs(model)
+    assert (graphs.captures, graphs.replays) == (1, 1)
+    real = pstep._captured_route
+    pstep._captured_route = lambda model, mesh: False
+    try:
+        want = [step(model, b)["loss"] for b in batches]
+    finally:
+        pstep._captured_route = real
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# --- failed captures ----------------------------------------------------------------------------
+
+
+def _draw_from_every_generator(generators=()):
+    """A failed capture must leave the default CUDA generator and the
+    caller's usable: one draw from each, synchronised."""
+    torch.rand(4, device="cuda")
+    for gen in generators:
+        torch.rand(4, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_leaves_the_generators_usable(cuda):
+    """``core/graphs.record`` of a function that draws from the default
+    generator and a registered one and then reads the device on the host:
+    the capture raises, and both generators draw again, with no reset by
+    the caller; a capture after it works."""
+    from parler_tts_tpu_torch.core import graphs
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.zeros(8, device="cuda")
+
+    def syncing():
+        x.copy_(torch.rand(8, device="cuda") + torch.rand(8, device="cuda", generator=gen))
+        float(x.sum())  # a host read: not permitted while a stream is captured
+
+    with pytest.raises(RuntimeError):
+        graphs.record(syncing, graphs.new_pool(), [gen])
+    _draw_from_every_generator([gen])
+    graph, _ = graphs.record(lambda: x.copy_(torch.rand(8, device="cuda", generator=gen)), graphs.new_pool(), [gen])
+    gen.manual_seed(5)
+    graph.replay()
+    assert torch.equal(x, torch.rand(8, device="cuda", generator=torch.Generator(device="cuda").manual_seed(5)))
+
+
+@pytest.mark.cuda
+def test_a_failed_train_step_capture_raises(cuda, monkeypatch):
+    """No fallback to the eager step: a train step that reads the device
+    on the host cannot be captured, the step raises and keeps no graph,
+    and the default generator and a new one draw afterwards."""
+    from parler_tts_tpu_torch.training import step as pstep
+
+    cfg, model, batches = _train_setup()
+    real = pstep._grads
+
+    def syncing(loss, params):
+        float(loss)  # a host read: not permitted while a stream is captured
+        return real(loss, params)
+
+    monkeypatch.setattr(pstep, "_grads", syncing)
+    state = pstep.create_state(model, learning_rate=1e-3, warmup_steps=1)
+    with pytest.raises(RuntimeError):
+        pstep.make_train_step(cfg, dtype=torch.bfloat16, dropout_seed=0)(state, batches[0])
+    assert len(state.graphs) == 0
+    _draw_from_every_generator([torch.Generator(device="cuda").manual_seed(1)])
+
+
+@pytest.mark.cuda
+def test_a_failed_prefill_capture_raises(cuda, monkeypatch):
     """No fallback: a prefill that reads the device on the host cannot be
     captured, and generation raises."""
     from parler_tts_tpu_torch.core import config as pcfg
@@ -505,11 +686,11 @@ def test_a_failed_prefill_capture_raises(cuda, monkeypatch, fresh_rng_after):
     gen = pcfg.GenerationConfig(max_length=40, do_sample=False)
     with pytest.raises(RuntimeError):
         pgen.generate_tokens(model, gen, max_length=40, **_decode_inputs(2))
-    torch.cuda.synchronize()
+    _draw_from_every_generator()
 
 
 @pytest.mark.cuda
-def test_a_failed_capture_raises(cuda, monkeypatch, fresh_rng_after):
+def test_a_failed_capture_raises(cuda, monkeypatch):
     """No fallback to the eager loop: a step that reads the device on the
     host cannot be captured, and generation raises."""
     from parler_tts_tpu_torch.core import config as pcfg
@@ -527,4 +708,4 @@ def test_a_failed_capture_raises(cuda, monkeypatch, fresh_rng_after):
     gen = pcfg.GenerationConfig(max_length=40, do_sample=False)
     with pytest.raises(RuntimeError):
         pgen.generate_tokens(model, gen, max_length=40, **_decode_inputs(2))
-    torch.cuda.synchronize()
+    _draw_from_every_generator()

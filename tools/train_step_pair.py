@@ -2,15 +2,18 @@
 """Train-step times of several trees of this repository on one card, in turns.
 
     git archive <parent commit> | tar -x -C tmp/parent   # tmp/ is git-ignored
-    python3 tools/train_step_pair.py tmp/parent . . tmp/parent
+    python3 tools/train_step_pair.py tmp/parent . .:eager . tmp/parent
 
 Each tree runs in a process of its own, with its own ``parler_tts_tpu_torch``
 and ``chip_smoke.py`` (kernels built from its own sources): Mini at full
 width with the smoke run's recipe and batches, 3 x 10 s then 1 x 30 s; at
-each shape 2 warm-up steps, 8 timed steps (synchronised) and one step under
-torch.profiler.  Prints ``nvidia-smi``'s name and power limit, then a JSON
-line per tree and shape: the step times, their median (the 5th of 8
-sorted), the device's busy ms and the port attention kernels' ms.
+each shape 2 warm-up steps, 8 timed steps (synchronised), one step under
+torch.profiler and one more for the host's launch calls.  A tree written
+``PATH:eager`` runs its train step on the eager route (a tree that captures
+train steps on one card, ``training/step._captured_route``).  Prints
+``nvidia-smi``'s name and power limit, then a JSON line per tree and shape:
+the step times, their median (the 5th of 8 sorted), the device's busy ms,
+the port attention kernels' ms and the host's launch calls per step.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import sys
 import time
 
 
-def run_tree(root: str) -> None:
+def run_tree(root: str, eager: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -33,6 +36,8 @@ def run_tree(root: str) -> None:
     from parler_tts_tpu_torch.training import step as step_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if eager:
+        step_mod._captured_route = lambda model, mesh: False
     cfg = cfg_mod.mini_600m_config()
     model = parler.init(0, cfg, device="cuda")
     state = step_mod.create_state(model, learning_rate=9.5e-4, warmup_steps=1, b1=0.9, b2=0.99,
@@ -50,20 +55,24 @@ def run_tree(root: str) -> None:
             train_step(state, batch)["loss"].item()
             times.append(1e3 * (time.perf_counter() - t0))
         prof = cs.profile_call(lambda: train_step(state, batch))
-        print(json.dumps({"tree": root, "seconds": seconds, "step_ms": times, "median_step_ms": sorted(times)[4],
-                          "device_busy_ms": prof["device_busy_ms"],
-                          "attention_ms": prof["by_category_ms"].get("port attention kernels")}), flush=True)
+        launches = cs.launch_profile(lambda: train_step(state, batch), 1)
+        print(json.dumps({"tree": root + (":eager" if eager else ""), "seconds": seconds, "step_ms": times,
+                          "median_step_ms": sorted(times)[4], "device_busy_ms": prof["device_busy_ms"],
+                          "attention_ms": prof["by_category_ms"].get("port attention kernels"),
+                          "host_launches_per_step": launches["host_launches_per_step"]}), flush=True)
 
 
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--tree":
-        run_tree(sys.argv[2])
+        run_tree(sys.argv[2], eager=sys.argv[3:] == ["--eager"])
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     for tree in sys.argv[1:]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", os.path.realpath(tree)], check=True)
+        path, _, route = tree.partition(":")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", os.path.realpath(path)]
+                       + (["--eager"] if route == "eager" else []), check=True)
     return 0
 
 
