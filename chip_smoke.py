@@ -1539,6 +1539,13 @@ def counted(fa, layers: int, fn, *, place: str, calls=1):
     return result, launched["flash_attention_fwd"], spy, spy.hold("main path")["flash_attention_fwd"]
 
 
+def counter(name: str) -> float:
+    """The program's counter ``name`` now (``utils/profiling.counters()``)."""
+    from parler_tts_tpu_torch.utils import profiling
+
+    return profiling.counters().get(name, 0)
+
+
 def sync_time(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1798,11 +1805,11 @@ def prefill_cases(model, pipe, generate_mod) -> list[dict]:
         max_length = gen.max_length + frames
         plan = generate_mod._plan(model, gen, max_length, inputs["input_ids"], inputs["prompt_input_ids"],
                                   inputs["prompt_hidden_states"], inputs["decoder_input_codes"])
-        captures, capture_s = generate_mod.PREFILL_CAPTURES, generate_mod.PREFILL_CAPTURE_SECONDS
+        captures, capture_s = counter("prefill.captures"), counter("prefill.capture_s")
         with graphs.lock:
             captured, _ = generate_mod._captured_generation(model, gen, graphs, max_length=max_length, generator=None,
                                                             noise=None, **inputs)
-            new = generate_mod.PREFILL_CAPTURES - captures
+            new = counter("prefill.captures") - captures
             s = captured.state
             replay_ms = [1e3 * sync_time(lambda: generate_mod._captured_prefill(
                 model, gen, captured, plan, max_length=max_length, **inputs))[1] for _ in range(PREFILL_TIMED_CALLS)]
@@ -1815,7 +1822,7 @@ def prefill_cases(model, pipe, generate_mod) -> list[dict]:
         row = {"case": name, "prefill_T": plan.p_len + plan.t0, "rows": plan.rows, "bit_exact": not bad,
                "differing": bad, "captured_ms": sorted(replay_ms)[len(replay_ms) // 2],
                "eager_ms": sorted(eager_ms)[len(eager_ms) // 2],
-               "capture_s": (generate_mod.PREFILL_CAPTURE_SECONDS - capture_s) / new if new else None,
+               "capture_s": (counter("prefill.capture_s") - capture_s) / new if new else None,
                "k1_launches_per_replay": captured.prefills[generate_mod._input_shapes(inputs)].launches["LAUNCHES"]}
         row["speedup"] = row["eager_ms"] / row["captured_ms"]
         emit({"phase": "decode_graph_prefill", **row})
@@ -1872,15 +1879,15 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
     def cases_run():
         rows = []
         for name, (m, gen) in cases.items():
-            captures, capture_s = generate_mod.CAPTURES, generate_mod.CAPTURE_SECONDS
+            captures, capture_s = counter("decode.captures"), counter("decode.capture_s")
             with timed_decode(generate_mod) as loops:
                 first, t_first = generate_mod.generate_tokens(m, gen, max_length=gen.max_length, generator=seeded(),
                                                               **tensors)
-                replays = generate_mod.REPLAYS
+                replays = counter("decode.replays")
                 second, t_second = generate_mod.generate_tokens(m, gen, max_length=gen.max_length,
                                                                 generator=seeded(), **tensors)
-                replays = generate_mod.REPLAYS - replays
-            captured = generate_mod.CAPTURES - captures
+                replays = counter("decode.replays") - replays
+            captured = counter("decode.captures") - captures
             s = generate_mod.prefill(m, gen, max_length=gen.max_length, **tensors)
             t0, generator = s.t, seeded()
             torch.cuda.synchronize()
@@ -1912,7 +1919,7 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
                 "kv_read_buckets": state.limits, "stop_captured": t_first, "stop_eager": s.t,
                 "same_tokens": where is None, "first_difference": gap,
                 "second_call_same": bool(torch.equal(first, second)) and t_first == t_second,
-                "graphs_captured": captured, "capture_s_per_graph": (generate_mod.CAPTURE_SECONDS - capture_s)
+                "graphs_captured": captured, "capture_s_per_graph": (counter("decode.capture_s") - capture_s)
                 / max(captured, 1),
                 "replays_second_call": replays, "captured_steps": steps,
                 "captured_ms_per_step": sum(ms for ms, _ in spans) / steps, "eager_ms_per_step": eager_ms,
@@ -1932,9 +1939,9 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
 
         generate_mod.decode_step = counting_step
         try:
-            replays = generate_mod.REPLAYS
+            replays = counter("decode.replays")
             sr, wavs = pipe.tts(DESCRIPTIONS, _prompts(50), seed=SEED, max_seconds=2.5)
-            replays = generate_mod.REPLAYS - replays
+            replays = counter("decode.replays") - replays
         finally:
             generate_mod.decode_step = real_step
         return rows, {"replays": replays, "eager_decode_steps": eager_steps[0],
@@ -2084,7 +2091,7 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card:
         return real_step(*args, **kw)
 
     vocode_ms = []
-    replays, captures = generate_mod.PREFILL_REPLAYS, generate_mod.PREFILL_CAPTURES
+    replays, captures = counter("prefill.replays"), counter("prefill.captures")
     streaming_mod.decode_step = counting_step
     try:
         (run, eager), launches, _, err = counted(
@@ -2093,7 +2100,7 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card:
             place="stream", calls=2)
     finally:
         streaming_mod.decode_step = real_step
-    replays, captures = generate_mod.PREFILL_REPLAYS - replays, generate_mod.PREFILL_CAPTURES - captures
+    replays, captures = counter("prefill.replays") - replays, counter("prefill.captures") - captures
     chunks = run["chunks"]
     codes = np.concatenate([c.codes for c in chunks], axis=2)
     eager_codes = np.concatenate([c.codes for c in eager["chunks"]], axis=2)
@@ -2935,7 +2942,7 @@ def time_phases(model, pipe, prompts, max_seconds, out: list | None = None) -> d
     spans: dict[str, list[float]] = {"encode": [], "prefill": [], "captured_prefill": [], "vocode": []}
     targets = {"encode": (model, "encode_text"), "prefill": (model.decoder, "forward"),
                "vocode": (model.audio_encoder, "decode")}
-    replays = generate_mod.PREFILL_REPLAYS
+    replays = counter("prefill.replays")
 
     def timed(name, fn):
         def run(*args, **kwargs):
@@ -2967,7 +2974,7 @@ def time_phases(model, pipe, prompts, max_seconds, out: list | None = None) -> d
     segments = [span for loop in loops for span in loop]
     steps = sum(n for _, n in segments)
     return {"captured_prefill_ms": sum(spans["captured_prefill"]),
-            "prefill_replayed": generate_mod.PREFILL_REPLAYS > replays,
+            "prefill_replayed": counter("prefill.replays") > replays,
             "encode_ms": sum(spans["encode"]), "prefill_ms": sum(spans["prefill"]),
             "decode_steps": steps, "decode_ms_per_step": sum(ms for ms, _ in segments) / steps,
             "decode_ms_per_step_median": sorted(ms / n for ms, n in segments)[len(segments) // 2],

@@ -97,6 +97,7 @@ from parler_tts_tpu_torch.models.delay_pattern import build_delay_pattern, undel
 from parler_tts_tpu_torch.models.parler import ParlerTTSModel
 from parler_tts_tpu_torch.ops import flash_attention as fa
 from parler_tts_tpu_torch.ops.nn import DenseWeight
+from parler_tts_tpu_torch.utils import profiling
 
 #: ``noise(t)`` -> (B, K, V) Gumbel noise for the token sampled at position t
 NoiseFn = Callable[[int], torch.Tensor]
@@ -104,17 +105,15 @@ NoiseFn = Callable[[int], torch.Tensor]
 #: decode steps per segment (JAX ``models/decoder.STAGE``)
 STAGE = 64
 
-#: decode steps replayed from CUDA graphs, step graphs captured, seconds
-#: spent capturing them (warm-up step included)
-REPLAYS = 0
-CAPTURES = 0
-CAPTURE_SECONDS = 0.0
-#: prefills replayed from CUDA graphs, prefill graphs captured, seconds spent
-#: capturing them (the warm-up, which is the capturing call's prefill,
-#: included)
-PREFILL_REPLAYS = 0
-PREFILL_CAPTURES = 0
-PREFILL_CAPTURE_SECONDS = 0.0
+# Counters (``utils/profiling.counters()``): ``decode.replays``, steps
+# replayed from CUDA graphs; ``decode.positions``, positions the loop kept
+# (every route); ``decode.captures`` and ``decode.capture_s``, step graphs
+# captured and the seconds spent on them (warm-up step included);
+# ``decode.states_dropped``, captured states ``make_room`` let go;
+# ``prefill.replays``, ``prefill.captures`` and ``prefill.capture_s``, the
+# same for prefill graphs (the warm-up, which is the capturing call's
+# prefill, included).  Spans: ``generate.capture``, ``generate.prefill``,
+# ``generate.segment`` and ``generate.finalize``.
 
 
 class GenerateOutput(NamedTuple):
@@ -295,13 +294,14 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
     (``decoder.decode_params`` copies every decode weight)."""
     decoder = model.decoder
     plan = _plan(model, gen, max_length, input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
-    if cache is None:
-        cache = init_cache(decoder.cfg, plan.rows, plan.p_len + max_length, plan.enc_len, dtype=decoder.dtype,
-                           device=plan.device, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
-    tokens, pattern, logits, fused_mask, enc_mask = _prefill_tensors(
-        model, gen, plan, cache, max_length=max_length, input_ids=input_ids, attention_mask=attention_mask,
-        prompt_input_ids=prompt_input_ids, prompt_attention_mask=prompt_attention_mask,
-        prompt_hidden_states=prompt_hidden_states, decoder_input_codes=decoder_input_codes)
+    with profiling.span("generate.prefill", plan.device, route="eager"):
+        if cache is None:
+            cache = init_cache(decoder.cfg, plan.rows, plan.p_len + max_length, plan.enc_len, dtype=decoder.dtype,
+                               device=plan.device, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
+        tokens, pattern, logits, fused_mask, enc_mask = _prefill_tensors(
+            model, gen, plan, cache, max_length=max_length, input_ids=input_ids, attention_mask=attention_mask,
+            prompt_input_ids=prompt_input_ids, prompt_attention_mask=prompt_attention_mask,
+            prompt_hidden_states=prompt_hidden_states, decoder_input_codes=decoder_input_codes)
     return DecodeState(
         t=plan.t0, position=torch.tensor(plan.t0, device=plan.device), tokens=tokens, pattern=pattern,
         finished=torch.zeros((plan.batch, decoder.cfg.num_codebooks), dtype=torch.bool, device=plan.device),
@@ -380,6 +380,7 @@ def decode_step(model: ParlerTTSModel, gen: GenerationConfig, s: DecodeState, *,
     _draw(gen, s, generator, noise, s.t)
     _advance(model, gen, s, t_hi=s.tokens.shape[2], read_len=_read_len(s), injected=noise is not None)
     s.t += 1
+    profiling.count("decode.positions")
 
 
 #: runs ``n`` steps of one bucket: (bucket's fused length, its t_hi, n)
@@ -393,16 +394,21 @@ def _decode(s: DecodeState, end: int, segment: Segment) -> int:
     ``end = max_length``, a stream once per chunk, and a chunk that crosses
     a bucket's end goes on in the next bucket.  Returns the position the
     loop stopped at (JAX ``generate_tokens``' ``final.t``).  The host reads
-    ``all(finished)`` once per segment."""
+    ``all(finished)`` once per segment, inside the segment's span, whose
+    units are the positions the segment kept."""
     for size in s.limits:
         t_hi = min(s.tokens.shape[2], size - s.p_len)
         while s.t < min(t_hi, end):
             n = min(STAGE, t_hi - s.t, end - s.t)
-            segment(size, t_hi, n)
-            if bool(s.finished.all()):
-                s.t = int(s.position)
+            with profiling.span("generate.segment", s.tokens.device, bucket=size, steps=n) as sp:
+                segment(size, t_hi, n)
+                finished = bool(s.finished.all())
+                kept = int(s.position) - s.t if finished else n
+                sp.set(units=kept)
+            profiling.count("decode.positions", kept)
+            s.t += kept
+            if finished:
                 return s.t
-            s.t += n
     return s.t
 
 
@@ -473,6 +479,7 @@ class _DecodeGraphs:
             if sum(c.nbytes for c in self.sets.values()) + nbytes <= budget:
                 return
             del self.sets[key]
+            profiling.count("decode.states_dropped")
 
     def instance(self, signature: tuple, make: Callable[[], _Captured]) -> _Captured:
         """The first state of ``signature`` that no stream leases, made by
@@ -515,13 +522,17 @@ def _capture(model, gen, s: DecodeState, captured: _Captured, *, size: int, t_hi
     """The step of bucket ``size`` captured on the signature's step pool.
     Its warm-up and capture run over the static buffers before the prefill
     fills them, so the prefill overwrites what they wrote."""
-    global CAPTURES, CAPTURE_SECONDS
     t0 = time.perf_counter()
-    graph, nbytes = _record(lambda: _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected),
-                            captured.pool)
+    with profiling.span("generate.capture", s.tokens.device, kind="step", rows=s.logits.shape[0],
+                        prompt_len=s.p_len, encoder_len=0 if s.enc_mask is None else s.enc_mask.shape[1],
+                        max_length=s.tokens.shape[2], bucket=size) as sp:
+        graph, nbytes = _record(lambda: _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected),
+                                captured.pool)
+        seconds = time.perf_counter() - t0
+        sp.set(seconds=seconds, nbytes=nbytes)
     captured.nbytes += nbytes
-    CAPTURES += 1
-    CAPTURE_SECONDS += time.perf_counter() - t0
+    profiling.count("decode.captures")
+    profiling.count("decode.capture_s", seconds)
     return graph
 
 
@@ -553,25 +564,32 @@ def _captured_prefill(model, gen, captured: _Captured, plan: _Plan, *, max_lengt
     inputs into those buffers and replay.  The host then sets what a replay
     cannot: ``t``, the buckets and the cache's index.  A replay adds the
     K1 launches its graph holds to ``flash_attention.LAUNCHES``."""
-    global PREFILL_CAPTURES, PREFILL_CAPTURE_SECONDS, PREFILL_REPLAYS
     s = captured.state
     shapes = _input_shapes(inputs)
     known = captured.prefills.get(shapes)
-    if known is None:
-        static = {name: None if x is None else x.to(s.tokens.device, copy=True) for name, x in inputs.items()}
-        t0, recorded = time.perf_counter(), fa.recorded()
-        graph, nbytes = _record(lambda: _prefill_into(model, gen, plan, s, max_length, static), _new_pool())
-        captured.prefills[shapes] = _Prefill(static, graph, {k: n - recorded[k] for k, n in fa.recorded().items()})
-        captured.nbytes += nbytes + _nbytes(*static.values())
-        PREFILL_CAPTURES += 1
-        PREFILL_CAPTURE_SECONDS += time.perf_counter() - t0
-    else:
-        for name, x in inputs.items():
-            if x is not None:
-                known.inputs[name].copy_(x)
-        known.graph.replay()
-        fa.replayed(known.launches)
-        PREFILL_REPLAYS += 1
+    device = s.tokens.device
+    with profiling.span("generate.prefill", device, route="captured" if known is None else "replayed"):
+        if known is None:
+            static = {name: None if x is None else x.to(device, copy=True) for name, x in inputs.items()}
+            t0, recorded = time.perf_counter(), fa.recorded()
+            with profiling.span("generate.capture", device, kind="prefill", rows=plan.rows, prompt_len=plan.p_len,
+                                encoder_len=plan.enc_len, max_length=max_length,
+                                shapes={name: list(x.shape) for name, x in inputs.items() if x is not None}) as sp:
+                graph, nbytes = _record(lambda: _prefill_into(model, gen, plan, s, max_length, static), _new_pool())
+                seconds = time.perf_counter() - t0
+                sp.set(seconds=seconds, nbytes=nbytes)
+            captured.prefills[shapes] = _Prefill(static, graph,
+                                                 {k: n - recorded[k] for k, n in fa.recorded().items()})
+            captured.nbytes += nbytes + _nbytes(*static.values())
+            profiling.count("prefill.captures")
+            profiling.count("prefill.capture_s", seconds)
+        else:
+            for name, x in inputs.items():
+                if x is not None:
+                    known.inputs[name].copy_(x)
+            known.graph.replay()
+            fa.replayed(known.launches)
+            profiling.count("prefill.replays")
     s.t, s.limits = plan.t0, plan.limits
     s.cache.index = plan.p_len + plan.t0
 
@@ -630,12 +648,11 @@ def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _
     _captured_prefill(model, gen, captured, plan, max_length=max_length, **inputs)
 
     def replay(size: int, t_hi: int, n: int) -> None:
-        global REPLAYS
         graph = captured.graphs[size]
         for i in range(n):
             _draw(gen, s, generator, noise, s.t + i)
             graph.replay()
-        REPLAYS += n
+        profiling.count("decode.replays", n)
 
     return captured, replay
 
@@ -706,7 +723,8 @@ def check_vocodable(cfg: ParlerTTSConfig) -> None:
 def _finalize(model: ParlerTTSModel, tokens: torch.Tensor, *, vocode: bool = True) -> GenerateOutput:
     """Undelay/trim, then one batched codec vocode of the trimmed codes."""
     cfg = model.cfg
-    codes, code_lengths = postprocess_tokens(tokens, cfg)
+    with profiling.span("generate.finalize", tokens.device):
+        codes, code_lengths = postprocess_tokens(tokens, cfg)
     if vocode:
         check_vocodable(cfg)
         audio = codec_mod.decode(model.audio_encoder, codes)

@@ -10,6 +10,7 @@ from parler_tts_tpu_torch.core import torch_import as ti
 from parler_tts_tpu_torch.core.config import EncodecConfig
 from parler_tts_tpu_torch.models.dac import DAC
 from parler_tts_tpu_torch.models.encodec import Encodec
+from parler_tts_tpu_torch.utils import profiling
 
 Codec = DAC | Encodec
 
@@ -50,11 +51,19 @@ VOCODE_SAMPLES = 2**21
 def decode(codec: Codec, codes: torch.Tensor) -> torch.Tensor:
     """(B, K, T_frames) codes -> (B, T_frames * hop) waveform, decoded in
     groups of rows of at most ``VOCODE_SAMPLES`` output samples (at least
-    one row per group)."""
-    rows = max(1, VOCODE_SAMPLES // max(1, codes.shape[2] * codec.cfg.hop_length))
+    one row per group), each in a ``codec.decode`` span whose units are the
+    audio seconds it makes."""
+    hop = codec.cfg.hop_length
+    rows = max(1, VOCODE_SAMPLES // max(1, codes.shape[2] * hop))
+
+    def run(group: torch.Tensor) -> torch.Tensor:
+        with profiling.span("codec.decode", group.device, rows=group.shape[0],
+                            units=group.shape[0] * group.shape[2] * hop / codec.cfg.sampling_rate):
+            return codec.decode(group)
+
     if codes.shape[0] <= rows:
-        return codec.decode(codes)
-    return torch.cat([codec.decode(group) for group in codes.split(rows)])
+        return run(codes)
+    return torch.cat([run(group) for group in codes.split(rows)])
 
 
 def import_torch(sd, cfg) -> dict[str, torch.Tensor]:

@@ -22,6 +22,7 @@ from parler_tts_tpu_torch.core.config import GenerationConfig, ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
 from parler_tts_tpu_torch.generation.generate import generate
 from parler_tts_tpu_torch.models.parler import ParlerTTSModel
+from parler_tts_tpu_torch.utils import profiling
 from parler_tts_tpu_torch.utils.tokenizer import Tokenizer
 
 
@@ -95,7 +96,9 @@ class ParlerTTSPipeline:
     def tts(self, description: str | list[str], prompt: str | list[str], *, seed: int = 0,
             max_seconds: float | None = None) -> tuple[int, list[np.ndarray]]:
         """-> (sampling_rate, [waveform per sample]).  ``seed`` seeds the
-        sampler's ``torch.Generator``."""
+        sampler's ``torch.Generator``.  Traced as the span ``tts`` (the root
+        of a call) over ``tts.tokenize``, ``generate``'s spans, the codec's
+        and ``tts.to_host`` (``utils/profiling.py``)."""
         if self.description_tokenizer is None or self.prompt_tokenizer is None:
             raise RuntimeError("the pipeline needs a description and a prompt tokenizer")
         descs = [description] if isinstance(description, str) else list(description)
@@ -103,15 +106,19 @@ class ParlerTTSPipeline:
         if len(descs) != len(prompts):
             raise ValueError(f"{len(descs)} descriptions but {len(prompts)} prompts")
 
-        out = generate(
-            self.model, dataclasses.replace(self.gen, max_length=self.max_length(max_seconds)),
-            **self.tokenize(descs, prompts),
-            generator=torch.Generator(device=self.device).manual_seed(seed),
-            device=self.device,
-        )
-        audio = out.audio
-        if self.pcm16:
-            audio = (audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-        audio = audio.cpu().numpy()
-        lengths = out.audio_lengths.cpu().numpy()
-        return self.cfg.sampling_rate, [audio[i, : lengths[i]] for i in range(audio.shape[0])]
+        with profiling.span("tts", self.device, rows=len(descs), max_seconds=max_seconds):
+            with profiling.span("tts.tokenize"):
+                inputs = self.tokenize(descs, prompts)
+            out = generate(
+                self.model, dataclasses.replace(self.gen, max_length=self.max_length(max_seconds)), **inputs,
+                generator=torch.Generator(device=self.device).manual_seed(seed),
+                device=self.device,
+            )
+            with profiling.span("tts.to_host", self.device):
+                audio = out.audio
+                if self.pcm16:
+                    audio = (audio.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+                audio = audio.cpu().numpy()
+                lengths = out.audio_lengths.cpu().numpy()
+                waves = [audio[i, : lengths[i]] for i in range(audio.shape[0])]
+        return self.cfg.sampling_rate, waves

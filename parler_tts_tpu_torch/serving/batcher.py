@@ -18,6 +18,13 @@ the card: every device call of the engine runs on it.
   ``stats()`` (``bucket_rows``, ``padded_rows``).  One seed per batch,
   ``fold_seeds`` of the requests', seeds the pipeline's ``torch.Generator``.
 * An exception in a batch is set on every future of that batch.
+* Each request waits in the queue from ``submit`` until its batch is
+  formed: ``stats()`` sums the waits (``queue_wait_s``) and keeps the
+  longest (``queue_wait_max_s``), as do the counters ``serve.queue_wait_s``
+  and ``serve.queue_wait_max_s`` (``utils/profiling.py``).  Traced, a batch
+  is the span ``serve.batch`` (its requests' ids, ``bucket_rows``,
+  ``padded_rows``), the parent of each request's ``serve.queue`` span and
+  of the pipeline's ``tts``.
 
 A pipeline whose model is split over a model group (``parallel/mesh.
 shard_params``) runs every batch on every model rank at once, since the
@@ -36,6 +43,7 @@ timeout.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -44,6 +52,10 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 import torch.distributed as tdist
+
+from parler_tts_tpu_torch.utils import profiling
+
+_request_ids = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -56,6 +68,8 @@ class _Request:
     # warmup only: pad the batch up to at least this bucket, so that the
     # request runs a chosen (batch, length) shape
     force_bucket: int | None = None
+    id: int = dataclasses.field(default_factory=lambda: next(_request_ids))
+    queued_ns: int = dataclasses.field(default_factory=time.perf_counter_ns)
 
 
 def _batch_bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -98,7 +112,8 @@ class BatchingEngine:
         self.fill_threshold = fill_threshold
         self._queue: queue.Queue[_Request | None] = queue.Queue()
         self._pending: list[_Request] = []  # drained, but of another length bucket
-        self._stats = {"requests": 0, "batches": 0, "batched_requests": 0, "bucket_rows": 0, "padded_rows": 0}
+        self._stats = {"requests": 0, "batches": 0, "batched_requests": 0, "bucket_rows": 0, "padded_rows": 0,
+                       "queue_wait_s": 0.0, "queue_wait_max_s": 0.0}
         self._lock = threading.Lock()
         self._shutdown = False
         self._worker = None
@@ -302,6 +317,7 @@ class BatchingEngine:
         return out
 
     def _execute(self, group: list[_Request]) -> None:
+        taken = time.perf_counter_ns()
         n = len(group)
         forced = max((r.force_bucket or 0 for r in group), default=0)
         bucket = max(_batch_bucket(n, self.batch_buckets), forced)
@@ -309,7 +325,18 @@ class BatchingEngine:
         batch = {"descriptions": [r.description for r in padded], "prompts": [r.prompt for r in padded],
                  "seed": self.fold_seeds(r.seed for r in group), "max_seconds": self._length_bucket(group[0]),
                  "requests": n, "warmup": forced > 0}
-        sr, waves = self._run_batch(self._broadcast(batch))
+        if not forced:  # warmup requests are not counted as requests
+            waits = [(taken - r.queued_ns) / 1e9 for r in group]
+            with self._lock:
+                self._stats["queue_wait_s"] += sum(waits)
+                self._stats["queue_wait_max_s"] = max(self._stats["queue_wait_max_s"], *waits)
+            profiling.count("serve.queue_wait_s", sum(waits))
+            profiling.count_max("serve.queue_wait_max_s", max(waits))
+        with profiling.span("serve.batch", requests=[r.id for r in group], bucket_rows=bucket,
+                            padded_rows=bucket - n):
+            for r in group:
+                profiling.add_span("serve.queue", r.queued_ns, taken, request=r.id)
+            sr, waves = self._run_batch(self._broadcast(batch))
         for r, wav in zip(group, waves):
             r.future.set_result((sr, np.asarray(wav)))
 

@@ -21,9 +21,14 @@ import torch
 
 from parler_tts_tpu_torch.ops import cuda_build
 from parler_tts_tpu_torch.ops import flash_attention as pfa
+from parler_tts_tpu_torch.utils import profiling
 
 TILE = 64
 TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def counter(name: str) -> float:
+    return profiling.counters().get(name, 0)
 
 
 @pytest.fixture
@@ -318,19 +323,19 @@ def test_captured_decode_loop_equals_the_eager_loop(cuda, dtype, b, kw):
     model = _decode_model(dtype)
     gen = pcfg.GenerationConfig(max_length=DECODE_LENGTH, **kw)
     inputs = _decode_inputs(b)
-    replays, captures = pgen.REPLAYS, pgen.CAPTURES
+    replays, captures = counter("decode.replays"), counter("decode.captures")
     tokens, t = pgen.generate_tokens(model, gen, max_length=gen.max_length,
                                      generator=torch.Generator(device="cuda").manual_seed(5), **inputs)
-    buckets = pgen.CAPTURES - captures
+    buckets = counter("decode.captures") - captures
     rows = 2 * b if gen.guidance_scale > 1 else b
     assert buckets == len(pgen._kv_read_limits(10, 9 + DECODE_LENGTH, 8, batch_rows=rows)) >= 2
-    assert pgen.REPLAYS - replays >= t - 1
+    assert counter("decode.replays") - replays >= t - 1
     ref, ref_t = _eager_loop(model, gen, inputs, seed=5)
     assert t == ref_t
     assert torch.equal(tokens, ref)
     again, _ = pgen.generate_tokens(model, gen, max_length=gen.max_length,
                                     generator=torch.Generator(device="cuda").manual_seed(5), **inputs)
-    assert pgen.CAPTURES - captures == buckets and torch.equal(again, tokens)
+    assert counter("decode.captures") - captures == buckets and torch.equal(again, tokens)
 
 
 @pytest.mark.cuda
@@ -348,9 +353,9 @@ def test_captured_loop_reads_weights_changed_between_calls(cuda):
     with torch.no_grad():
         model.decoder.layers[0].fc1.kernel.mul_(-1.5)
         model.decoder.layers[1].self_attn.q.kernel.mul_(2.0)
-    captures = pgen.CAPTURES
+    captures = counter("decode.captures")
     second, _ = pgen.generate_tokens(model, gen, max_length=60, **inputs)
-    assert pgen.CAPTURES == captures  # the same signature: replayed, not captured again
+    assert counter("decode.captures") == captures  # the same signature: replayed, not captured again
     assert not torch.equal(first, second)
     assert torch.equal(second, _eager_loop(model, gen, inputs, seed=0)[0])
 
@@ -393,10 +398,10 @@ def test_captured_stream_equals_the_eager_stream(cuda, monkeypatch, dtype, b, kw
     real_step, real_view = pstream.decode_step, model.decoder.decode_params
     monkeypatch.setattr(pstream, "decode_step", lambda *a, **k: steps.append(1) or real_step(*a, **k))
     monkeypatch.setattr(model.decoder, "decode_params", lambda int8=False: views.append(int8) or real_view(int8))
-    replays = pgen.PREFILL_REPLAYS
+    replays = counter("prefill.replays")
     first, _ = _stream_codes(model, gen, inputs, seed=5)
     second, _ = _stream_codes(model, gen, inputs, seed=5)
-    assert not steps and len(views) == 2 and pgen.PREFILL_REPLAYS - replays == 1
+    assert not steps and len(views) == 2 and counter("prefill.replays") - replays == 1
     ref, _ = _eager_loop(model, gen, inputs, seed=5)
     want = undelay_pattern(ref[:, :, 1:]).cpu().numpy()[:, :, :first.shape[2]]
     np.testing.assert_array_equal(first, want)
@@ -425,12 +430,12 @@ def test_captured_prefill_equals_the_eager_prefill(cuda, prompt_len, frames):
         inputs["decoder_input_codes"] = torch.randint(0, 1024, (2, model.cfg.decoder.num_codebooks, frames),
                                                       generator=g).cuda()
     graphs = pgen._graphs_of(model)
-    captures = pgen.PREFILL_CAPTURES
+    captures = counter("prefill.captures")
     for _ in range(2):  # the first call captures, the second replays
         with graphs.lock:
             captured, _ = pgen._captured_generation(model, gen, graphs, max_length=120, generator=None, noise=None,
                                                     **inputs)
-    assert pgen.PREFILL_CAPTURES - captures == 1
+    assert counter("prefill.captures") - captures == 1
     s = captured.state
     ref = pgen.prefill(model, gen, max_length=120, **inputs)
     t = ref.cache.index
@@ -443,6 +448,108 @@ def test_captured_prefill_equals_the_eager_prefill(cuda, prompt_len, frames):
     for name in ("logits", "tokens", "pattern", "fused_mask"):
         assert torch.equal(getattr(s, name), getattr(ref, name)), name
     assert torch.equal(s.enc_mask, ref.enc_mask.to(s.enc_mask.dtype))
+
+
+# --- spans and counters on the card ----------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_captures_succeed_with_tracing_on(cuda):
+    """Traced, a fresh model captures its bucket graphs and its prefill
+    (each in a ``generate.capture`` span with its signature, seconds and
+    bytes) and replays them, with the tokens of an untraced call bit for
+    bit; the counters move as the spans say: a capture per step span, the
+    segments' steps replayed, their kept positions counted."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.generation import generate as pgen
+
+    model = _decode_model(torch.bfloat16)
+    gen = pcfg.GenerationConfig(max_length=DECODE_LENGTH, do_sample=True, top_k=50)
+    inputs = _decode_inputs(2)
+    names = ("decode.captures", "decode.replays", "decode.positions", "prefill.captures", "prefill.replays")
+    before = {name: counter(name) for name in names}
+    profiling.reset()
+    with profiling.tracing():
+        traced = [pgen.generate_tokens(model, gen, max_length=DECODE_LENGTH,
+                                       generator=torch.Generator(device="cuda").manual_seed(5), **inputs)
+                  for _ in range(2)]
+    moved = {name: counter(name) - before[name] for name in names}
+    plain, t = pgen.generate_tokens(model, gen, max_length=DECODE_LENGTH,
+                                    generator=torch.Generator(device="cuda").manual_seed(5), **inputs)
+    spans = profiling.records()
+    profiling.reset()
+    assert all(torch.equal(tokens, plain) and stop == t for tokens, stop in traced)
+    captures = [s for s in spans if s["name"] == "generate.capture"]
+    steps = [s for s in captures if s["attrs"]["kind"] == "step"]
+    assert moved["decode.captures"] == len(steps) == len(pgen._kv_read_limits(10, 9 + DECODE_LENGTH, 8,
+                                                                              batch_rows=2)) >= 2
+    assert moved["prefill.captures"] == len(captures) - len(steps) == 1 and moved["prefill.replays"] == 1
+    assert all(s["attrs"]["nbytes"] >= 0 and s["attrs"]["seconds"] > 0 and s["device_s"] > 0 for s in captures)
+    segments = [s for s in spans if s["name"] == "generate.segment"]
+    assert moved["decode.replays"] == sum(s["attrs"]["steps"] for s in segments)
+    assert moved["decode.positions"] == sum(s["attrs"]["units"] for s in segments) == 2 * (t - 1)
+    assert all(s["device_s"] > 0 and s["device_end_s"] > s["device_start_s"] >= 0 for s in segments)
+    assert [s["attrs"]["route"] for s in spans if s["name"] == "generate.prefill"] == ["captured", "replayed"]
+
+
+@pytest.mark.cuda
+def test_a_span_opened_under_capture_records_no_event(cuda):
+    """A span opened while its stream is captured records no CUDA event (a
+    graph replays without it); the span around the capture times it."""
+    x = torch.ones(8, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    profiling.reset()
+    with profiling.tracing():
+        with profiling.span("around", x.device):
+            with torch.cuda.graph(graph):
+                with profiling.span("inside", x.device):
+                    y = x * 2
+    graph.replay()
+    torch.cuda.synchronize()
+    by = {s["name"]: s for s in profiling.records()}
+    profiling.reset()
+    assert by["inside"]["device_s"] is None and by["inside"]["parent"] == by["around"]["id"]
+    assert by["around"]["device_s"] > 0 and torch.equal(y, x * 2)
+
+
+@pytest.mark.cuda
+def test_a_tts_call_on_the_card_off_and_on(cuda, monkeypatch):
+    """Off, a ``tts`` call on the card makes no CUDA event and no record;
+    on, every span of its tree but ``tts.tokenize`` has device seconds
+    within its parent's, and the waveforms are the untraced call's bit for
+    bit."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.utils.toy_tokenizer import ToyTokenizer
+
+    model = _decode_model(torch.bfloat16)
+    tok = ToyTokenizer(model.cfg.vocab_size)
+    pipe = ParlerTTSPipeline(model, model.cfg, pcfg.GenerationConfig(do_sample=True, top_k=50), tok, tok,
+                             dtype=torch.bfloat16, device="cuda")
+    texts = (["a calm voice", "a fast and bright voice"], ["hello there", "how are you today"])
+    pipe.tts(*texts, seed=1, max_seconds=1.0)  # captures
+    profiling.reset()
+    with profiling.tracing():
+        _, traced = pipe.tts(*texts, seed=1, max_seconds=1.0)
+    spans = profiling.records()
+    profiling.reset()
+    real_event = torch.cuda.Event
+
+    def no_event(*args, **kwargs):
+        raise AssertionError("tracing off made a CUDA event")
+
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    _, plain = pipe.tts(*texts, seed=1, max_seconds=1.0)
+    monkeypatch.setattr(torch.cuda, "Event", real_event)
+    assert profiling.records() == []
+    for a, b in zip(traced, plain, strict=True):
+        np.testing.assert_array_equal(a, b)
+    by_id = {s["id"]: s for s in spans}
+    assert {s["name"] for s in spans if s["device_s"] is None} == {"tts.tokenize"}
+    for s in spans:
+        parent = by_id.get(s["parent"])
+        if parent is not None and s["device_s"] is not None:
+            assert parent["device_start_s"] <= s["device_start_s"] <= s["device_end_s"] <= parent["device_end_s"]
 
 
 @pytest.mark.cuda

@@ -167,7 +167,10 @@ def test_requests_coalesce_and_equal_a_direct_call(pipeline):
         futs = [eng.submit(d, "hey how are you", seed=10 + i) for i, d in enumerate(descs)]
         results = [f.result(timeout=300) for f in futs]
         s = eng.stats()
-        assert s == {"requests": 3, "batches": 1, "batched_requests": 3, "bucket_rows": 4, "padded_rows": 1}
+        counts = {k: v for k, v in s.items() if not k.startswith("queue_wait")}
+        assert counts == {"requests": 3, "batches": 1, "batched_requests": 3, "bucket_rows": 4, "padded_rows": 1}
+        assert 0 <= s["queue_wait_max_s"] <= s["queue_wait_s"] <= 3 * s["queue_wait_max_s"]
+        assert set(s) - set(counts) == {"queue_wait_s", "queue_wait_max_s"}
         (call_descs, call_prompts, seed, max_seconds, _), = spy.calls
         assert call_descs == BatchingEngine.pad_rows(descs, 4) and max_seconds == 0.01
         assert seed == BatchingEngine.fold_seeds([10, 11, 12])

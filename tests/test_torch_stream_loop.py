@@ -24,6 +24,7 @@ from parler_tts_tpu.generation import streaming as jstreaming
 from parler_tts_tpu_torch.core import config as pcfg
 from parler_tts_tpu_torch.generation import generate as pgenerate
 from parler_tts_tpu_torch.generation import streaming as pstreaming
+from parler_tts_tpu_torch.utils import profiling
 from tests.test_torch_blocks import jax_params, tiny_config
 from tests.test_torch_decode_loop import SPECIALS, batch, long_config, port_of, with_eos_scaled
 from tests.test_torch_quantization import gumbel_noise
@@ -235,7 +236,7 @@ def test_a_replayed_prefill_reads_the_new_inputs(long_run, captured_route):
     second = dict(first, input_ids=first["input_ids"].flip(1).contiguous(),
                   prompt_input_ids=(first["prompt_input_ids"] + 7) % 160)
     graphs = pgenerate._graphs_of(model)
-    replays = pgenerate.PREFILL_REPLAYS
+    replays = profiling.counters().get("prefill.replays", 0)
     for inputs in (first, second, first):
         captured, _ = pgenerate._captured_generation(model, gen, graphs, max_length=60, generator=None, noise=None,
                                                      **inputs)
@@ -243,6 +244,6 @@ def test_a_replayed_prefill_reads_the_new_inputs(long_run, captured_route):
         assert torch.equal(s.logits, ref.logits) and torch.equal(s.tokens, ref.tokens)
         assert torch.equal(s.cache.self_k[:, :, :, :ref.cache.index], ref.cache.self_k[:, :, :, :ref.cache.index])
         assert torch.equal(s.cache.cross_v, ref.cache.cross_v) and s.cache.index == ref.cache.index
-    assert pgenerate.PREFILL_REPLAYS - replays >= 2
+    assert profiling.counters()["prefill.replays"] - replays >= 2
     assert not torch.equal(pgenerate.prefill(model, gen, max_length=60, **first).logits,
                            pgenerate.prefill(model, gen, max_length=60, **second).logits)
