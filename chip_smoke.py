@@ -9,14 +9,16 @@ Phases, in order; any failure exits non-zero before the result line:
    limit; build the hand-written CUDA kernels from ``parler_tts_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all started together);
 2. kernels: each kernel (K1 the flash-attention forward; K2, K3, K4 its
-   backward) against its plain PyTorch version on the card, at the main
+   backward; K5 the decode step's attention, at the benchmark cells' 96
+   rows over a strided cache slice and on its split route at 1 and 4
+   rows) against its plain PyTorch version on the card, at the main
    paths' shapes (tts and both training shapes) and at the CPU tests' odd
    shapes, in bf16 and fp32, with the tolerances stated below (also tile by
    tile, and K1's ``lse`` bit for bit on rows with no valid key); the
    backward's two routes (K4, and K2 + K3 forced by
    ``PARLER_FLASH_NO_FUSED_BWD=1``) against each other in fp32 and bf16;
    the build fails unless ``ptxas`` reports each bf16 tensor-core K1, K2,
-   K3 and K4 at head dims 32 and 64 with no spills;
+   K3 and K4 and each K5 kernel at head dims 32 and 64 with no spills;
    device times (CUDA-graph replay) of each kernel, its plain version and the
    one PyTorch call computing the same function (timed as a yardstick only,
    never called by the port);
@@ -34,7 +36,8 @@ Phases, in order; any failure exits non-zero before the result line:
 4. inference path: ``ParlerTTSPipeline.tts`` at full Parler-TTS Mini v0.1
    width (random weights from a seed, bf16), three calls of four requests
    whose prompt buckets give prefill lengths 17, 65 and 257; each call must
-   launch K1 once per decoder layer.  Then one more call with each phase
+   launch K1 once per decoder layer and K5 twice per layer per decode step
+   (replayed or captured).  Then one more call with each phase
    synchronised and timed, and a short call under torch.profiler for the
    device's busy time.  On the same model, each path with the counts set
    to 0 just before it and read just after, K1 once per layer per prefill
@@ -221,7 +224,10 @@ REPLACES = {
 # bf16 K1, K2, K3, K4 on the tensor cores
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel", "flash_dqkv_mma_kernel")
 COUNTERS = {"flash_attention_fwd": "LAUNCHES", "flash_attention_dq": "LAUNCHES_DQ",
-            "flash_attention_dkv": "LAUNCHES_DKV", "flash_attention_dqkv": "LAUNCHES_DQKV"}
+            "flash_attention_dkv": "LAUNCHES_DKV", "flash_attention_dqkv": "LAUNCHES_DQKV",
+            "decode_attention": "LAUNCHES_DECODE"}
+# K5, the decode step's attention, and its combine kernel (split route)
+DECODE_KERNELS = ("decode_attn_kernel", "decode_attn_combine_kernel")
 
 DESCRIPTIONS = [
     "a female speaker with a low pitched voice speaks very fast",
@@ -428,6 +434,78 @@ def check_kernels(fa) -> dict:
             per_shape.append(row)
             emit({"phase": "k1_time", **row})
     return {"max_abs_err": worst, "per_shape": per_shape}
+
+
+def decode_inputs(b: int, h: int, r: int, dtype, *, cross: bool, gen) -> tuple:
+    """q (B, H, 1, 64) pre-scaled; k/v as the decode step reads them: layer
+    1 of (2, B, H, r + 61, 64) self buffers over r keys, or a contiguous
+    (B, H, r, 64) cross layer; a bool mask (B, r) with holes (left bucket
+    padding, a short prompt's right padding, keys not yet decoded)."""
+    q = (torch.randn((b, h, 1, 64), generator=gen, device="cuda") * 0.125).to(dtype)
+    length = r if cross else r + 61
+    kbuf, vbuf = (torch.randn((2, b, h, length, 64), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    mask = torch.ones((b, r), dtype=torch.bool, device="cuda")
+    mask[0, : r // 5] = False
+    mask[:, r // 3 : r // 3 + 9] = False
+    mask[min(1, b - 1), r - r // 7 :] = False
+    return q, kbuf[1, :, :, :r], vbuf[1, :, :, :r], mask
+
+
+def check_decode_kernel(da) -> dict:
+    """Phase 2: K5 against its plain version (``TOL`` on ``out``,
+    ``OUT_TILE_TOL`` on each (b, h) row), then device times (CUDA-graph
+    replay; inputs of 90-370 MB do not stay in L2) of the kernel, its plain
+    version and SDPA with the same mask, against K and V read once at
+    3.35 TB/s: at the benchmark cells' 96 x 16 rows over the mean and last
+    KV-read buckets (558 and 934 of mini's) and the first (128), cross
+    attention over 64 encoder positions, and the split route at 1 and 4
+    rows (a stream, the smoke's batch), there also held to one split."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(96, 16, r, False, "cells' self attention", True) for r in (128, 558, 934)]
+    cases += [(96, 16, 64, True, "cells' cross attention", True)]
+    cases += [(b, 16, r, False, "split route", True) for b in (1, 4) for r in (934, 4096)]
+    cases += [(96, 16, 558, False, "cells' self attention", False)]  # fp32, checked only
+    rows, worst = [], 0.0
+    for b, h, r, cross, kind, bf16 in cases:
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        q, k, v, mask = decode_inputs(b, h, r, dtype, cross=cross, gen=gen)
+        out = da.decode_attention(q, k, v, mask)
+        ref = da.decode_attention_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        row_err = tile_rel_err(out.reshape(b * h, 1, 64), ref.reshape(b * h, 1, 64))
+        splits, chunk = da.decode_split(b * h, r, sms)
+        meta = {"kind": kind, "shape": [b, h, r, 64], "dtype": str(dtype).removeprefix("torch."),
+                "splits": splits, "keys_per_split": chunk}
+        ok = math.isfinite(err) and err <= TOL[dtype] and row_err <= OUT_TILE_TOL[dtype]
+        emit({"phase": "k5_check", **meta, "max_abs_err": err, "tol": TOL[dtype], "max_row_rel_err": row_err,
+              "row_tol": OUT_TILE_TOL[dtype], "ok": ok})
+        if not ok:
+            raise AssertionError(f"decode_attention disagrees with its plain version at {meta}")
+        worst = max(worst, err)
+        if not bf16:
+            continue
+        sdpa_mask = mask[:, None, None, :]
+        row = {**meta, "ms": graph_ms(lambda: da.decode_attention(q, k, v, mask)),
+               "plain_ms": graph_ms(lambda: da.decode_attention_plain(q, k, v, mask)),
+               "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                                                             scale=1.0)),
+               # the kernel reads K and V of the valid keys only
+               "bound_ms": 1e3 * 2 * int(mask.sum()) * h * 64 * k.element_size() / H100_BYTES_PER_S}
+        if splits > 1:  # the same kernel held to one split: what the split route saves
+            split_choice = da.decode_split
+            da.decode_split = lambda bh, r, sms: (1, r)
+            try:
+                row["one_split_ms"] = graph_ms(lambda: da.decode_attention(q, k, v, mask))
+            finally:
+                da.decode_split = split_choice
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        emit({"phase": "k5_time", **row})
+    return {"max_abs_err": worst, "per_shape": rows}
 
 
 def tile_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -738,11 +816,15 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
     for i, (n_words, p) in enumerate(((10, pipe), (50, pipe), (200, pipe16))):
         prompts = _prompts(n_words)
         before = fa.LAUNCHES
+        decode_before, steps_before = fa.LAUNCHES_DECODE, counter("decode.replays") + counter("decode.captures")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sr, wavs = p.tts(DESCRIPTIONS, prompts, seed=SEED + i, max_seconds=max_seconds)
         wall = time.perf_counter() - t0
         launched = fa.LAUNCHES - before
+        # a captured step's warm-up launches K5 as a replay does
+        decode_steps = counter("decode.replays") + counter("decode.captures") - steps_before
+        decode_launched = fa.LAUNCHES_DECODE - decode_before
         want = torch.int16 if p.pcm16 else torch.float32
         for w in wavs:
             if w.ndim != 1 or w.size == 0 or w.size % hop or str(w.dtype) != str(want).removeprefix("torch."):
@@ -751,12 +833,15 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
                 raise AssertionError("waveform holds non-finite values")
         if launched != layers:
             raise AssertionError(f"tts call launched flash_attention_fwd {launched} times, want {layers}")
+        if decode_launched != 2 * layers * decode_steps or not decode_steps:
+            raise AssertionError(f"tts call launched decode_attention {decode_launched} times over "
+                                 f"{decode_steps} steps, want {2 * layers} a step")
         prompt_tokens = max(len(tok.encode(x)) for x in prompts)
         calls.append({"requests": len(wavs), "prompt_tokens": prompt_tokens,
                       "prefill_T": pipeline_mod._bucket(prompt_tokens) + 1, "pcm16": p.pcm16,
                       "samples": [int(w.size) for w in wavs], "sampling_rate": sr,
                       "wall_s": wall, "audio_s_per_wall_s": sum(w.size for w in wavs) / sr / wall,
-                      "k1_launches": launched})
+                      "k1_launches": launched, "decode_steps": decode_steps, "k5_launches": decode_launched})
         emit({"phase": "tts", **calls[-1]})
     launches = counts(fa)
     if any(launches[name] for name in BWD_NAMES):
@@ -950,7 +1035,7 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
             del run["params"]
         tol = {k: TRAIN_GRAPH_SPREAD * v for k, v in spread.items()}
         want = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                "flash_attention_dqkv": 0}
+                "flash_attention_dqkv": 0, "decode_attention": 0}
         if route == "flash_attention_dqkv":
             want["flash_attention_dqkv"] = layers
         else:
@@ -1199,7 +1284,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
     evals = [r for r in records if "eval/loss" in r]
     losses = [r["train/loss"] for r in train]
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                 "flash_attention_dqkv": layers}
+                 "flash_attention_dqkv": layers, "decode_attention": 0}
     # K1 also runs in each eval loss batch and each eval generation prefill (2 + 2 of them)
     want_first = {"flash_attention_fwd": layers * (4 + 2 + 2), "flash_attention_dqkv": layers * 4}
     ckpts = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
@@ -1421,7 +1506,7 @@ def run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod, data_m
     carried = all(open(os.path.join(final, f), "rb").read() == open(os.path.join(t5_dir, f), "rb").read()
                   for f in tokenizer_mod.FILES)
     want_cli = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                "flash_attention_dqkv": 2 * layers}
+                "flash_attention_dqkv": 2 * layers, "decode_attention": 0}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3426,7 +3511,7 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, strea
     norm_bound = max(MP_SPREAD_FACTOR * norm_spread, MP_NORM_FLOOR)
     layers = cfg.decoder.num_hidden_layers
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                 "flash_attention_dqkv": layers}
+                 "flash_attention_dqkv": layers, "decode_attention": 0}
     runs = {"nccl": (1, "nccl", ["--per_device_train_batch_size", "2"], 2),
             "data2": (2, "gloo", ["--per_device_train_batch_size", "1"], 1),
             "model2": (2, "gloo", ["--per_device_train_batch_size", "2", "--model_parallel_size", "2"], 2)}
@@ -3528,6 +3613,7 @@ def main() -> int:
     from parler_tts_tpu_torch.models import codec as codec_mod
     from parler_tts_tpu_torch.models import parler
     from parler_tts_tpu_torch.ops import cuda_build
+    from parler_tts_tpu_torch.ops import decode_attention as da
     from parler_tts_tpu_torch.ops import flash_attention as fa
     from parler_tts_tpu_torch.training import data as data_mod
     from parler_tts_tpu_torch.training import run_training as run_mod
@@ -3544,12 +3630,15 @@ def main() -> int:
                             "cudnn": torch.backends.cudnn.allow_tf32}})
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd"])
+    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_attention"])
     kernels_built = ptxas_report("\n".join(logs.values()))
-    spills = {name: r for name, r in kernels_built.items() if "mma_kernel" in name and r["spill_bytes"]}
-    # each tensor-core instance (the mangled name holds the head dim) must be in the report
+    spills = {name: r for name, r in kernels_built.items()
+              if ("mma_kernel" in name or "decode_attn" in name) and r["spill_bytes"]}
+    # each tensor-core instance and each K5 instance (the mangled name holds the head dim) must be in the report
     missing = [f"{kernel}<{d}>" for kernel in MMA_KERNELS for d in (32, 64)
                if not any(f"{kernel}ILi{d}E" in name and r["registers"] for name, r in kernels_built.items())]
+    missing += [f"{kernel}<{t}, {d}>" for kernel in DECODE_KERNELS for t in ("13__nv_bfloat16", "f") for d in (32, 64)
+                if not any(f"{kernel}I{t}Li{d}E" in name and r["registers"] for name, r in kernels_built.items())]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "flags": " ".join(cuda_build.NVCC_FLAGS),
           "ptxas": kernels_built, "missing_from_ptxas": missing, "ok": not spills and not missing})
     if spills or missing:
@@ -3558,6 +3647,7 @@ def main() -> int:
     with exact_fp32():
         k1 = check_kernels(fa)
         bwd = check_backward(fa)
+        k5 = check_decode_kernel(da)
         check_reference(cfg_mod, parler, generate_mod, streaming_mod)
         check_encodec_reference(cfg_mod, parler, generate_mod, codec_mod)
         check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax)
@@ -3661,6 +3751,22 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": row["library_call"], "shape": row["shape"], "per_shape": bwd[name]["per_shape"],
         })
+    head = next(r for r in k5["per_shape"] if r["shape"][2] == 558)
+    kernels.append({
+        "name": "decode_attention", "route": "cuda", "source": "parler_tts_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "no TPU kernel: XLA's fusion of parler_tts_tpu/models/decoder.py _self_attention_decode / "
+                    "_cross_attention_decode",
+        # each path's own count, set to 0 just before it (the inference paths beside tts count K1 only)
+        "launches": sum(p["decode_attention"] for p in (tts_launches, train_launches, cli_launches, text_launches,
+                                                         mp_launches)),
+        "launches_by_path": {"tts": tts_launches["decode_attention"], "train": train_launches["decode_attention"],
+                             "train_cli": cli_launches["decode_attention"],
+                             "text": text_launches["decode_attention"],
+                             "multiprocess": mp_launches["decode_attention"]},
+        "max_abs_err": k5["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": "bytes", "library_ms": head["library_ms"],
+        "library_call": "scaled_dot_product_attention", "shape": head["shape"], "per_shape": k5["per_shape"],
+    })
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

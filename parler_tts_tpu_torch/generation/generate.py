@@ -433,13 +433,16 @@ class _Prefill(NamedTuple):
 class _Captured:
     """One signature's static decode state and its captured programs: a step
     graph per KV-read bucket (keyed by the bucket's fused length) sharing
-    one memory pool, and a prefill graph per input shape (``_Prefill``).
+    one memory pool, with the kernel launches each holds (``launches``, by
+    ``flash_attention.recorded``: the decode attention's), and a prefill
+    graph per input shape (``_Prefill``).
     ``nbytes`` counts the state, the static inputs and the pools.  A stream
     leases the state for its whole life (``leased``)."""
 
     def __init__(self, state: DecodeState):
         self.state = state
         self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.launches: dict[int, dict[str, int]] = {}
         self.prefills: dict[tuple, _Prefill] = {}
         self.pool = _new_pool()
         self.leased = False
@@ -519,10 +522,11 @@ def _view_tensors(p: DecodeParams) -> list[torch.Tensor]:
 
 def _capture(model, gen, s: DecodeState, captured: _Captured, *, size: int, t_hi: int,
              injected: bool) -> torch.cuda.CUDAGraph:
-    """The step of bucket ``size`` captured on the signature's step pool.
-    Its warm-up and capture run over the static buffers before the prefill
-    fills them, so the prefill overwrites what they wrote."""
-    t0 = time.perf_counter()
+    """The step of bucket ``size`` captured on the signature's step pool,
+    the kernel launches it holds kept in ``captured.launches``.  Its warm-up
+    and capture run over the static buffers before the prefill fills them,
+    so the prefill overwrites what they wrote."""
+    t0, recorded = time.perf_counter(), fa.recorded()
     with profiling.span("generate.capture", s.tokens.device, kind="step", rows=s.logits.shape[0],
                         prompt_len=s.p_len, encoder_len=0 if s.enc_mask is None else s.enc_mask.shape[1],
                         max_length=s.tokens.shape[2], bucket=size) as sp:
@@ -530,6 +534,7 @@ def _capture(model, gen, s: DecodeState, captured: _Captured, *, size: int, t_hi
                                 captured.pool)
         seconds = time.perf_counter() - t0
         sp.set(seconds=seconds, nbytes=nbytes)
+    captured.launches[size] = {k: n - recorded[k] for k, n in fa.recorded().items()}
     captured.nbytes += nbytes
     profiling.count("decode.captures")
     profiling.count("decode.capture_s", seconds)
@@ -652,6 +657,7 @@ def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _
         for i in range(n):
             _draw(gen, s, generator, noise, s.t + i)
             graph.replay()
+        fa.replayed(captured.launches[size], n)
         profiling.count("decode.replays", n)
 
     return captured, replay

@@ -13,8 +13,11 @@ Port of ``parler_tts_tpu/models/decoder.py``:
 * without encoder states (decoder-only generation) every layer skips its
   whole cross-attention block, ``ln_cross`` included;
 * cross-attention K/V are computed once at prefill and cached; the cached
-  single-token decode runs plain PyTorch attention over the decode
-  parameter view (``decode_params``: fused q/k/v, optionally int8);
+  single-token decode runs over the decode parameter view
+  (``decode_params``: fused q/k/v, optionally int8), its self and cross
+  attention through the decode attention kernel
+  (``ops/decode_attention.py``, K5) over an unquantized cache and through
+  plain PyTorch (``_attend``) over an int8 one;
 * the forward takes a compute dtype apart from the parameters' (fp32
   parameters, bf16 activations in training) and, in train mode, dropout at
   the JAX sites (embedded sequence, residual branches, FFN activation and,
@@ -65,6 +68,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from parler_tts_tpu_torch.core.config import DecoderConfig
+from parler_tts_tpu_torch.ops.decode_attention import decode_attention
 from parler_tts_tpu_torch.ops.flash_attention import flash_attention_bhtd
 from parler_tts_tpu_torch.ops.nn import (
     ACTIVATIONS,
@@ -239,26 +243,23 @@ def _put(buf: torch.Tensor, scales: torch.Tensor | None, layer: int, pos: slice 
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
-            k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+            k_scale: torch.Tensor, v_scale: torch.Tensor,
             current: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
-    """Single-query attention over cached (B, H, S, D) K/V; ``mask`` (B, S).
-    With ``k_scale``/``v_scale`` (B, H, S) the K/V are int8 and the scales
-    fold out of both products: the key scale multiplies the fp32 scores, the
-    value scale the fp32 probabilities, which are then cast to the compute
-    dtype (JAX ``_self_attention_decode`` / ``_cross_attention_decode``).
-    ``current`` = (k, v) of the query's own position (B, H, 1, D) adds that
-    position unquantized, as one more key after the cached ones."""
+    """Single-query attention over an int8 cache's (B, H, S, D) K/V; ``mask``
+    (B, S) (an unquantized cache takes ``decode_attention``).  The scales
+    ``k_scale``/``v_scale`` (B, H, S) fold out of both products: the key
+    scale multiplies the fp32 scores, the value scale the fp32
+    probabilities, which are then cast to the compute dtype (JAX
+    ``_self_attention_decode`` / ``_cross_attention_decode``).  ``current``
+    = (k, v) of the query's own position (B, H, 1, D) adds that position
+    unquantized, as one more key after the cached ones."""
     dtype = q.dtype
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    if k_scale is not None:
-        scores = scores * k_scale.float()[:, :, None, :]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * k_scale.float()[:, :, None, :]
     scores = scores.masked_fill(~mask[:, None, None, :].bool(), NEG_INF)
     if current is not None:
         scores = torch.cat([scores, (q.float() * current[0].float()).sum(-1, keepdim=True)], dim=-1)
     probs = torch.softmax(scores, dim=-1)
-    p_cached = probs[..., : k.shape[2]]
-    if v_scale is not None:
-        p_cached = p_cached * v_scale.float()[:, :, None, :]
+    p_cached = probs[..., : k.shape[2]] * v_scale.float()[:, :, None, :]
     out = torch.matmul(p_cached.to(dtype), v.to(dtype))
     if current is not None:
         out = out + probs[..., -1:].to(dtype) * current[1].to(dtype)
@@ -383,7 +384,7 @@ class DecoderLayer(nn.Module):
         if cache.self_k_scale is None:
             _put(cache.self_k, None, layer, position, k)
             _put(cache.self_v, None, layer, position, v)
-            out = _attend(q, cache.self_k[layer, :, :, :r], cache.self_v[layer, :, :, :r], kv_mask)
+            out = decode_attention(q, cache.self_k[layer, :, :, :r], cache.self_v[layer, :, :, :r], kv_mask)
         else:
             out = _attend(q, cache.self_k[layer, :, :, :r], cache.self_v[layer, :, :, :r], kv_mask,
                           k_scale=cache.self_k_scale[layer, :, :, :r], v_scale=cache.self_v_scale[layer, :, :, :r],
@@ -396,9 +397,11 @@ class DecoderLayer(nn.Module):
         if cache.cross_k is not None:
             ca = self.cross_attn
             cq = split_heads(p.cross_q(self.ln_cross(x)), ca.num_heads) * ca.scale
-            scales = {} if cache.cross_k_scale is None else dict(
-                k_scale=cache.cross_k_scale[layer], v_scale=cache.cross_v_scale[layer])
-            out = _attend(cq, cache.cross_k[layer], cache.cross_v[layer], enc_mask, **scales)
+            if cache.cross_k_scale is None:
+                out = decode_attention(cq, cache.cross_k[layer], cache.cross_v[layer], enc_mask)
+            else:
+                out = _attend(cq, cache.cross_k[layer], cache.cross_v[layer], enc_mask,
+                              k_scale=cache.cross_k_scale[layer], v_scale=cache.cross_v_scale[layer])
             x = x + tp.reduce(p.cross_o(merge_heads(out)), group)
         return x + tp.reduce(p.fc2(self.act(p.fc1(self.ln_ffn(x)))), group)
 

@@ -53,20 +53,24 @@ import torch
 NEG_INF = -1e9
 
 #: kernel launches since the counter was last reset, one counter per kernel
-#: (the plain versions and the CPU path do not count): K1, K2, K3, K4.  A
-#: call while the current stream is captured launches nothing: it counts in
-#: the kernel's RECORDED counter, and whoever replays the graph adds the
-#: launches it holds (``recorded`` read around its capture) by ``replayed``
+#: (the plain versions and the CPU path do not count): K1, K2, K3, K4, and
+#: K5, the decode step's attention (``ops/decode_attention.py``; one per
+#: call, its combine kernel included).  A call while the current stream is
+#: captured launches nothing: it counts in the kernel's RECORDED counter, and
+#: whoever replays the graph adds the launches it holds (``recorded`` read
+#: around its capture) by ``replayed``
 LAUNCHES = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DKV = 0
 LAUNCHES_DQKV = 0
+LAUNCHES_DECODE = 0
 RECORDED = 0
 RECORDED_DQ = 0
 RECORDED_DKV = 0
 RECORDED_DQKV = 0
+RECORDED_DECODE = 0
 _RECORDED = {"LAUNCHES": "RECORDED", "LAUNCHES_DQ": "RECORDED_DQ", "LAUNCHES_DKV": "RECORDED_DKV",
-             "LAUNCHES_DQKV": "RECORDED_DQKV"}
+             "LAUNCHES_DQKV": "RECORDED_DQKV", "LAUNCHES_DECODE": "RECORDED_DECODE"}
 
 FUSED_MAX_LEN = 1024  # the JAX package's default tile: one tile pair -> fused backward
 
@@ -238,11 +242,11 @@ def recorded() -> dict[str, int]:
     return {launches: globals()[name] for launches, name in _RECORDED.items()}
 
 
-def replayed(launches: dict[str, int]) -> None:
-    """Add one replay's kernel launches (``recorded`` differences) to the
-    launch counters."""
+def replayed(launches: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` replays' kernel launches (``recorded`` differences) to
+    the launch counters."""
     for name, n in launches.items():
-        globals()[name] += n
+        globals()[name] += n * times
 
 
 def _dispatch(plain, cuda, **kw):
@@ -252,7 +256,7 @@ def _dispatch(plain, cuda, **kw):
         return plain(**kw)
     if device.type == "cuda":
         return cuda(**kw)
-    raise ValueError(f"flash attention runs on cuda or cpu tensors, got {device}")
+    raise ValueError(f"the attention kernels run on cuda or cpu tensors, got {device}")
 
 
 def _fwd_cuda(q, k, v, kv_start, kv_end, *, scale, causal, q_offset):

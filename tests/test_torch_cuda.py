@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-the decode loop, the stream and the prefill captured in CUDA graphs
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(the flash-attention kernels K1-K4, the decode step's attention K5), the
+decode loop, the stream and the prefill captured in CUDA graphs
 against the per-step eager loop and the eager prefill, the captured train
 and eval steps against the eager ones, and failed captures (they raise,
 and leave every generator they registered usable).
@@ -265,6 +266,182 @@ def test_tile_check_rejects_a_skipped_tile(cuda, monkeypatch, tmp_path, name):
     print(f"{name} with a skipped tile: max_abs_err {max_err} (tol {max_tol}), "
           f"max_tile_rel_err {tile_err} (tol {TILE_TOL[torch.bfloat16]}){note}")
     assert tile_err > TILE_TOL[torch.bfloat16]
+
+
+# --- the decode step's attention (K5) ---------------------------------------------------------
+
+
+def _decode_attention_inputs(b, h, r, d, dtype, *, max_len=None, seed=0):
+    """q (B, H, 1, D) pre-scaled, k/v one layer of (2, B, H, max_len, D) cache
+    buffers read over r keys (strided, as the decode step reads them; a
+    cross cache when ``max_len`` is r), and a (B, r) bool mask with holes:
+    left bucket padding, a short prompt's right padding, keys not yet
+    decoded, and a row with no valid key when B > 2."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    max_len = max_len or r + 61
+    q = (torch.randn((b, h, 1, d), generator=g, device="cuda") * d**-0.5).to(dtype)
+    kbuf, vbuf = (torch.randn((2, b, h, max_len, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    mask = torch.ones((b, r), dtype=torch.bool, device="cuda")
+    mask[0, : r // 5] = False
+    mask[:, r // 3 : r // 3 + 9] = False
+    mask[min(1, b - 1), r - r // 7 :] = False
+    if b > 2:
+        mask[2] = False
+    return q, kbuf[1, :, :, :r], vbuf[1, :, :, :r], mask
+
+
+def _assert_decode_close(out, ref, dtype):
+    """``out`` within 2e-2 (bf16, one output ulp) or 1e-4 (fp32, sums in
+    another order), and each (b, h) row's error within ``TILE_TOL`` of
+    that row."""
+    b, h, _, d = ref.shape
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    assert _tile_rel_err(out.reshape(b * h, 1, d), ref.reshape(b * h, 1, d)) <= TILE_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,r,d,dtype,max_len", [
+    (96, 16, 128, 64, torch.bfloat16, None),  # the cells' rows, self attention, first and mean buckets
+    (96, 16, 558, 64, torch.bfloat16, None),
+    (96, 16, 934, 64, torch.bfloat16, None),  # mini's last bucket
+    (96, 16, 934, 64, torch.float32, None),
+    (96, 16, 64, 64, torch.bfloat16, 64),  # the cells' cross attention
+    (1, 16, 934, 64, torch.bfloat16, None),  # the split route: a stream's rows
+    (1, 16, 4096, 64, torch.bfloat16, None),
+    (4, 16, 934, 64, torch.bfloat16, None),
+    (4, 16, 4096, 64, torch.bfloat16, None),
+    (4, 16, 4096, 64, torch.float32, None),
+    (3, 3, 333, 32, torch.bfloat16, None),  # D = 32
+    (3, 3, 333, 32, torch.float32, None),
+])
+def test_decode_attention_kernel_matches_plain_version(cuda, b, h, r, d, dtype, max_len):
+    from parler_tts_tpu_torch.ops import decode_attention as pda
+
+    q, k, v, mask = _decode_attention_inputs(b, h, r, d, dtype, max_len=max_len)
+    before = pfa.LAUNCHES_DECODE
+    out = pda.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert pfa.LAUNCHES_DECODE == before + 1
+    splits, _ = pda.decode_split(b * h, r, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert (splits == 1) == (b * h >= 1536 or r <= 64)
+    _assert_decode_close(out, pda.decode_attention_plain(q, k, v, mask), dtype)
+
+
+@pytest.mark.cuda
+def test_decode_attention_reads_a_strided_cache_slice_in_place(cuda):
+    """The cache slice is read through its strides: the call allocates its
+    output and nothing the size of K or V, and gives what a contiguous copy
+    gives, bit for bit; the mask may be int64 (the encoder's)."""
+    from parler_tts_tpu_torch.ops import decode_attention as pda
+
+    q, k, v, mask = _decode_attention_inputs(96, 16, 934, 64, torch.bfloat16)
+    assert not k.is_contiguous() and not v.is_contiguous()
+    pda.decode_attention(q, k, v, mask)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = pda.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before <= 2 * out.numel() * out.element_size()
+    assert torch.equal(out, pda.decode_attention(q, k.contiguous(), v.contiguous(), mask.long()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [96, 1])
+def test_captured_decode_attention_equals_the_eager_call(cuda, b):
+    """Captured in a CUDA graph (one split at 96 rows, several at 1, whose
+    scratch comes from the graph's pool), a replay gives the eager call's
+    output bit for bit, before and after the inputs change in place; the
+    capture records one call and launches none."""
+    from parler_tts_tpu_torch.ops import decode_attention as pda
+
+    q, k, v, mask = _decode_attention_inputs(b, 16, 934, 64, torch.bfloat16)
+    pda.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    recorded, launches = pfa.recorded(), pfa.LAUNCHES_DECODE
+    with torch.cuda.graph(graph):
+        out = pda.decode_attention(q, k, v, mask)
+    held = {name: n - recorded[name] for name, n in pfa.recorded().items()}
+    assert held["LAUNCHES_DECODE"] == 1 and pfa.LAUNCHES_DECODE == launches
+    for step in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, pda.decode_attention(q, k, v, mask))
+        q.mul_(-1.5)
+        k[:, :, step * 100 : step * 100 + 50] = 0.5
+        mask[:, 40 + step] = ~mask[:, 40 + step]
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from parler_tts_tpu_torch.ops import decode_attention as pda
+
+    q = torch.zeros((2, 4, 1, 48), device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros((2, 4, 10, 48), device="cuda", dtype=torch.bfloat16)
+    mask = torch.ones((2, 10), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        pda.decode_attention(q, kv, kv, mask)
+    q, kv = q[..., :32].contiguous(), kv[..., :32].contiguous()
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        pda.decode_attention(q.half(), kv.half(), kv.half(), mask)
+    with pytest.raises(ValueError, match="kv_mask must be"):
+        pda.decode_attention(q, kv, kv, mask[:, :9])
+    with pytest.raises(TypeError, match="bool or integer"):
+        pda.decode_attention(q, kv, kv, mask.float())
+
+
+@pytest.mark.cuda
+def test_decode_check_rejects_a_skipped_key_run(cuda, monkeypatch, tmp_path):
+    """A copy of the kernel source whose P.V pass leaves one in four key
+    runs out, built into its own library, fails the check above on every
+    route.  Prints the readings."""
+    from parler_tts_tpu_torch.ops import decode_attention as pda
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    src = (csrc / "decode_attention.cu").read_text()
+    old = "p[u] = i < n ? round_to<T>(s[i] / l) : 0.f;"
+    assert src.count(old) == 1
+    (csrc / "decode_attention.cu").write_text(src.replace(old, "p[u] = i < n && u != 3 ? round_to<T>(s[i] / l) : 0.f;"))
+    broken = cuda_build.library("decode_attention", csrc)
+    monkeypatch.setattr(cuda_build, "library", lambda _: broken)
+    for b in (96, 1):
+        q, k, v, mask = _decode_attention_inputs(b, 16, 558, 64, torch.bfloat16)
+        out = pda.decode_attention(q, k, v, mask)
+        ref = pda.decode_attention_plain(q, k, v, mask)
+        err = _tile_rel_err(out.reshape(b * 16, 1, 64), ref.reshape(b * 16, 1, 64))
+        print(f"decode attention with a skipped key run, {b} rows: max_row_rel_err {err} "
+              f"(tol {TILE_TOL[torch.bfloat16]})")
+        assert err > TILE_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_a_captured_96_row_tts_call_launches_the_decode_kernel_twice_a_layer(cuda):
+    """A replayed ``tts`` call of 96 rows at Mini's width runs its self and
+    cross attention through the decode kernel: ``LAUNCHES_DECODE`` grows by
+    48 per replayed step, counted through the step graphs' replays."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.models import parler as pparler
+    from parler_tts_tpu_torch.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.utils.toy_tokenizer import ToyTokenizer
+
+    cfg = pcfg.mini_600m_config()
+    model = pparler.init(0, cfg, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():  # no special id but EOS: every row runs its second
+        model.decoder.lm_heads.kernel[..., cfg.audio_encoder.codebook_size + 1:] = 0
+    tok = ToyTokenizer(cfg.vocab_size)
+    pipe = ParlerTTSPipeline(model, cfg, pcfg.GenerationConfig(do_sample=True, top_k=50), tok, tok,
+                             dtype=torch.bfloat16, device="cuda")
+    words = "a calm voice reads the news slowly in a quiet room".split()
+    texts = ([" ".join(words[: 3 + i % 8]) for i in range(96)], [" ".join(words[: 1 + i % 10]) for i in range(96)])
+    pipe.tts(*texts, seed=1, max_seconds=1.0)  # captures
+    launches, replays = pfa.LAUNCHES_DECODE, counter("decode.replays")
+    pipe.tts(*texts, seed=2, max_seconds=1.0)
+    steps = counter("decode.replays") - replays
+    assert 2 * cfg.decoder.num_hidden_layers == 48 and steps > 0
+    assert pfa.LAUNCHES_DECODE - launches == 48 * steps
 
 
 # --- the captured decode loop ------------------------------------------------------------------
