@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero before the result line:
    with ``nvcc`` (one process per source, all started together);
 2. kernels: each kernel (K1 the flash-attention forward; K2, K3, K4 its
    backward; K5 the decode step's attention, at the benchmark cells' 96
-   rows over a strided cache slice and on its split route at 1 and 4
-   rows) against its plain PyTorch version on the card, at the main
+   rows over a strided cache slice, on its split route at 1 and 4 rows,
+   and at the LFM2 cell's 192 rows of 8 K/V heads with groups of 4
+   queries) against its plain PyTorch version on the card, at the main
    paths' shapes (tts and both training shapes) and at the CPU tests' odd
    shapes, in bf16 and fp32, with the tolerances stated below (also tile by
    tile, and K1's ``lse`` bit for bit on rows with no valid key); the
@@ -21,7 +22,8 @@ Phases, in order; any failure exits non-zero before the result line:
    K3 and K4 and each K5 kernel at head dims 32 and 64 with no spills;
    device times (CUDA-graph replay) of each kernel, its plain version and the
    one PyTorch call computing the same function (timed as a yardstick only,
-   never called by the port);
+   never called by the port); the LFM2 cell's grouped experts against the
+   loop over experts at its decode and prefill shapes, and their time;
 3. reference: a small config (``dummy_config``) at fp32 on the card (kernel
    path) and on the CPU (plain path): greedy generation (composite,
    decoder-only continuation, int8 KV cache and weights, and a stream whose
@@ -436,12 +438,13 @@ def check_kernels(fa) -> dict:
     return {"max_abs_err": worst, "per_shape": per_shape}
 
 
-def decode_inputs(b: int, h: int, r: int, dtype, *, cross: bool, gen) -> tuple:
-    """q (B, H, 1, 64) pre-scaled; k/v as the decode step reads them: layer
-    1 of (2, B, H, r + 61, 64) self buffers over r keys, or a contiguous
-    (B, H, r, 64) cross layer; a bool mask (B, r) with holes (left bucket
-    padding, a short prompt's right padding, keys not yet decoded)."""
-    q = (torch.randn((b, h, 1, 64), generator=gen, device="cuda") * 0.125).to(dtype)
+def decode_inputs(b: int, h: int, r: int, dtype, *, cross: bool, gen, group: int = 1) -> tuple:
+    """q (B, H * group, 1, 64) pre-scaled; k/v (H K/V heads) as the decode
+    step reads them: layer 1 of (2, B, H, r + 61, 64) self buffers over r
+    keys, or a contiguous (B, H, r, 64) cross layer; a bool mask (B, r) with
+    holes (left bucket padding, a short prompt's right padding, keys not yet
+    decoded)."""
+    q = (torch.randn((b, h * group, 1, 64), generator=gen, device="cuda") * 0.125).to(dtype)
     length = r if cross else r + 61
     kbuf, vbuf = (torch.randn((2, b, h, length, 64), generator=gen, device="cuda").to(dtype) for _ in range(2))
     mask = torch.ones((b, r), dtype=torch.bool, device="cuda")
@@ -459,27 +462,34 @@ def check_decode_kernel(da) -> dict:
     3.35 TB/s: at the benchmark cells' 96 x 16 rows over the mean and last
     KV-read buckets (558 and 934 of mini's) and the first (128), cross
     attention over 64 encoder positions, and the split route at 1 and 4
-    rows (a stream, the smoke's batch), there also held to one split."""
+    rows (a stream, the smoke's batch), there also held to one split; and
+    the LFM2 cell's grouped queries (192 rows x 8 K/V heads of 4 queries over
+    its first, middle and last fused lengths 128, 448 and 822; its cross
+    attention, 32 heads over 64, group 1).  ``shape`` is (B, query heads,
+    keys, D)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = [(96, 16, r, False, "cells' self attention", True) for r in (128, 558, 934)]
-    cases += [(96, 16, 64, True, "cells' cross attention", True)]
-    cases += [(b, 16, r, False, "split route", True) for b in (1, 4) for r in (934, 4096)]
-    cases += [(96, 16, 558, False, "cells' self attention", False)]  # fp32, checked only
+    # (rows, K/V heads, group, keys, cross, kind, bf16)
+    cases = [(96, 16, 1, r, False, "cells' self attention", True) for r in (128, 558, 934)]
+    cases += [(96, 16, 1, 64, True, "cells' cross attention", True)]
+    cases += [(b, 16, 1, r, False, "split route", True) for b in (1, 4) for r in (934, 4096)]
+    cases += [(192, 8, 4, r, False, "LFM2 self attention", True) for r in (128, 448, 822)]
+    cases += [(192, 32, 1, 64, True, "LFM2 cross attention", True)]
+    cases += [(96, 16, 1, 558, False, "cells' self attention", False)]  # fp32, checked only
     rows, worst = [], 0.0
-    for b, h, r, cross, kind, bf16 in cases:
+    for b, h, group, r, cross, kind, bf16 in cases:
         dtype = torch.bfloat16 if bf16 else torch.float32
-        q, k, v, mask = decode_inputs(b, h, r, dtype, cross=cross, gen=gen)
+        q, k, v, mask = decode_inputs(b, h, r, dtype, cross=cross, gen=gen, group=group)
         out = da.decode_attention(q, k, v, mask)
         ref = da.decode_attention_plain(q, k, v, mask)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        row_err = tile_rel_err(out.reshape(b * h, 1, 64), ref.reshape(b * h, 1, 64))
-        splits, chunk = da.decode_split(b * h, r, sms)
-        meta = {"kind": kind, "shape": [b, h, r, 64], "dtype": str(dtype).removeprefix("torch."),
-                "splits": splits, "keys_per_split": chunk}
+        row_err = tile_rel_err(out.reshape(b * h * group, 1, 64), ref.reshape(b * h * group, 1, 64))
+        splits, chunk = da.decode_split(b * h, r, sms, group)
+        meta = {"kind": kind, "shape": [b, h * group, r, 64], "kv_heads": h, "group": group,
+                "dtype": str(dtype).removeprefix("torch."), "splits": splits, "keys_per_split": chunk}
         ok = math.isfinite(err) and err <= TOL[dtype] and row_err <= OUT_TILE_TOL[dtype]
         emit({"phase": "k5_check", **meta, "max_abs_err": err, "tol": TOL[dtype], "max_row_rel_err": row_err,
               "row_tol": OUT_TILE_TOL[dtype], "ok": ok})
@@ -492,12 +502,12 @@ def check_decode_kernel(da) -> dict:
         row = {**meta, "ms": graph_ms(lambda: da.decode_attention(q, k, v, mask)),
                "plain_ms": graph_ms(lambda: da.decode_attention_plain(q, k, v, mask)),
                "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
-                                                                             scale=1.0)),
+                                                                             scale=1.0, enable_gqa=group > 1)),
                # the kernel reads K and V of the valid keys only
                "bound_ms": 1e3 * 2 * int(mask.sum()) * h * 64 * k.element_size() / H100_BYTES_PER_S}
         if splits > 1:  # the same kernel held to one split: what the split route saves
             split_choice = da.decode_split
-            da.decode_split = lambda bh, r, sms: (1, r)
+            da.decode_split = lambda bh, r, sms, group=1: (1, r)
             try:
                 row["one_split_ms"] = graph_ms(lambda: da.decode_attention(q, k, v, mask))
             finally:
@@ -506,6 +516,57 @@ def check_decode_kernel(da) -> dict:
         rows.append(row)
         emit({"phase": "k5_time", **row})
     return {"max_abs_err": worst, "per_shape": rows}
+
+
+def check_experts(moe) -> dict:
+    """Phase 2: the LFM2 cell's grouped experts (``ops/moe.experts_grouped``:
+    pairs sorted by expert, ``torch._grouped_mm`` over device offsets)
+    against the loop over experts (``experts_plain``), bf16, at the cell's
+    shapes: a decode step's 192 tokens x 4 experts (768 pairs) and its
+    prefill's 192 x 65 tokens, 32 experts of 2048 -> 1792 -> 2048 at the
+    benchmark's std 0.02.  Each token's output within ``OUT_TILE_TOL`` of the
+    loop's (relative, Frobenius), the counts equal and none dropped; the
+    grouped call given two experts' down projections swapped must miss that
+    tolerance.  Then the grouped call's device time by graph replay (its
+    705 MB of weights do not stay in L2) against its bound: each touched
+    expert's weights read once at 3.35 TB/s, or 6 x H x F flops a pair at
+    989 TFLOP/s, whichever is longer."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    e, h, f, k = 32, 2048, 1792, 4
+    w13 = (torch.randn((e, h, 2 * f), generator=gen, device="cuda") * 0.02).bfloat16()
+    w2 = (torch.randn((e, f, h), generator=gen, device="cuda") * 0.02).bfloat16()
+    router = (torch.randn((h, e), generator=gen, device="cuda") * 0.02).bfloat16()
+    bias = (torch.randn(e, generator=gen, device="cuda") * 0.02).bfloat16()
+    swapped = w2[[1, 0, *range(2, e)]]
+    tol = OUT_TILE_TOL[torch.bfloat16]
+    rows = []
+    for kind, tokens in (("decode step", 192), ("prefill", 192 * 65)):
+        x = torch.randn((tokens, h), generator=gen, device="cuda").bfloat16()
+        weights, experts = moe.route(x, router, bias, k)
+        stats = [torch.zeros(3, dtype=torch.int64, device="cuda") for _ in range(2)]
+        got = moe.experts_grouped(x, w13, w2, weights, experts, stats[0])
+        ref = moe.experts_plain(x, w13, w2, weights, experts, stats[1])
+        wrong = moe.experts_grouped(x, w13, swapped, weights, experts)
+
+        def rel(a):
+            return ((a.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1)).max().item()
+
+        err, wrong_err = rel(got), rel(wrong)
+        pairs, touched, dropped = stats[0].tolist()
+        ok = (math.isfinite(err) and err <= tol < wrong_err and stats[0].tolist() == stats[1].tolist()
+              and pairs == tokens * k and dropped == 0)
+        meta = {"kind": kind, "tokens": tokens, "experts_per_token": k, "experts": e, "hidden": h, "width": f}
+        emit({"phase": "experts_check", **meta, "max_token_rel_err": err, "tol": tol,
+              "swapped_experts_rel_err": wrong_err, "stats": stats[0].tolist(), "ok": ok})
+        if not ok:
+            raise AssertionError(f"the grouped experts disagree with the loop over experts at {meta}")
+        ms = graph_ms(lambda: moe.experts_grouped(x, w13, w2, weights, experts))
+        bound_ms = 1e3 * max(touched * 3 * h * f * w2.element_size() / H100_BYTES_PER_S,
+                             pairs * 6 * h * f / H100_BF16_FLOPS)
+        row = {**meta, "ms": ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ms, "experts_touched": touched}
+        rows.append(row)
+        emit({"phase": "experts_time", **row})
+    return {"per_shape": rows}
 
 
 def tile_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -3615,6 +3676,7 @@ def main() -> int:
     from parler_tts_tpu_torch.ops import cuda_build
     from parler_tts_tpu_torch.ops import decode_attention as da
     from parler_tts_tpu_torch.ops import flash_attention as fa
+    from parler_tts_tpu_torch.ops import moe as moe_mod
     from parler_tts_tpu_torch.training import data as data_mod
     from parler_tts_tpu_torch.training import run_training as run_mod
     from parler_tts_tpu_torch.training import step as step_mod
@@ -3648,6 +3710,7 @@ def main() -> int:
         k1 = check_kernels(fa)
         bwd = check_backward(fa)
         k5 = check_decode_kernel(da)
+        experts = check_experts(moe_mod)
         check_reference(cfg_mod, parler, generate_mod, streaming_mod)
         check_encodec_reference(cfg_mod, parler, generate_mod, codec_mod)
         check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax)
@@ -3752,6 +3815,7 @@ def main() -> int:
             "library_call": row["library_call"], "shape": row["shape"], "per_shape": bwd[name]["per_shape"],
         })
     head = next(r for r in k5["per_shape"] if r["shape"][2] == 558)
+    grouped = next(r for r in k5["per_shape"] if r["group"] == 4 and r["shape"][2] == 448)
     kernels.append({
         "name": "decode_attention", "route": "cuda", "source": "parler_tts_tpu_torch/csrc/decode_attention.cu",
         "replaces": "no TPU kernel: XLA's fusion of parler_tts_tpu/models/decoder.py _self_attention_decode / "
@@ -3766,8 +3830,10 @@ def main() -> int:
         "max_abs_err": k5["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "bytes", "library_ms": head["library_ms"],
         "library_call": "scaled_dot_product_attention", "shape": head["shape"], "per_shape": k5["per_shape"],
+        # the LFM2 cell's grouped queries: 8 K/V heads of 4, each block reading its K/V head once
+        "group_4": {key: grouped[key] for key in ("shape", "ms", "bound_ms", "share_of_bound", "library_ms")},
     })
-    emit({"kernels": kernels})
+    emit({"kernels": kernels, "grouped_experts": experts["per_shape"]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

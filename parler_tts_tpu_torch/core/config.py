@@ -186,6 +186,45 @@ class DecoderConfig:
     bos_token_id: int = 1025
     eos_token_id: int = 1024
     tie_word_embeddings: bool = False
+    # The block family: "musicgen" (the fields above) or "lfm2" (LFM2's
+    # gated short convolutions and GQA attention with RoPE, in
+    # ``layer_types`` order, a dense SwiGLU in the first ``num_dense_layers``
+    # and sigmoid-routed experts after them, RMSNorm; ``models/lfm2.py``).
+    # The fields below are LFM2's and leave a MusicGen decoder's JSON as it was.
+    block_type: str = "musicgen"
+    layer_types: tuple[str, ...] | None = None  # "conv" or "full_attention" per layer
+    num_key_value_heads: int | None = None
+    conv_L_cache: int = 3
+    conv_bias: bool = False
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    num_dense_layers: int = 0
+    intermediate_size: int = 0
+    use_expert_bias: bool = False
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+
+    def __post_init__(self):
+        if self.block_type not in ("musicgen", "lfm2"):
+            raise ValueError(f"block_type must be musicgen|lfm2, got {self.block_type!r}")
+        if self.block_type == "musicgen":
+            return
+        types = tuple(self.layer_types or ())
+        object.__setattr__(self, "layer_types", types)
+        if len(types) != self.num_hidden_layers or set(types) - {"conv", "full_attention"}:
+            raise ValueError(f"layer_types must give conv|full_attention for each of the {self.num_hidden_layers} "
+                             f"layers, got {types}")
+        kv = self.num_key_value_heads or self.num_attention_heads
+        object.__setattr__(self, "num_key_value_heads", kv)
+        if self.num_attention_heads % kv:
+            raise ValueError(f"{self.num_attention_heads} query heads do not group over {kv} K/V heads")
+        if self.conv_bias:
+            raise NotImplementedError("LFM2 short convolutions with a bias")
+        if self.num_experts and not 0 < self.num_experts_per_tok <= self.num_experts:
+            raise ValueError(f"num_experts_per_tok {self.num_experts_per_tok} of {self.num_experts} experts")
 
     @property
     def head_dim(self) -> int:
@@ -193,8 +232,19 @@ class DecoderConfig:
             raise ValueError("hidden_size must be a multiple of num_attention_heads")
         return self.hidden_size // self.num_attention_heads
 
-    to_dict = _asdict
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        if self.block_type == "musicgen":
+            for name in LFM2_FIELDS:
+                del d[name]
+        return d
+
     from_dict = classmethod(_fromdict)
+
+
+#: the LFM2 family's fields of ``DecoderConfig``, absent from a MusicGen one's JSON
+_DECODER_FIELDS = [f.name for f in dataclasses.fields(DecoderConfig)]
+LFM2_FIELDS = tuple(_DECODER_FIELDS[_DECODER_FIELDS.index("block_type"):])
 
 
 @dataclass(frozen=True)
@@ -226,7 +276,7 @@ class ParlerTTSConfig:
         return self.audio_encoder.frame_rate
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        return {**dataclasses.asdict(self), "decoder": self.decoder.to_dict()}
 
     @classmethod
     def from_dict(cls, d: dict) -> "ParlerTTSConfig":
@@ -348,5 +398,50 @@ def dummy_config(num_codebooks: int = 9) -> ParlerTTSConfig:
             pad_token_id=1024,
             eos_token_id=1024,
             bos_token_id=1025,
+        ),
+    )
+
+
+#: LFM2-8B-A1B's operator order (its published ``layer_types``)
+LFM2_8B_A1B_LAYER_TYPES = tuple(
+    "full_attention" if i in (2, 6, 10, 14, 18, 21) else "conv" for i in range(24))
+
+
+def lfm2_8b_a1b_config() -> ParlerTTSConfig:
+    """LFM2-8B-A1B's decoder stack (24 × 2048: 18 gated short convolutions,
+    6 GQA attention layers of 32 query and 8 K/V heads, 2 dense SwiGLU
+    layers then 32 experts of width 1,792 with 4 a token) as the codec
+    decoder over EnCodec 24 kHz's first 8 codebooks, flan-t5-base as the
+    text encoder and LFM2's 65,536-entry vocabulary as the prompt table.
+    Parler's parts replace the text LM's embedding and head, and every block
+    gains a cross-attention sublayer (``models/lfm2.py``)."""
+    return ParlerTTSConfig(
+        vocab_size=65536,
+        text_encoder=T5EncoderConfig(),
+        audio_encoder=EncodecConfig(num_codebooks=8),
+        decoder=DecoderConfig(
+            vocab_size=1088,
+            hidden_size=2048,
+            num_hidden_layers=24,
+            num_attention_heads=32,
+            num_codebooks=8,
+            max_position_embeddings=128000,
+            pad_token_id=1024,
+            eos_token_id=1024,
+            bos_token_id=1025,
+            block_type="lfm2",
+            layer_types=LFM2_8B_A1B_LAYER_TYPES,
+            num_key_value_heads=8,
+            conv_L_cache=3,
+            num_experts=32,
+            num_experts_per_tok=4,
+            moe_intermediate_size=1792,
+            num_dense_layers=2,
+            intermediate_size=7168,
+            use_expert_bias=True,
+            norm_topk_prob=True,
+            routed_scaling_factor=1.0,
+            rope_theta=1e6,
+            norm_eps=1e-5,
         ),
     )

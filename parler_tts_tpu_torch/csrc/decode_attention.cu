@@ -18,17 +18,22 @@
 // flight, and that nothing else (scores, copies, casts) goes through device
 // memory.
 //
-// decode_attn_kernel: one block of 128 threads per (b, h) row and split of
-// its keys [k0, k0 + n).  A key row of D elements is D * sizeof(T) / 16
-// threads, each holding the matching 16 bytes of q in fp32 registers, so a
+// Grouped-query attention: K/V may hold kv_heads = H / G heads, query head h
+// reading K/V head h / G (G = 1 or 4, a template parameter); G = 1 is MHA.
+//
+// decode_attn_kernel: one block of 128 threads per (b, K/V head) row and split
+// of its keys [k0, k0 + n), for the G query heads that share it: each K and V
+// row is read once for the group.  A key row of D elements is D * sizeof(T) /
+// 16 threads, each holding the matching 16 bytes of the G queries in fp32
+// registers, so a
 // warp reads 4 bf16 (2 fp32) keys of D = 64 per load instruction, and each
 // thread has 4 keys' loads in flight before it uses them.  Pass 0 copies the
 // split's mask to shared memory; pass 1 reads K (masked keys are never read:
 // their score is -1e9 whatever k holds) and keeps the n fp32 scores in shared
-// memory (n <= 4096, 16 KB); the block then takes the max and the sum of
-// exp(s - max) over them, and pass 2 reads V for every key whose probability
-// e / sum, rounded to T, is not 0 (masked keys, when the row has a valid
-// key), accumulating p.v in fp32.  The threads of a key group each hold D / 8
+// memory, G rows of them (G * n <= 4096, 16 KB); the block then takes each
+// query's max and sum of exp(s - max), and pass 2 reads V for every key whose
+// probability e / sum, rounded to T, is not 0 for some query of the group
+// (masked keys, when the row has a valid key), accumulating p.v in fp32.  The threads of a key group each hold D / 8
 // or D / 4 dims; the groups' sums meet by warp shuffles and shared memory.
 // With one split (B * H fills the card) the block writes out; with several,
 // each split's softmax is its own (local max, sum, probabilities rounded to T)
@@ -113,37 +118,39 @@ struct Strides {
   long long q_b, q_h, k_b, k_h, k_r, v_b, v_h, v_r, m_b;
 };
 
-template <typename T, int D>
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const unsigned char* __restrict__ mask, T* __restrict__ out,
-                   float* __restrict__ part_o, float* __restrict__ part_ml, int heads, int r,
+                   float* __restrict__ part_o, float* __restrict__ part_ml, int kv_heads, int r,
                    int chunk, int mask_bytes, Strides st) {
   constexpr int kVec = 16 / sizeof(T);     // elements per 16-byte load
   constexpr int kLanes = D / kVec;         // threads per key row
   constexpr int kGroups = kThreads / kLanes;  // keys per load instruction of the block
   static_assert(kLanes <= 32 && 32 % kLanes == 0, "a key row lies inside one warp");
   __shared__ float red[kWarps];
-  __shared__ float wo[kWarps][D];
-  extern __shared__ float s[];  // the split's scores, then exp(s - max); then its mask flags
+  __shared__ float wo[kWarps][G * D];
+  extern __shared__ float s[];  // the split's G rows of scores, then exp(s - max); then its mask flags
 
   const int bh = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
-  const int b = bh / heads, h = bh % heads;
+  const int b = bh / kv_heads, hk = bh % kv_heads;
   const int k0 = split * chunk;
   const int n = min(chunk, r - k0);
-  unsigned char* valid = reinterpret_cast<unsigned char*>(s + chunk);
+  unsigned char* valid = reinterpret_cast<unsigned char*>(s + G * chunk);
   const int tid = threadIdx.x, g = tid / kLanes, lane = tid % kLanes;
 
   const unsigned char* mrow = mask + (b * st.m_b + k0) * mask_bytes;
   for (int i = tid; i < n; i += kThreads) valid[i] = nonzero(mrow + i * mask_bytes, mask_bytes);
 
-  float qf[kVec];
-  to_float(*reinterpret_cast<const uint4*>(q + b * st.q_b + h * st.q_h + lane * kVec), qf);
-  const T* kp = k + b * st.k_b + h * st.k_h + k0 * st.k_r + lane * kVec;
-  const T* vp = v + b * st.v_b + h * st.v_h + k0 * st.v_r + lane * kVec;
+  float qf[G][kVec];  // the group's queries: query head hk * G + j
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    to_float(*reinterpret_cast<const uint4*>(q + b * st.q_b + (hk * G + j) * st.q_h + lane * kVec), qf[j]);
+  const T* kp = k + b * st.k_b + hk * st.k_h + k0 * st.k_r + lane * kVec;
+  const T* vp = v + b * st.v_b + hk * st.v_h + k0 * st.v_r + lane * kVec;
   __syncthreads();
 
-  // pass 1: scores of the valid keys, -1e9 for the others
+  // pass 1: scores of the valid keys, -1e9 for the others; each K row read once for the group
   for (int i0 = 0; i0 < n; i0 += kGroups * kUnroll) {
     uint4 raw[kUnroll];
     bool ok[kUnroll];
@@ -155,78 +162,97 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      float part = 0.f;
-      if (ok[u]) {
-        float kf[kVec];
-        to_float(raw[u], kf);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) part = fmaf(qf[j], kf[j], part);
-      }
-#pragma unroll
-      for (int o = kLanes / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+      float kf[kVec];
+      if (ok[u]) to_float(raw[u], kf);
       const int i = i0 + u * kGroups + g;
-      if (lane == 0 && i < n) s[i] = ok[u] ? part : kNegInf;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        float part = 0.f;
+        if (ok[u]) {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) part = fmaf(qf[j][e], kf[e], part);
+        }
+#pragma unroll
+        for (int o = kLanes / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        if (lane == 0 && i < n) s[j * chunk + i] = ok[u] ? part : kNegInf;
+      }
     }
   }
   __syncthreads();
 
-  float m = -INFINITY;
-  for (int i = tid; i < n; i += kThreads) m = fmaxf(m, s[i]);
-  m = block_reduce(m, red, true);
-  float l = 0.f;
-  for (int i = tid; i < n; i += kThreads) {
-    const float e = expf(s[i] - m);
-    s[i] = e;
-    l += e;
-  }
-  l = block_reduce(l, red, false);  // >= 1: the max adds exp(0)
-
-  // pass 2: p.v over the keys whose rounded probability is not 0
-  float acc[kVec];
+  float l[G];
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) acc[j] = 0.f;
+  for (int j = 0; j < G; ++j) {
+    float* sj = s + j * chunk;
+    float m = -INFINITY;
+    for (int i = tid; i < n; i += kThreads) m = fmaxf(m, sj[i]);
+    m = block_reduce(m, red, true);
+    float sum = 0.f;
+    for (int i = tid; i < n; i += kThreads) {
+      const float e = expf(sj[i] - m);
+      sj[i] = e;
+      sum += e;
+    }
+    l[j] = block_reduce(sum, red, false);  // >= 1: the max adds exp(0)
+    if (splits > 1 && tid == 0) {
+      const long long at = (static_cast<long long>(bh) * G + j) * splits + split;
+      part_ml[2 * at] = m;
+      part_ml[2 * at + 1] = l[j];
+    }
+  }
+
+  // pass 2: p.v over the keys whose rounded probability is not 0 for some query of the group
+  float acc[G][kVec];
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[j][e] = 0.f;
   for (int i0 = 0; i0 < n; i0 += kGroups * kUnroll) {
     uint4 raw[kUnroll];
-    float p[kUnroll];
+    float p[kUnroll][G];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = i0 + u * kGroups + g;
-      p[u] = i < n ? round_to<T>(s[i] / l) : 0.f;
-      if (p[u] != 0.f) raw[u] = __ldcs(reinterpret_cast<const uint4*>(vp + i * st.v_r));
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        p[u][j] = i < n ? round_to<T>(s[j * chunk + i] / l[j]) : 0.f;
+        any = any || p[u][j] != 0.f;
+      }
+      if (any) raw[u] = __ldcs(reinterpret_cast<const uint4*>(vp + i * st.v_r));
+      else raw[u] = make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (p[u] != 0.f) {
-        float vf[kVec];
-        to_float(raw[u], vf);
+      float vf[kVec];
+      to_float(raw[u], vf);
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] = fmaf(p[u], vf[j], acc[j]);
-      }
+      for (int j = 0; j < G; ++j)
+        if (p[u][j] != 0.f)
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[j][e] = fmaf(p[u][j], vf[e], acc[j][e]);
     }
   }
   // the warp's key groups, then the block's warps
 #pragma unroll
   for (int o = kLanes; o < 32; o <<= 1)
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], o);
   if ((tid & 31) < kLanes)
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) wo[tid / 32][lane * kVec + j] = acc[j];
-  __syncthreads();
-  if (tid < D) {
-    float o = wo[0][tid];
+    for (int j = 0; j < G; ++j)
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) o += wo[w][tid];
-    if (splits == 1) {
-      out[static_cast<long long>(bh) * D + tid] = from_float<T>(o);
-    } else {
-      const long long at = static_cast<long long>(bh) * splits + split;
-      part_o[at * D + tid] = o;
-      if (tid == 0) {
-        part_ml[2 * at] = m;
-        part_ml[2 * at + 1] = l;
-      }
-    }
+      for (int e = 0; e < kVec; ++e) wo[tid / 32][j * D + lane * kVec + e] = acc[j][e];
+  __syncthreads();
+  for (int idx = tid; idx < G * D; idx += kThreads) {
+    float o = wo[0][idx];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) o += wo[w][idx];
+    const long long row = static_cast<long long>(bh) * G + idx / D;  // b * heads + query head
+    if (splits == 1) out[row * D + idx % D] = from_float<T>(o);
+    else part_o[(row * splits + split) * D + idx % D] = o;
   }
 }
 
@@ -247,50 +273,69 @@ decode_attn_combine_kernel(const float* __restrict__ part_o, const float* __rest
   out[static_cast<long long>(blockIdx.x) * D + threadIdx.x] = from_float<T>(o / total);
 }
 
-template <typename T, int D>
+template <typename T, int D, int G>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* part_o,
-           void* part_ml, int bh, int heads, int r, int splits, int chunk, int mask_bytes,
+           void* part_ml, int bhk, int kv_heads, int r, int splits, int chunk, int mask_bytes,
            const Strides& st, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(chunk) * sizeof(float) + chunk;
-  decode_attn_kernel<T, D><<<dim3(bh, splits), kThreads, smem, stream>>>(
+  const size_t smem = static_cast<size_t>(G) * chunk * sizeof(float) + chunk;
+  decode_attn_kernel<T, D, G><<<dim3(bhk, splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const unsigned char*>(mask), static_cast<T*>(out), static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), heads, r, chunk, mask_bytes, st);
+      static_cast<float*>(part_ml), kv_heads, r, chunk, mask_bytes, st);
   if (splits > 1)
-    decode_attn_combine_kernel<T, D><<<bh, D, 0, stream>>>(
+    decode_attn_combine_kernel<T, D><<<bhk * G, D, 0, stream>>>(
         static_cast<const float*>(part_o), static_cast<const float*>(part_ml), static_cast<T*>(out),
         splits);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D>
+int launch_group(int group, const void* q, const void* k, const void* v, const void* mask, void* out,
+                 void* part_o, void* part_ml, int bhk, int kv_heads, int r, int splits, int chunk,
+                 int mask_bytes, const Strides& st, cudaStream_t stream) {
+#define PARLER_GROUP(G)                                                                          \
+  launch<T, D, G>(q, k, v, mask, out, part_o, part_ml, bhk, kv_heads, r, splits, chunk, mask_bytes, \
+                  st, stream)
+  switch (group) {
+    case 1: return PARLER_GROUP(1);
+    case 4: return PARLER_GROUP(4);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PARLER_GROUP
+}
+
 }  // namespace
 
-// q (b, heads, 1, d) and k/v (b, heads, r, d) with unit stride over d and the
-// other strides (in elements) given, every row 16-byte aligned; mask (b, r)
+// q (b, kv_heads * group, 1, d) and k/v (b, kv_heads, r, d) with unit stride
+// over d and the other strides (in elements) given, every row 16-byte
+// aligned; query head h reads K/V head h / group (group 1 or 4); mask (b, r)
 // of 1-, 2-, 4- or 8-byte elements (row stride m_b, unit stride over r); out
-// (b * heads, d) contiguous; fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1).  The
-// keys are cut into `splits` runs of `chunk` (the last may be shorter,
-// chunk <= 4096); with splits > 1, part_o (b * heads * splits, d) and part_ml
-// (b * heads * splits, 2) are fp32 scratch.  Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched),
-// cudaErrorMisalignedAddress for a misaligned tensor, or cudaErrorInvalidValue
-// for a head dim other than 32 or 64 or a bad cut.
+// (b * kv_heads * group, d) contiguous; fp32 (is_bf16 = 0) or bf16 (is_bf16 =
+// 1).  The keys are cut into `splits` runs of `chunk` (the last may be
+// shorter, group * chunk <= 4096); with splits > 1, part_o (b * heads *
+// splits, d) and part_ml (b * heads * splits, 2) are fp32 scratch.  Launches
+// on `stream` without synchronising and returns cudaGetLastError() (0 =
+// launched), cudaErrorMisalignedAddress for a misaligned tensor, or
+// cudaErrorInvalidValue for a head dim other than 32 or 64, another group or
+// a bad cut.
 extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* mask,
-                                void* out, void* part_o, void* part_ml, int b, int heads, int r,
-                                int d, int is_bf16, int splits, int chunk, int mask_bytes,
-                                long long q_b, long long q_h, long long k_b, long long k_h,
-                                long long k_r, long long v_b, long long v_h, long long v_r,
-                                long long m_b, void* stream) {
-  if (b <= 0 || heads <= 0) return 0;
-  if (r <= 0 || splits <= 0 || chunk <= 0 || chunk > 4096 || (splits - 1) * chunk >= r ||
-      splits * static_cast<long long>(chunk) < r || (splits > 1 && (!part_o || !part_ml)))
+                                void* out, void* part_o, void* part_ml, int b, int kv_heads,
+                                int group, int r, int d, int is_bf16, int splits, int chunk,
+                                int mask_bytes, long long q_b, long long q_h, long long k_b,
+                                long long k_h, long long k_r, long long v_b, long long v_h,
+                                long long v_r, long long m_b, void* stream) {
+  if (b <= 0 || kv_heads <= 0) return 0;
+  if (r <= 0 || splits <= 0 || chunk <= 0 || group <= 0 || group * chunk > 4096 ||
+      (splits - 1) * chunk >= r || splits * static_cast<long long>(chunk) < r ||
+      (splits > 1 && (!part_o || !part_ml)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!sm90::aligned16({q, k, v, out})) return static_cast<int>(cudaErrorMisalignedAddress);
   const Strides st{q_b, q_h, k_b, k_h, k_r, v_b, v_h, v_r, m_b};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bh = b * heads;
-#define PARLER_LAUNCH(T, D) \
-  launch<T, D>(q, k, v, mask, out, part_o, part_ml, bh, heads, r, splits, chunk, mask_bytes, st, s)
+  const int bhk = b * kv_heads;
+#define PARLER_LAUNCH(T, D)                                                                    \
+  launch_group<T, D>(group, q, k, v, mask, out, part_o, part_ml, bhk, kv_heads, r, splits, chunk, \
+                     mask_bytes, st, s)
   if (d == 64) return is_bf16 ? PARLER_LAUNCH(bf16, 64) : PARLER_LAUNCH(float, 64);
   if (d == 32) return is_bf16 ? PARLER_LAUNCH(bf16, 32) : PARLER_LAUNCH(float, 32);
 #undef PARLER_LAUNCH

@@ -112,8 +112,15 @@ STAGE = 64
 # ``decode.states_dropped``, captured states ``make_room`` let go;
 # ``prefill.replays``, ``prefill.captures`` and ``prefill.capture_s``, the
 # same for prefill graphs (the warm-up, which is the capturing call's
-# prefill, included).  Spans: ``generate.capture``, ``generate.prefill``,
-# ``generate.segment`` and ``generate.finalize``.
+# prefill, included); ``decode.kv_bytes`` and ``decode.conv_state_bytes``,
+# the cache bytes the kept steps read (``KVCache.step_bytes``: self K/V over
+# the bucket, cross K/V; the LFM2 family's conv state); ``moe.assignments``,
+# ``moe.experts_touched`` and ``moe.dropped`` (always 0, and checked), a
+# call's routed (token, expert) pairs, experts given a token summed over MoE
+# calls, and pairs dropped, counted on the device from the prefill on and
+# read once after the loop (``ops/moe.py``).  Spans: ``generate.capture``
+# and ``generate.prefill`` (both with the state's ``kv_bytes`` and
+# ``conv_bytes``), ``generate.segment`` and ``generate.finalize``.
 
 
 class GenerateOutput(NamedTuple):
@@ -217,6 +224,18 @@ def _plan(model: ParlerTTSModel, gen: GenerationConfig, max_length: int, input_i
     return _Plan(b, first.device, rows, use_cfg, p_len, 0 if input_ids is None else input_ids.shape[1], t0, limits)
 
 
+def _flush_prompt(prompt_hidden: torch.Tensor, p_mask: torch.Tensor):
+    """Each row's valid prompt positions moved, in order, to the end of the
+    prompt, its padding to the front: one run of keys against the BOS frame,
+    which the prefill's key bounds (``ops/flash_attention.kv_bounds``) take,
+    whatever the tokenizer's padding left between them.  Returns the moved
+    states and mask and, for each new place, the position it came from
+    (``ParlerDecoder`` keeps it as the token's absolute position)."""
+    order = torch.argsort((p_mask != 0).to(torch.int32), dim=1, stable=True)
+    hidden = torch.gather(prompt_hidden, 1, order[..., None].expand(-1, -1, prompt_hidden.shape[2]))
+    return hidden, torch.gather(p_mask, 1, order), order
+
+
 def _prefill_tensors(model: ParlerTTSModel, gen: GenerationConfig, plan: _Plan, cache: KVCache, *, max_length: int,
                      input_ids, attention_mask, prompt_input_ids, prompt_attention_mask, prompt_hidden_states,
                      decoder_input_codes):
@@ -240,6 +259,7 @@ def _prefill_tensors(model: ParlerTTSModel, gen: GenerationConfig, plan: _Plan, 
         prompt_hidden = model.embed_prompts(prompt_input_ids)
     else:
         prompt_hidden = None
+    prompt_positions = None
     if prompt_hidden is None:
         p_mask = torch.zeros((rows, 0), dtype=torch.int32, device=device)
     else:
@@ -250,6 +270,7 @@ def _prefill_tensors(model: ParlerTTSModel, gen: GenerationConfig, plan: _Plan, 
         # it is guidance on the prompt itself, against zeroed prompt rows
         repeat = _rows if input_ids is not None else _null_rows
         prompt_hidden, p_mask = repeat(prompt_hidden, use_cfg), repeat(p_mask, use_cfg)
+        prompt_hidden, p_mask, prompt_positions = _flush_prompt(prompt_hidden, p_mask)
 
     start_ids = torch.full((b, decoder.cfg.num_codebooks, 1), gen.decoder_start_token_id, dtype=torch.int32,
                            device=device)
@@ -269,6 +290,7 @@ def _prefill_tensors(model: ParlerTTSModel, gen: GenerationConfig, plan: _Plan, 
         encoder_hidden_states=enc_hidden,
         encoder_attention_mask=enc_mask,
         prompt_hidden_states=prompt_hidden,
+        prompt_positions=prompt_positions,
         attention_mask=fused_mask,
         cache=cache,
     )
@@ -294,10 +316,11 @@ def prefill(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int,
     (``decoder.decode_params`` copies every decode weight)."""
     decoder = model.decoder
     plan = _plan(model, gen, max_length, input_ids, prompt_input_ids, prompt_hidden_states, decoder_input_codes)
-    with profiling.span("generate.prefill", plan.device, route="eager"):
+    with profiling.span("generate.prefill", plan.device, route="eager") as sp:
         if cache is None:
             cache = init_cache(decoder.cfg, plan.rows, plan.p_len + max_length, plan.enc_len, dtype=decoder.dtype,
                                device=plan.device, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
+        sp.set(**_state_bytes(cache))
         tokens, pattern, logits, fused_mask, enc_mask = _prefill_tensors(
             model, gen, plan, cache, max_length=max_length, input_ids=input_ids, attention_mask=attention_mask,
             prompt_input_ids=prompt_input_ids, prompt_attention_mask=prompt_attention_mask,
@@ -364,6 +387,11 @@ def _draw(gen: GenerationConfig, s: DecodeState, generator: torch.Generator | No
         s.draw.uniform_(generator=generator)
 
 
+def _state_bytes(cache: KVCache) -> dict[str, int]:
+    """A span's record of the state a cache holds, by kind."""
+    return {f"{kind}_bytes": n for kind, n in cache.nbytes_by_kind().items()}
+
+
 def _read_len(s: DecodeState) -> int:
     """The KV-read bucket of the step at ``s.t``."""
     return next(size for size in s.limits if size > s.p_len + s.t)
@@ -378,9 +406,17 @@ def decode_step(model: ParlerTTSModel, gen: GenerationConfig, s: DecodeState, *,
     Call it while ``not s.done``.  ``stream_generate`` and the split
     models' loop run on this function."""
     _draw(gen, s, generator, noise, s.t)
-    _advance(model, gen, s, t_hi=s.tokens.shape[2], read_len=_read_len(s), injected=noise is not None)
+    read_len = _read_len(s)
+    _advance(model, gen, s, t_hi=s.tokens.shape[2], read_len=read_len, injected=noise is not None)
     s.t += 1
-    profiling.count("decode.positions")
+    _count_steps(s, read_len, 1)
+
+
+def _count_steps(s: DecodeState, read_len: int, kept: int) -> None:
+    profiling.count("decode.positions", kept)
+    read = s.cache.step_bytes(read_len)
+    profiling.count("decode.kv_bytes", kept * read["kv"])
+    profiling.count("decode.conv_state_bytes", kept * read["conv"])
 
 
 #: runs ``n`` steps of one bucket: (bucket's fused length, its t_hi, n)
@@ -405,7 +441,7 @@ def _decode(s: DecodeState, end: int, segment: Segment) -> int:
                 finished = bool(s.finished.all())
                 kept = int(s.position) - s.t if finished else n
                 sp.set(units=kept)
-            profiling.count("decode.positions", kept)
+            _count_steps(s, size, kept)
             s.t += kept
             if finished:
                 return s.t
@@ -529,7 +565,7 @@ def _capture(model, gen, s: DecodeState, captured: _Captured, *, size: int, t_hi
     t0, recorded = time.perf_counter(), fa.recorded()
     with profiling.span("generate.capture", s.tokens.device, kind="step", rows=s.logits.shape[0],
                         prompt_len=s.p_len, encoder_len=0 if s.enc_mask is None else s.enc_mask.shape[1],
-                        max_length=s.tokens.shape[2], bucket=size) as sp:
+                        max_length=s.tokens.shape[2], bucket=size, **_state_bytes(s.cache)) as sp:
         graph, nbytes = _record(lambda: _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected),
                                 captured.pool)
         seconds = time.perf_counter() - t0
@@ -573,13 +609,15 @@ def _captured_prefill(model, gen, captured: _Captured, plan: _Plan, *, max_lengt
     shapes = _input_shapes(inputs)
     known = captured.prefills.get(shapes)
     device = s.tokens.device
-    with profiling.span("generate.prefill", device, route="captured" if known is None else "replayed"):
+    with profiling.span("generate.prefill", device, route="captured" if known is None else "replayed",
+                        **_state_bytes(s.cache)):
         if known is None:
             static = {name: None if x is None else x.to(device, copy=True) for name, x in inputs.items()}
             t0, recorded = time.perf_counter(), fa.recorded()
             with profiling.span("generate.capture", device, kind="prefill", rows=plan.rows, prompt_len=plan.p_len,
                                 encoder_len=plan.enc_len, max_length=max_length,
-                                shapes={name: list(x.shape) for name, x in inputs.items() if x is not None}) as sp:
+                                shapes={name: list(x.shape) for name, x in inputs.items() if x is not None},
+                                **_state_bytes(s.cache)) as sp:
                 graph, nbytes = _record(lambda: _prefill_into(model, gen, plan, s, max_length, static), _new_pool())
                 seconds = time.perf_counter() - t0
                 sp.set(seconds=seconds, nbytes=nbytes)
@@ -610,7 +648,7 @@ def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _
                  inputs["prompt_hidden_states"], inputs["decoder_input_codes"])
     device = next(decoder.parameters()).device
     key = (plan.rows, plan.p_len, plan.enc_len, max_length, decoder.dtype, gen, noise is not None,
-           tuple(p.data_ptr() for p in decoder.parameters()), decoder.positions.data_ptr())
+           tuple(p.data_ptr() for p in decoder.parameters()), tuple(b.data_ptr() for b in decoder.buffers()))
     # the decode view, refreshed from the weights at every call: a copy of
     # its own, never the parameters a plain view shares
     fresh = decoder.decode_params(gen.int8_weights)
@@ -694,9 +732,26 @@ def generate_tokens(model: ParlerTTSModel, gen: GenerationConfig, *, max_length:
             captured, segment = _captured_generation(model, gen, graphs, max_length=max_length,
                                                      generator=generator, noise=noise, **inputs)
             t = _decode(captured.state, max_length, segment)
+            _count_experts(model.decoder)
             return captured.state.tokens.clone(), t
     s = prefill(model, gen, max_length=max_length, **inputs)
-    return s.tokens, _decode(s, max_length, _eager_segment(model, gen, s, generator, noise))
+    t = _decode(s, max_length, _eager_segment(model, gen, s, generator, noise))
+    _count_experts(model.decoder)
+    return s.tokens, t
+
+
+def _count_experts(decoder) -> None:
+    """The call's MoE counts, read from the device once (models with
+    experts only); a dropped pair raises."""
+    stats = getattr(decoder, "moe_stats", None)
+    if stats is None:
+        return
+    assignments, touched, dropped = stats.tolist()
+    profiling.count("moe.assignments", assignments)
+    profiling.count("moe.experts_touched", touched)
+    profiling.count("moe.dropped", dropped)
+    if dropped:
+        raise RuntimeError(f"the experts dropped {dropped} routed (token, expert) pairs")
 
 
 def postprocess_tokens(tokens: torch.Tensor, cfg: ParlerTTSConfig) -> tuple[torch.Tensor, torch.Tensor]:

@@ -176,7 +176,10 @@ class KVCache:
     cache the ``*_scale`` buffers ``(L, B, H, T)`` hold each row's bf16
     scale; they are None otherwise.  ``index`` is the prefill's length,
     advanced by ``ParlerDecoder.decode_step``; ``ParlerDecoder.step`` takes
-    its position from the caller and leaves ``index`` alone."""
+    its position from the caller and leaves ``index`` alone.  The LFM2
+    family (``models/lfm2.py``) keeps self K/V for its attention layers only,
+    at its K/V heads, and ``conv`` ``(L_conv, B, conv_L_cache - 1, H)``: each
+    conv layer's last inputs."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
@@ -187,13 +190,30 @@ class KVCache:
     cross_k_scale: torch.Tensor | None = None
     cross_v_scale: torch.Tensor | None = None
     index: int = 0
+    conv: torch.Tensor | None = None
 
     @property
     def nbytes(self) -> int:
         """Bytes of every buffer the cache holds."""
-        return sum(t.numel() * t.element_size() for t in (
-            self.self_k, self.self_v, self.cross_k, self.cross_v, self.self_k_scale, self.self_v_scale,
-            self.cross_k_scale, self.cross_v_scale) if t is not None)
+        return sum(self.nbytes_by_kind().values())
+
+    def nbytes_by_kind(self) -> dict[str, int]:
+        """Bytes the cache holds as K/V (self and cross, scales included)
+        and as convolution state."""
+        kv = _nbytes(self.self_k, self.self_v, self.cross_k, self.cross_v, self.self_k_scale, self.self_v_scale,
+                     self.cross_k_scale, self.cross_v_scale)
+        return {"kv": kv, "conv": _nbytes(self.conv)}
+
+    def step_bytes(self, read_len: int) -> dict[str, int]:
+        """Bytes of state one decode step reads: the self K/V (scales
+        included) over ``[0, read_len)`` and the cross K/V; the conv state."""
+        self_kv = _nbytes(self.self_k, self.self_v, self.self_k_scale, self.self_v_scale)
+        cross = _nbytes(self.cross_k, self.cross_v, self.cross_k_scale, self.cross_v_scale)
+        return {"kv": cross + self_kv * read_len // self.self_k.shape[3], "conv": _nbytes(self.conv)}
+
+
+def _nbytes(*tensors: torch.Tensor | None) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *,
@@ -206,6 +226,8 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *,
     scales."""
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+    if cfg.block_type == "lfm2":
+        return _init_lfm2_cache(cfg, batch, max_len, enc_len, dtype=dtype, device=device, kv_dtype=kv_dtype)
     l, h, d = cfg.num_hidden_layers, heads or cfg.num_attention_heads, cfg.head_dim
     quant = kv_dtype == "int8"
 
@@ -219,6 +241,25 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *,
     return KVCache(buf(max_len), buf(max_len), buf(enc_len) if cross else None, buf(enc_len) if cross else None,
                    scales(max_len), scales(max_len), scales(enc_len) if cross else None,
                    scales(enc_len) if cross else None)
+
+
+def _init_lfm2_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *, dtype: torch.dtype,
+                     device: torch.device, kv_dtype: str | None) -> KVCache:
+    """The LFM2 family's cache: self K/V of its attention layers at the K/V
+    heads, cross K/V of every layer at the query heads, conv state."""
+    if kv_dtype is not None:
+        raise NotImplementedError("an int8 cache for the LFM2 block family")
+    attn, d = cfg.layer_types.count("full_attention"), cfg.head_dim
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def cross():
+        return zeros(cfg.num_hidden_layers, batch, cfg.num_attention_heads, enc_len, d) if enc_len else None
+
+    return KVCache(zeros(attn, batch, cfg.num_key_value_heads, max_len, d),
+                   zeros(attn, batch, cfg.num_key_value_heads, max_len, d), cross(), cross(),
+                   conv=zeros(cfg.num_hidden_layers - attn, batch, cfg.conv_L_cache - 1, cfg.hidden_size))
 
 
 def _put(buf: torch.Tensor, scales: torch.Tensor | None, layer: int, pos: slice | torch.Tensor,
@@ -459,7 +500,8 @@ class ParlerDecoder(nn.Module):
                 dtype: torch.dtype | None = None,
                 generator: torch.Generator | None = None,
                 train_random: TrainRandom | None = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False,
+                prompt_positions: torch.Tensor | None = None) -> torch.Tensor:
         """Full-sequence forward over the fused (prompt + codes) sequence.
 
         ``input_ids`` (B, K, T); ``attention_mask`` (B, >= T_fused) covers the
@@ -473,13 +515,22 @@ class ParlerDecoder(nn.Module):
         (dropout and layerdrop; see the module docstring), drawing its
         ``TrainRandom`` from it, or ``train_random`` gives it drawn (a
         captured step's); ``remat`` recomputes each layer in the backward.
+        ``prompt_positions`` (B, P) gives the prompt's positions when its
+        tokens were moved (``generate``'s prefill moves each row's prompt
+        against its BOS frame and keeps where each token stood).
         Returns the final-normed hidden states (B, T_fused, H)."""
         dtype = dtype or self.dtype
         x = self.embed_codebooks(input_ids, dtype)
         if prompt_hidden_states is not None:
             x = torch.cat([prompt_hidden_states.to(dtype), x], dim=1)
         b, t, _ = x.shape
-        x = x + self._positions(0, t, dtype)[None]
+        if prompt_positions is None:
+            x = x + self._positions(0, t, dtype)[None]
+        else:
+            self.check_positions(t)
+            p = prompt_positions.shape[1]
+            index = torch.cat([prompt_positions, torch.arange(p, t, device=x.device).expand(b, t - p)], dim=1)
+            x = x + self.positions[index].to(dtype)
 
         if attention_mask is None:
             flash_mask = torch.ones((b, t), dtype=torch.int32, device=x.device)

@@ -18,6 +18,12 @@ probabilities rounded to the compute dtype, and p.v summed in fp32 and
 returned in the compute dtype.  The mask is per key: in decode it has holes
 (bucket padding, prompt padding, then the decoded positions).
 
+Grouped-query attention: k/v may hold fewer heads than q, each K/V head
+shared by ``group = H_q / H_kv`` consecutive query heads (query head h
+reads K/V head h // group, as ``repeat_interleave`` would lay them out).
+The kernel then gives one block to a (b, K/V head) and its group's queries,
+so K and V cross HBM once for the group; a group of 1 is the MHA kernel.
+
 The kernel cuts each (b, h) row's keys into ``splits`` runs only when the
 rows alone would leave the card's SMs idle (:func:`decode_split`: a stream's
 or a small server batch's few rows); each run takes its own softmax and a
@@ -43,25 +49,31 @@ MAX_CHUNK = 4096
 MIN_CHUNK = 64
 
 _MASK_BYTES = (1, 2, 4, 8)
+#: query heads per K/V head the kernel takes
+GROUPS = (1, 4)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_mask: torch.Tensor) -> torch.Tensor:
-    """q (B, H, 1, D) pre-scaled, k/v (B, H, R, D), ``kv_mask`` (B, R), nonzero
-    = valid -> (B, H, 1, D) in q's dtype, with materialised fp32 scores."""
+    """q (B, H, 1, D) pre-scaled, k/v (B, H_kv, R, D) with H_kv dividing H,
+    ``kv_mask`` (B, R), nonzero = valid -> (B, H, 1, D) in q's dtype, with
+    materialised fp32 scores."""
     dtype = q.dtype
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    b, h, _, d = q.shape
+    qg = q.reshape(b, k.shape[1], h // k.shape[1], d)  # (B, H_kv, group, D)
+    scores = torch.matmul(qg.float(), k.float().transpose(-1, -2))
     scores = scores.masked_fill(~kv_mask[:, None, None, :].bool(), fa.NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.matmul(probs.to(dtype), v.to(dtype))
+    return torch.matmul(probs.to(dtype), v.to(dtype)).reshape(b, h, 1, d)
 
 
-def decode_split(bh: int, r: int, sms: int) -> tuple[int, int]:
-    """(splits, keys per split) for ``bh`` rows of ``r`` keys on a card of
-    ``sms`` SMs: one split when the rows give every SM ``BLOCKS_PER_SM``
-    blocks, else enough splits of at least ``MIN_CHUNK`` keys to do so; never
-    more than ``MAX_CHUNK`` keys a split, and no empty split."""
-    splits = max(min(-(-BLOCKS_PER_SM * sms // bh), -(-r // MIN_CHUNK)), -(-r // MAX_CHUNK), 1)
+def decode_split(bh: int, r: int, sms: int, group: int = 1) -> tuple[int, int]:
+    """(splits, keys per split) for ``bh`` blocks' rows of ``r`` keys on a
+    card of ``sms`` SMs: one split when the rows give every SM
+    ``BLOCKS_PER_SM`` blocks, else enough splits of at least ``MIN_CHUNK``
+    keys to do so; never more than ``MAX_CHUNK // group`` keys a split (a
+    block keeps its group's scores), and no empty split."""
+    splits = max(min(-(-BLOCKS_PER_SM * sms // bh), -(-r // MIN_CHUNK)), -(-r // (MAX_CHUNK // group)), 1)
     chunk = -(-r // splits)
     return -(-r // chunk), chunk
 
@@ -78,7 +90,7 @@ def _kernel():
     fn = library("decode_attention").decode_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 9
                        + [ctypes.c_void_p])
     return fn
 
@@ -93,8 +105,9 @@ def _check(q, k, v, kv_mask) -> None:
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in fa._HEAD_DIMS:
         raise ValueError(f"decode attention kernel takes head dim {fa._HEAD_DIMS}, got {d}")
-    if k.dim() != 4 or k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape or k.shape[2] == 0:
-        raise ValueError(f"k/v must be (B, H, R > 0, D) matching q {tuple(q.shape)}, "
+    if (k.dim() != 4 or k.shape[0] != b or k.shape[1] == 0 or h % k.shape[1] or h // k.shape[1] not in GROUPS
+            or k.shape[3] != d or v.shape != k.shape or k.shape[2] == 0):
+        raise ValueError(f"k/v must be (B, H_kv, R > 0, D) matching q {tuple(q.shape)}, H / H_kv in {GROUPS}, "
                          f"got {tuple(k.shape)}, {tuple(v.shape)}")
     if tuple(kv_mask.shape) != (b, k.shape[2]):
         raise ValueError(f"kv_mask must be (B, R) = {(b, k.shape[2])}, got {tuple(kv_mask.shape)}")
@@ -114,9 +127,10 @@ def _check(q, k, v, kv_mask) -> None:
 def _decode_cuda(q, k, v, kv_mask):
     _check(q, k, v, kv_mask)
     b, h, _, d = q.shape
-    r = k.shape[2]
-    splits, chunk = decode_split(b * h, r, _sms(q.device.index if q.device.index is not None
-                                                else torch.cuda.current_device()))
+    hk, r = k.shape[1], k.shape[2]
+    group = h // hk
+    splits, chunk = decode_split(b * hk, r, _sms(q.device.index if q.device.index is not None
+                                                 else torch.cuda.current_device()), group)
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     part_o = part_ml = None
     if splits > 1:  # the graph's pool under capture
@@ -127,7 +141,7 @@ def _decode_cuda(q, k, v, kv_mask):
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
                         None if part_o is None else part_o.data_ptr(),
                         None if part_ml is None else part_ml.data_ptr(),
-                        b, h, r, d, fa._DTYPES[q.dtype], splits, chunk, kv_mask.element_size(),
+                        b, hk, group, r, d, fa._DTYPES[q.dtype], splits, chunk, kv_mask.element_size(),
                         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
                         v.stride(2), kv_mask.stride(0), stream)
     if err:
@@ -137,8 +151,9 @@ def _decode_cuda(q, k, v, kv_mask):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor) -> torch.Tensor:
-    """K5.  q (B, H, 1, D) pre-scaled, k/v (B, H, R, D) (a cache slice, read
-    in place through its strides), ``kv_mask`` (B, R), nonzero = valid -> out
+    """K5.  q (B, H, 1, D) pre-scaled, k/v (B, H_kv, R, D) (a cache slice, read
+    in place through its strides; H / H_kv in ``GROUPS``), ``kv_mask`` (B, R),
+    nonzero = valid -> out
     (B, H, 1, D) in q's dtype: the plain version on CPU tensors, the kernel on
     CUDA tensors."""
     return fa._dispatch(decode_attention_plain, _decode_cuda, q=q, k=k, v=v, kv_mask=kv_mask)

@@ -178,6 +178,30 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     _refused(ValueError, q, k, v, mask.t().contiguous().t(), "unit stride over R")
 
 
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_grouped_query_plain_version_is_mha_over_repeated_kv(group):
+    """Query head h reads K/V head h // group: the plain version over
+    grouped K/V equals it over K/V repeated to the query heads
+    (``repeat_interleave``), at fp32, at any group; the kernel's checks
+    take H / H_kv in ``GROUPS`` and refuse a group it has no instance of."""
+    g = torch.Generator().manual_seed(group)
+    kv_heads, r = 8 // group, 37
+    q = torch.randn((3, 8, 1, D), generator=g) * D**-0.5
+    k, v = torch.randn((3, kv_heads, r, D), generator=g), torch.randn((3, kv_heads, r, D), generator=g)
+    mask = torch.rand((3, r), generator=g) > 0.3
+    got = pda.decode_attention_plain(q, k, v, mask)
+    want = pda.decode_attention_plain(q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1), mask)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    if group in pda.GROUPS:
+        pda._check(q, k, v, mask)
+        assert pda.decode_split(3 * kv_heads, 8192, 132, group)[1] <= pda.MAX_CHUNK // group
+    else:  # the kernel has no instance of this group
+        _refused(ValueError, q, k, v, mask, "H / H_kv")
+    _refused(ValueError, q, k[:, :1], v[:, :1], mask, "H / H_kv")  # a group of 8
+    _refused(ValueError, q[:, :6], k[:, :4].repeat(1, 2, 1, 1)[:, :4], v[:, :4].repeat(1, 2, 1, 1)[:, :4], mask,
+             "H / H_kv")  # 6 query heads over 4 K/V heads
+
+
 def _decoder_and_cache(kv_dtype=None):
     cfg = tiny_config(pcfg)
     decoder = pparler.init(0, cfg, device="cpu").decoder

@@ -85,7 +85,8 @@ def test_a_tts_call_is_one_span_tree(pipe):
     assert audio_s == pytest.approx(3 * frames * pipe.cfg.audio_encoder.hop_length / sr)  # before the trim
     assert 0 < sum(w.shape[0] for w in waves) / sr <= audio_s
     prefill, = [s for s in spans if s["name"] == "generate.prefill"]
-    assert prefill["attrs"] == {"route": "eager"}
+    assert prefill["attrs"] == {"route": "eager", "kv_bytes": prefill["attrs"]["kv_bytes"], "conv_bytes": 0}
+    assert prefill["attrs"]["kv_bytes"] > 0
     for s in spans:  # children end inside their parents; no device events on the CPU
         parent = next((p for p in spans if p["id"] == s["parent"]), None)
         assert parent is None or parent["start_ns"] <= s["start_ns"] <= s["end_ns"] <= parent["end_ns"]
@@ -292,3 +293,95 @@ def test_counters_add_raise_and_snapshot():
     profiling.count("test.count")
     assert snap["test.count"] - before == 3.5 and snap["test.max"] >= 3.0
     assert counter("test.count") - before == 4.5
+
+
+# --- the LFM2 decoder's state and experts ------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def lfm2_model():
+    from tests.test_torch_lfm2 import build, tiny
+
+    cfg = tiny()
+    return cfg, build(cfg)[0]
+
+
+def _lfm2_ids(cfg):
+    from tests.test_torch_lfm2 import inputs
+
+    di, dm, pi, pm = inputs(cfg)
+    return dict(input_ids=di, attention_mask=dm, prompt_input_ids=pi, prompt_attention_mask=pm)
+
+
+@pytest.mark.parametrize("captured", [False, True])
+def test_state_bytes_by_kind_in_spans_and_counters(lfm2_model, captured, monkeypatch):
+    """``generate.prefill`` and ``generate.capture`` carry the cache's K/V
+    and conv bytes; ``decode.kv_bytes`` and ``decode.conv_state_bytes``
+    count what the kept steps read of each (``KVCache.step_bytes`` over
+    their bucket), on the eager and the captured route."""
+    cfg, model = lfm2_model
+    if captured:
+        monkeypatch.setattr(pgenerate, "_record", lambda fn, pool: (fn(), (_Graph(fn), 0))[1])
+        monkeypatch.setattr(pgenerate, "_new_pool", lambda: None)
+        monkeypatch.setattr(pgenerate, "_captured_route", lambda model: True)
+        monkeypatch.setattr(pgenerate, "_budget", lambda device: 1e18)
+    gen = pcfg.GenerationConfig(do_sample=False)
+    before = {name: counter(name) for name in ("decode.kv_bytes", "decode.conv_state_bytes", "decode.positions")}
+    ids = _lfm2_ids(cfg)
+    with profiling.tracing():
+        _, t = pgenerate.generate_tokens(model, gen, max_length=300, **ids)
+    cache = pgenerate.init_cache(cfg.decoder, 3, 16 + 300, ids["input_ids"].shape[1], dtype=torch.float32,
+                                 device=torch.device("cpu"))
+    kinds = cache.nbytes_by_kind()
+    assert kinds["conv"] == 2 * 3 * 2 * 64 * 4 and kinds["kv"] == cache.nbytes - kinds["conv"]
+    spans = [s for s in profiling.records() if s["name"] in ("generate.prefill", "generate.capture")]
+    assert spans and all((s["attrs"]["kv_bytes"], s["attrs"]["conv_bytes"]) == (kinds["kv"], kinds["conv"])
+                         for s in spans)
+    assert any(s["name"] == "generate.capture" for s in spans) == captured
+    limits = pgenerate._kv_read_limits(16 + 1, 16 + 300, gen.kv_read_buckets, batch_rows=3)
+    assert len(limits) > 1
+    want = {"kv": 0, "conv": 0}
+    for position in range(1, t):  # the step at position p reads the bucket that holds p
+        read = cache.step_bytes(next(size for size in limits if size > 16 + position))
+        want = {kind: want[kind] + read[kind] for kind in want}
+    assert counter("decode.positions") - before["decode.positions"] == t - 1 == 299
+    assert counter("decode.kv_bytes") - before["decode.kv_bytes"] == want["kv"]
+    assert counter("decode.conv_state_bytes") - before["decode.conv_state_bytes"] == want["conv"] == 299 * kinds["conv"]
+
+
+def test_moe_counters_count_on_the_device_through_replays(lfm2_model, monkeypatch):
+    """``moe.assignments`` counts every routed (token, expert) pair of a
+    call, its prefill's and each replayed step's, accumulated on the device
+    and read once after the call; ``moe.experts_touched`` the experts given
+    a token, summed over MoE calls; ``moe.dropped`` stays 0, and a dropped
+    pair raises."""
+    cfg, model = lfm2_model
+    monkeypatch.setattr(pgenerate, "_record", lambda fn, pool: (fn(), (_Graph(fn), 0))[1])
+    monkeypatch.setattr(pgenerate, "_new_pool", lambda: None)
+    monkeypatch.setattr(pgenerate, "_captured_route", lambda model: True)
+    monkeypatch.setattr(pgenerate, "_budget", lambda device: 1e18)
+    names = ("moe.assignments", "moe.experts_touched", "moe.dropped", "decode.replays")
+    before = {name: counter(name) for name in names}
+    reads = []
+    real = torch.Tensor.tolist
+
+    def tolist(x):
+        if x is model.decoder.moe_stats:
+            reads.append(1)
+        return real(x)
+
+    monkeypatch.setattr(torch.Tensor, "tolist", tolist)
+    pgenerate.generate_tokens(model, pcfg.GenerationConfig(do_sample=False), max_length=40, **_lfm2_ids(cfg))
+    moved = {name: counter(name) - before[name] for name in names}
+    moe_layers, k, rows, fused = 3, 2, 3, 16 + 1
+    assert reads == [1]
+    assert moved["moe.assignments"] == moe_layers * k * rows * (fused + moved["decode.replays"])
+    assert moe_layers * (1 + moved["decode.replays"]) <= moved["moe.experts_touched"]
+    assert moved["moe.experts_touched"] <= moe_layers * 8 * (1 + moved["decode.replays"])
+    assert moved["moe.dropped"] == 0
+
+    class Dropping:
+        moe_stats = torch.tensor([8, 2, 1])
+
+    with pytest.raises(RuntimeError, match="dropped 1"):
+        pgenerate._count_experts(Dropping())
