@@ -19,11 +19,16 @@ Phases, in order; any failure exits non-zero before the result line:
    backward's two routes (K4, and K2 + K3 forced by
    ``PARLER_FLASH_NO_FUSED_BWD=1``) against each other in fp32 and bf16;
    the build fails unless ``ptxas`` reports each bf16 tensor-core K1, K2,
-   K3 and K4 and each K5 kernel at head dims 32 and 64 with no spills;
+   K3 and K4 and each K5 kernel at head dims 32 and 64, and K6's two
+   instances, with no spills;
    device times (CUDA-graph replay) of each kernel, its plain version and the
    one PyTorch call computing the same function (timed as a yardstick only,
    never called by the port); the LFM2 cell's grouped experts against the
-   loop over experts at its decode and prefill shapes, and their time;
+   loop over experts at its decode and prefill shapes, and their time; K6,
+   the DAC decoder's Snake, against ``snake_fast`` bit for bit at each of the
+   decoder's five levels for 4 rows of 10 s (``snake_time`` lines: its ms
+   and the plain chain's against the bf16 tensor read and written once;
+   ``snake_summary``: per audio second over a decode's 29 Snakes);
 3. reference: a small config (``dummy_config``) at fp32 on the card (kernel
    path) and on the CPU (plain path): greedy generation (composite,
    decoder-only continuation, int8 KV cache and weights, and a stream whose
@@ -38,10 +43,11 @@ Phases, in order; any failure exits non-zero before the result line:
 4. inference path: ``ParlerTTSPipeline.tts`` at full Parler-TTS Mini v0.1
    width (random weights from a seed, bf16), three calls of four requests
    whose prompt buckets give prefill lengths 17, 65 and 257; each call must
-   launch K1 once per decoder layer and K5 twice per layer per decode step
-   (replayed or captured).  Then one more call with each phase
-   synchronised and timed, and a short call under torch.profiler for the
-   device's busy time.  On the same model, each path with the counts set
+   launch K1 once per decoder layer, K5 twice per layer per decode step
+   (replayed or captured) and K6 29 times per DAC decode group (the train
+   paths none).  Then one more call with each phase synchronised and
+   timed, and a short call under torch.profiler for the device's busy
+   time.  On the same model, each path with the counts set
    to 0 just before it and read just after, K1 once per layer per prefill
    and held against its plain version on each prefill's own tensors (a
    replayed prefill adds the K1 launches its graph holds, and its K1 is
@@ -227,9 +233,15 @@ REPLACES = {
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel", "flash_dqkv_mma_kernel")
 COUNTERS = {"flash_attention_fwd": "LAUNCHES", "flash_attention_dq": "LAUNCHES_DQ",
             "flash_attention_dkv": "LAUNCHES_DKV", "flash_attention_dqkv": "LAUNCHES_DQKV",
-            "decode_attention": "LAUNCHES_DECODE"}
+            "decode_attention": "LAUNCHES_DECODE", "snake": "LAUNCHES_SNAKE"}
 # K5, the decode step's attention, and its combine kernel (split route)
 DECODE_KERNELS = ("decode_attn_kernel", "decode_attn_combine_kernel")
+# K6's instances: 32-bit and 64-bit indices (mangled template arguments)
+SNAKE_KERNELS = ("snake_kernelIjE", "snake_kernelIyE")
+# the DAC decoder's Snakes per decode group at 86 frames a second, by level: (channels, T per
+# frame, Snakes at that level); 29 in all
+SNAKE_LEVELS = ((1536, 1, 1), (768, 8, 7), (384, 64, 7), (192, 256, 7), (96, 512, 7))
+SNAKES_PER_DECODE = sum(n for _, _, n in SNAKE_LEVELS)
 
 DESCRIPTIONS = [
     "a female speaker with a low pitched voice speaks very fast",
@@ -857,6 +869,47 @@ def zero_special_heads(model) -> None:
         model.decoder.lm_heads.kernel[..., model.cfg.audio_encoder.codebook_size:] = 0
 
 
+def check_snake(dac_mod, snake_mod, frames: int = 862, rows: int = 4) -> dict:
+    """Phase 2: K6 against ``snake_fast`` bit for bit at each level of the
+    DAC decoder (``SNAKE_LEVELS``) for a group of ``rows`` rows of
+    ``frames`` frames (10 s at 86 Hz), alphas drawn in (0.05, 2.05); then
+    device times (CUDA-graph replay) of K6 and of the plain chain, against
+    the bf16 input read once and the output written once at 3.35 TB/s.  The
+    summary weighs the levels by their Snakes per decode group, per audio
+    second."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows_out, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for c, per_frame, snakes in SNAKE_LEVELS:
+        t = frames * per_frame
+        x = (torch.randn((rows, c, t), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        alpha = torch.rand(c, generator=gen, device="cuda") * 2 + 0.05
+        out = snake_mod.snake_fast_cuda(x, alpha, dac_mod._SIN2_COEFFS)
+        ref = dac_mod.snake_fast(x, alpha)
+        torch.cuda.synchronize()
+        differ = int((out.view(torch.int16) != ref.view(torch.int16)).sum())
+        del out, ref
+        row = {"shape": [rows, c, t], "snakes_per_decode": snakes, "elements": x.numel(),
+               "differing_elements": differ, "bit_for_bit": differ == 0,
+               "ms": graph_ms(lambda: snake_mod.snake_fast_cuda(x, alpha, dac_mod._SIN2_COEFFS)),
+               "plain_ms": graph_ms(lambda: dac_mod.snake_fast(x, alpha), calls=4, replays=4),
+               "bound_ms": 1e3 * 2 * x.numel() * x.element_size() / H100_BYTES_PER_S}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit({"phase": "snake_time", **row})
+        if differ:
+            raise AssertionError(f"the Snake kernel differs from snake_fast in {differ} elements at {row['shape']}")
+        for key in totals:
+            totals[key] += snakes * row[key]
+        rows_out.append(row)
+        del x
+        torch.cuda.empty_cache()
+    audio_s = rows * frames / 86
+    summary = {f"{key}_per_audio_s": v / audio_s for key, v in totals.items()}
+    summary["share_of_bound"] = totals["bound_ms"] / totals["ms"]
+    emit({"phase": "snake_summary", "frames": frames, "rows": rows, "snakes_per_decode": SNAKES_PER_DECODE,
+          **summary})
+    return {"per_shape": rows_out, **summary}
+
+
 def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
     """Phase 4: tts at full Mini width.  Returns the kernel launches of the
     counted calls, the model and its pipeline (the later inference phases
@@ -874,15 +927,20 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
 
     calls = []
     reset_counts(fa)
+    groups = []  # the DAC's decode calls: one per group of rows (models/codec.py::decode)
+    decode_group = model.audio_encoder.decode
+    model.audio_encoder.decode = lambda codes: groups.append(codes.shape[0]) or decode_group(codes)
     for i, (n_words, p) in enumerate(((10, pipe), (50, pipe), (200, pipe16))):
         prompts = _prompts(n_words)
         before = fa.LAUNCHES
         decode_before, steps_before = fa.LAUNCHES_DECODE, counter("decode.replays") + counter("decode.captures")
+        snake_before, groups_before = fa.LAUNCHES_SNAKE, len(groups)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sr, wavs = p.tts(DESCRIPTIONS, prompts, seed=SEED + i, max_seconds=max_seconds)
         wall = time.perf_counter() - t0
         launched = fa.LAUNCHES - before
+        snake_launched, decode_groups = fa.LAUNCHES_SNAKE - snake_before, len(groups) - groups_before
         # a captured step's warm-up launches K5 as a replay does
         decode_steps = counter("decode.replays") + counter("decode.captures") - steps_before
         decode_launched = fa.LAUNCHES_DECODE - decode_before
@@ -897,13 +955,18 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
         if decode_launched != 2 * layers * decode_steps or not decode_steps:
             raise AssertionError(f"tts call launched decode_attention {decode_launched} times over "
                                  f"{decode_steps} steps, want {2 * layers} a step")
+        if snake_launched != SNAKES_PER_DECODE * decode_groups or not decode_groups:
+            raise AssertionError(f"tts call launched snake {snake_launched} times over {decode_groups} DAC decode "
+                                 f"groups, want {SNAKES_PER_DECODE} a group")
         prompt_tokens = max(len(tok.encode(x)) for x in prompts)
         calls.append({"requests": len(wavs), "prompt_tokens": prompt_tokens,
                       "prefill_T": pipeline_mod._bucket(prompt_tokens) + 1, "pcm16": p.pcm16,
                       "samples": [int(w.size) for w in wavs], "sampling_rate": sr,
                       "wall_s": wall, "audio_s_per_wall_s": sum(w.size for w in wavs) / sr / wall,
-                      "k1_launches": launched, "decode_steps": decode_steps, "k5_launches": decode_launched})
+                      "k1_launches": launched, "decode_steps": decode_steps, "k5_launches": decode_launched,
+                      "dac_decode_groups": decode_groups, "k6_launches": snake_launched})
         emit({"phase": "tts", **calls[-1]})
+    del model.audio_encoder.decode  # the class's method again
     launches = counts(fa)
     if any(launches[name] for name in BWD_NAMES):
         raise AssertionError(f"inference launched a backward kernel: {launches}")
@@ -1096,7 +1159,7 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
             del run["params"]
         tol = {k: TRAIN_GRAPH_SPREAD * v for k, v in spread.items()}
         want = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                "flash_attention_dqkv": 0, "decode_attention": 0}
+                "flash_attention_dqkv": 0, "decode_attention": 0, "snake": 0}
         if route == "flash_attention_dqkv":
             want["flash_attention_dqkv"] = layers
         else:
@@ -1345,7 +1408,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
     evals = [r for r in records if "eval/loss" in r]
     losses = [r["train/loss"] for r in train]
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                 "flash_attention_dqkv": layers, "decode_attention": 0}
+                 "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0}
     # K1 also runs in each eval loss batch and each eval generation prefill (2 + 2 of them)
     want_first = {"flash_attention_fwd": layers * (4 + 2 + 2), "flash_attention_dqkv": layers * 4}
     ckpts = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
@@ -1567,7 +1630,7 @@ def run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod, data_m
     carried = all(open(os.path.join(final, f), "rb").read() == open(os.path.join(t5_dir, f), "rb").read()
                   for f in tokenizer_mod.FILES)
     want_cli = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                "flash_attention_dqkv": 2 * layers, "decode_attention": 0}
+                "flash_attention_dqkv": 2 * layers, "decode_attention": 0, "snake": 0}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3572,7 +3635,7 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, strea
     norm_bound = max(MP_SPREAD_FACTOR * norm_spread, MP_NORM_FLOOR)
     layers = cfg.decoder.num_hidden_layers
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                 "flash_attention_dqkv": layers, "decode_attention": 0}
+                 "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0}
     runs = {"nccl": (1, "nccl", ["--per_device_train_batch_size", "2"], 2),
             "data2": (2, "gloo", ["--per_device_train_batch_size", "1"], 1),
             "model2": (2, "gloo", ["--per_device_train_batch_size", "2", "--model_parallel_size", "2"], 2)}
@@ -3672,11 +3735,13 @@ def main() -> int:
     from parler_tts_tpu_torch.generation import generate as generate_mod
     from parler_tts_tpu_torch.generation import streaming as streaming_mod
     from parler_tts_tpu_torch.models import codec as codec_mod
+    from parler_tts_tpu_torch.models import dac as dac_mod
     from parler_tts_tpu_torch.models import parler
     from parler_tts_tpu_torch.ops import cuda_build
     from parler_tts_tpu_torch.ops import decode_attention as da
     from parler_tts_tpu_torch.ops import flash_attention as fa
     from parler_tts_tpu_torch.ops import moe as moe_mod
+    from parler_tts_tpu_torch.ops import snake as snake_mod
     from parler_tts_tpu_torch.training import data as data_mod
     from parler_tts_tpu_torch.training import run_training as run_mod
     from parler_tts_tpu_torch.training import step as step_mod
@@ -3692,15 +3757,17 @@ def main() -> int:
                             "cudnn": torch.backends.cudnn.allow_tf32}})
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_attention"])
+    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_attention", "snake"])
     kernels_built = ptxas_report("\n".join(logs.values()))
     spills = {name: r for name, r in kernels_built.items()
-              if ("mma_kernel" in name or "decode_attn" in name) and r["spill_bytes"]}
+              if ("mma_kernel" in name or "decode_attn" in name or "snake_kernel" in name) and r["spill_bytes"]}
     # each tensor-core instance and each K5 instance (the mangled name holds the head dim) must be in the report
     missing = [f"{kernel}<{d}>" for kernel in MMA_KERNELS for d in (32, 64)
                if not any(f"{kernel}ILi{d}E" in name and r["registers"] for name, r in kernels_built.items())]
     missing += [f"{kernel}<{t}, {d}>" for kernel in DECODE_KERNELS for t in ("13__nv_bfloat16", "f") for d in (32, 64)
                 if not any(f"{kernel}I{t}Li{d}E" in name and r["registers"] for name, r in kernels_built.items())]
+    missing += [kernel for kernel in SNAKE_KERNELS
+                if not any(kernel in name and r["registers"] for name, r in kernels_built.items())]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "flags": " ".join(cuda_build.NVCC_FLAGS),
           "ptxas": kernels_built, "missing_from_ptxas": missing, "ok": not spills and not missing})
     if spills or missing:
@@ -3710,6 +3777,7 @@ def main() -> int:
         k1 = check_kernels(fa)
         bwd = check_backward(fa)
         k5 = check_decode_kernel(da)
+        k6 = check_snake(dac_mod, snake_mod)
         experts = check_experts(moe_mod)
         check_reference(cfg_mod, parler, generate_mod, streaming_mod)
         check_encodec_reference(cfg_mod, parler, generate_mod, codec_mod)
@@ -3832,6 +3900,23 @@ def main() -> int:
         "library_call": "scaled_dot_product_attention", "shape": head["shape"], "per_shape": k5["per_shape"],
         # the LFM2 cell's grouped queries: 8 K/V heads of 4, each block reading its K/V head once
         "group_4": {key: grouped[key] for key in ("shape", "ms", "bound_ms", "share_of_bound", "library_ms")},
+    })
+    head = next(r for r in k6["per_shape"] if r["shape"][1] == 96)
+    kernels.append({
+        "name": "snake", "route": "cuda", "source": "parler_tts_tpu_torch/csrc/snake.cu",
+        "replaces": "no TPU kernel: XLA's fusion of parler_tts_tpu/models/dac.py snake_fast",
+        # each path's own count, set to 0 just before it; checked: SNAKES_PER_DECODE per DAC decode group in
+        # tts, none in a train step
+        "launches": sum(p["snake"] for p in (tts_launches, train_launches, cli_launches, text_launches,
+                                              mp_launches)),
+        "launches_by_path": {"tts": tts_launches["snake"], "train": train_launches["snake"],
+                             "train_cli": cli_launches["snake"], "text": text_launches["snake"],
+                             "multiprocess": mp_launches["snake"]},
+        "bit_for_bit": all(r["bit_for_bit"] for r in k6["per_shape"]), "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": "bytes", "shape": head["shape"],
+        "per_shape": k6["per_shape"],
+        "per_audio_s": {key: k6[key] for key in ("ms_per_audio_s", "plain_ms_per_audio_s", "bound_ms_per_audio_s",
+                                                 "share_of_bound")},
     })
     emit({"kernels": kernels, "grouped_experts": experts["per_shape"]})
     print(card, flush=True)

@@ -16,7 +16,9 @@ otherwise, as the JAX ``encoder_forward`` and ``decoder_forward`` do.  cuDNN
 runs fp32 convolutions in TF32 unless told otherwise
 (``torch.backends.cudnn.allow_tf32`` defaults to True), so encode and
 decode turn TF32 off around their conv stacks: an fp32 codec is fp32, as
-the JAX package's offline tokenizer is.
+the JAX package's offline tokenizer is.  On the card the decoder's bf16
+Snakes run as one hand-written kernel (K6, ``ops/snake.py``) that returns
+``snake_fast``'s output bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch import nn
 
 from parler_tts_tpu_torch.core.config import DACConfig
 from parler_tts_tpu_torch.ops.conv import fp32_convolutions
+from parler_tts_tpu_torch.ops.snake import snake_fast_cuda
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -64,8 +67,9 @@ def snake_fast(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 
 class Snake(nn.Module):
-    """``fast``: the decoder's Snake, ``snake_fast`` on bf16 inputs (exact
-    on others); otherwise the encoder's, exact at every dtype."""
+    """``fast``: the decoder's Snake, ``snake_fast`` on bf16 inputs (K6 on
+    CUDA ones, the same bits) and exact on others; otherwise the encoder's,
+    exact at every dtype."""
 
     def __init__(self, dim: int, *, fast: bool):
         super().__init__()
@@ -73,7 +77,11 @@ class Snake(nn.Module):
         self.alpha = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (snake_fast if self.fast and x.dtype == torch.bfloat16 else snake)(x, self.alpha)
+        if not (self.fast and x.dtype == torch.bfloat16):
+            return snake(x, self.alpha)
+        if x.is_cuda:
+            return snake_fast_cuda(x, self.alpha, _SIN2_COEFFS)
+        return snake_fast(x, self.alpha)
 
 
 _DILATIONS = (1, 3, 9)

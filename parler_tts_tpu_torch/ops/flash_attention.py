@@ -55,7 +55,8 @@ NEG_INF = -1e9
 #: kernel launches since the counter was last reset, one counter per kernel
 #: (the plain versions and the CPU path do not count): K1, K2, K3, K4, and
 #: K5, the decode step's attention (``ops/decode_attention.py``; one per
-#: call, its combine kernel included).  A call while the current stream is
+#: call, its combine kernel included), and K6, the DAC decoder's Snake
+#: (``ops/snake.py``).  A call while the current stream is
 #: captured launches nothing: it counts in the kernel's RECORDED counter, and
 #: whoever replays the graph adds the launches it holds (``recorded`` read
 #: around its capture) by ``replayed``
@@ -64,13 +65,16 @@ LAUNCHES_DQ = 0
 LAUNCHES_DKV = 0
 LAUNCHES_DQKV = 0
 LAUNCHES_DECODE = 0
+LAUNCHES_SNAKE = 0
 RECORDED = 0
 RECORDED_DQ = 0
 RECORDED_DKV = 0
 RECORDED_DQKV = 0
 RECORDED_DECODE = 0
+RECORDED_SNAKE = 0
 _RECORDED = {"LAUNCHES": "RECORDED", "LAUNCHES_DQ": "RECORDED_DQ", "LAUNCHES_DKV": "RECORDED_DKV",
-             "LAUNCHES_DQKV": "RECORDED_DQKV", "LAUNCHES_DECODE": "RECORDED_DECODE"}
+             "LAUNCHES_DQKV": "RECORDED_DQKV", "LAUNCHES_DECODE": "RECORDED_DECODE",
+             "LAUNCHES_SNAKE": "RECORDED_SNAKE"}
 
 FUSED_MAX_LEN = 1024  # the JAX package's default tile: one tile pair -> fused backward
 

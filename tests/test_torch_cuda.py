@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(the flash-attention kernels K1-K4, the decode step's attention K5), the
+(the flash-attention kernels K1-K4, the decode step's attention K5, the DAC
+decoder's Snake K6), the
 decode loop, the stream and the prefill captured in CUDA graphs
 against the per-step eager loop and the eager prefill, the captured train
 and eval steps against the eager ones, and failed captures (they raise,
@@ -471,6 +472,129 @@ def test_decode_check_rejects_a_skipped_key_run(cuda, monkeypatch, tmp_path):
         print(f"decode attention with a skipped key run, {b} rows: max_row_rel_err {err} "
               f"(tol {TILE_TOL[torch.bfloat16]})")
         assert err > TILE_TOL[torch.bfloat16]
+
+
+MINI_FRAMES = 862  # 10 s at 86 frames a second: T of the DAC decoder's first Snake
+
+
+def _snake_inputs(b: int, c: int, t: int, alpha_dtype, gen) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (b, c, t) bf16 of std 3 with values at and beside the polynomial's
+    wrap points (alpha * x / pi near an integer, where t - floor(t) jumps) at
+    the start of each channel of the first row, and +-0, large and tiny
+    magnitudes (a subnormal among them) in the last row; alpha (c,) with a
+    negative, a tiny (1e-6) and two large (+-50) channels."""
+    x = torch.randn((b, c, t), generator=gen, device="cuda") * 3
+    alpha = torch.randn(c, generator=gen, device="cuda").abs() + 0.05
+    alpha[: min(c, 4)] = torch.tensor([-0.7, 1e-6, 50.0, -50.0], device="cuda")[: min(c, 4)]
+    alpha = alpha.to(alpha_dtype)
+    m = min(t, 7)
+    k = torch.arange(m, device="cuda", dtype=torch.float32) - 3  # -3 .. 3 half-turns
+    wrap = k[None, :] * torch.pi / alpha.float()[:, None] * (1 + 1e-3 * (k[None, :] % 2))
+    x[0, :, :m] = wrap.clamp(-1e4, 1e4)
+    special = torch.tensor([0.0, -0.0, 1e4, -1e4, 3e4, -3e4, 1e-30, 1e-40, 0.5, -0.5], device="cuda")
+    x[-1].reshape(-1)[: min(special.numel(), c * t)] = special[: c * t]
+    return x.to(torch.bfloat16), alpha
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t", [
+    (4, 1536, MINI_FRAMES),  # the decoder's five Snake widths at 4 rows, each at its T
+    (4, 768, 8 * MINI_FRAMES),
+    (4, 384, 64 * MINI_FRAMES),
+    (4, 192, 256 * MINI_FRAMES),
+    (4, 96, 512 * MINI_FRAMES),
+    (3, 5, 1),  # rows shorter than a 16-byte load, and unaligned tails
+    (2, 9, 7),
+    (2, 17, 9),
+    (1, 3, 862),
+])
+@pytest.mark.parametrize("alpha_dtype", [torch.bfloat16, torch.float32])
+def test_snake_kernel_equals_snake_fast_bit_for_bit(cuda, b, c, t, alpha_dtype):
+    from parler_tts_tpu_torch.models import dac as pdac
+    from parler_tts_tpu_torch.ops import snake as psnake
+
+    gen = torch.Generator(device="cuda").manual_seed(b * 10007 + c * 101 + t)
+    x, alpha = _snake_inputs(b, c, t, alpha_dtype, gen)
+    before = pfa.LAUNCHES_SNAKE
+    out = psnake.snake_fast_cuda(x, alpha, pdac._SIN2_COEFFS)
+    torch.cuda.synchronize()
+    assert pfa.LAUNCHES_SNAKE == before + 1
+    ref = pdac.snake_fast(x, alpha)
+    same = out.view(torch.int16) == ref.view(torch.int16)
+    assert bool(same.all()), f"{int((~same).sum())} of {same.numel()} elements differ, first at {(~same).nonzero()[0]}"
+    # and from a tensor that does not start on a 16-byte boundary (element by element)
+    if c * t % 8:
+        shifted = torch.empty((b + 1, c, t), dtype=torch.bfloat16, device="cuda")[1:]
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16
+        assert torch.equal(psnake.snake_fast_cuda(shifted, alpha, pdac._SIN2_COEFFS).view(torch.int16),
+                           ref.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_snake_kernel_past_32_bit_indices(cuda):
+    """A tensor of more than 2**32 elements (8.6 GB in bf16) takes the
+    kernel's 64-bit indices: its first and last columns, and the columns
+    around the row boundary, equal ``snake_fast``'s."""
+    from parler_tts_tpu_torch.models import dac as pdac
+    from parler_tts_tpu_torch.ops import snake as psnake
+
+    t = 2**31 + 13  # two channels, one row each: a row boundary at an odd column
+    x = torch.empty((1, 2, t), dtype=torch.bfloat16, device="cuda").normal_(0.0, 3.0)
+    alpha = torch.tensor([0.7, -1.3], device="cuda")
+    out = psnake.snake_fast_cuda(x, alpha, pdac._SIN2_COEFFS)
+    torch.cuda.synchronize()
+    for cols in (slice(0, 4096), slice(t - 4096, t)):
+        want = pdac.snake_fast(x[:, :, cols].contiguous(), alpha)
+        assert torch.equal(out[:, :, cols].view(torch.int16), want.view(torch.int16))
+    del x, out
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_snake_kernel_refuses_what_it_does_not_take(cuda):
+    from parler_tts_tpu_torch.models import dac as pdac
+    from parler_tts_tpu_torch.ops import snake as psnake
+
+    x = torch.zeros((2, 4, 8), dtype=torch.bfloat16, device="cuda")
+    alpha = torch.ones(4, device="cuda")
+    for bad, error in ((x.float(), TypeError), (x.transpose(1, 2), ValueError), (x[0], ValueError)):
+        with pytest.raises(error):
+            psnake.snake_fast_cuda(bad, alpha[: bad.shape[1]] if bad.dim() == 3 else alpha, pdac._SIN2_COEFFS)
+    with pytest.raises(ValueError, match="alpha"):
+        psnake.snake_fast_cuda(x, alpha.cpu(), pdac._SIN2_COEFFS)
+    assert psnake.snake_fast_cuda(x[:0], alpha, pdac._SIN2_COEFFS).shape == (0, 4, 8)
+
+
+@pytest.mark.cuda
+def test_a_bf16_dac_decode_equals_the_plain_chain_bit_for_bit(cuda, monkeypatch):
+    """Mini's DAC (widths 1536 -> 96, strides 8, 8, 4, 2) from random weights
+    in bf16: the waveform with K6 equals the waveform with ``snake_fast`` in
+    its place bit for bit, and a decode launches K6 29 times."""
+    from parler_tts_tpu_torch.core.config import DACConfig
+    from parler_tts_tpu_torch.models import codec as pcodec
+    from parler_tts_tpu_torch.models import dac as pdac
+
+    cfg = DACConfig()
+    model = pdac.DAC(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # Snake alphas as trained ones spread, not all 1
+        for name, p in model.named_parameters():
+            if name.endswith("alpha"):
+                p.copy_(torch.rand(p.shape, generator=gen) * 2 + 0.05)
+    model = model.to("cuda", torch.bfloat16)
+    codes = torch.randint(0, cfg.codebook_size, (3, cfg.num_codebooks, 43), generator=gen).cuda()
+    with torch.no_grad():
+        before = pfa.LAUNCHES_SNAKE
+        wave = pcodec.decode(model, codes)
+        torch.cuda.synchronize()
+        assert pfa.LAUNCHES_SNAKE - before == 29
+        monkeypatch.setattr(pdac, "snake_fast_cuda", lambda x, alpha, coeffs: pdac.snake_fast(x, alpha))
+        ref = pcodec.decode(model, codes)
+    assert wave.shape == ref.shape == (3, 43 * cfg.hop_length)
+    assert torch.equal(wave, ref)
+    assert pfa.LAUNCHES_SNAKE - before == 29
 
 
 @pytest.mark.cuda

@@ -316,18 +316,19 @@ def test_programs_keep_the_newest_within_their_budget():
 def test_replays_add_the_launches_their_graphs_hold(monkeypatch):
     """Calls under capture count as recorded; a replay adds a graph's
     recorded calls to the launch counters."""
-    for name in ("LAUNCHES", "LAUNCHES_DQ", "LAUNCHES_DKV", "LAUNCHES_DQKV", "LAUNCHES_DECODE", "RECORDED",
-                 "RECORDED_DQ", "RECORDED_DKV", "RECORDED_DQKV", "RECORDED_DECODE"):
+    for name in ("LAUNCHES", "LAUNCHES_DQ", "LAUNCHES_DKV", "LAUNCHES_DQKV", "LAUNCHES_DECODE", "LAUNCHES_SNAKE",
+                 "RECORDED", "RECORDED_DQ", "RECORDED_DKV", "RECORDED_DQKV", "RECORDED_DECODE", "RECORDED_SNAKE"):
         monkeypatch.setattr(pfa, name, 0)
     before = pfa.recorded()
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
-    for name in ("LAUNCHES", "LAUNCHES_DQKV", "LAUNCHES_DQKV", "LAUNCHES_DECODE"):
+    for name in ("LAUNCHES", "LAUNCHES_DQKV", "LAUNCHES_DQKV", "LAUNCHES_DECODE", "LAUNCHES_SNAKE"):
         pfa._count(name)
     held = {k: n - before[k] for k, n in pfa.recorded().items()}
-    assert held == {"LAUNCHES": 1, "LAUNCHES_DQ": 0, "LAUNCHES_DKV": 0, "LAUNCHES_DQKV": 2, "LAUNCHES_DECODE": 1}
-    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE) == (0, 0, 0)
+    assert held == {"LAUNCHES": 1, "LAUNCHES_DQ": 0, "LAUNCHES_DKV": 0, "LAUNCHES_DQKV": 2, "LAUNCHES_DECODE": 1,
+                    "LAUNCHES_SNAKE": 1}
+    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE, pfa.LAUNCHES_SNAKE) == (0, 0, 0, 0)
     pfa.replayed(held)
     pfa.replayed(held)
-    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQ, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE) == (2, 0, 4, 2)
+    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQ, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE, pfa.LAUNCHES_SNAKE) == (2, 0, 4, 2, 2)
     pfa.replayed(held, 3)  # three replays at once, as a decode segment adds them
-    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE) == (5, 10, 5)
+    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE, pfa.LAUNCHES_SNAKE) == (5, 10, 5, 5)
