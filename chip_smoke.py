@@ -231,9 +231,6 @@ REPLACES = {
 }
 # bf16 K1, K2, K3, K4 on the tensor cores
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel", "flash_dqkv_mma_kernel")
-COUNTERS = {"flash_attention_fwd": "LAUNCHES", "flash_attention_dq": "LAUNCHES_DQ",
-            "flash_attention_dkv": "LAUNCHES_DKV", "flash_attention_dqkv": "LAUNCHES_DQKV",
-            "decode_attention": "LAUNCHES_DECODE", "snake": "LAUNCHES_SNAKE"}
 # K5, the decode step's attention, and its combine kernel (split route)
 DECODE_KERNELS = ("decode_attn_kernel", "decode_attn_combine_kernel")
 # K6's instances: 32-bit and 64-bit indices (mangled template arguments)
@@ -327,13 +324,21 @@ def kernel_ms(fn, calls: int = 5) -> float:
     return total_us / 1e3 / calls
 
 
-def counts(fa) -> dict[str, int]:
-    return {name: getattr(fa, attr) for name, attr in COUNTERS.items()}
+_COUNTS_FROM: dict[str, int] = {}  # the launches at the last reset_counts()
 
 
-def reset_counts(fa) -> None:
-    for attr in COUNTERS.values():
-        setattr(fa, attr, 0)
+def counts() -> dict[str, int]:
+    """Each hand-written kernel's launches since the last ``reset_counts``
+    (``core/graphs.launches``), by its name."""
+    from parler_tts_tpu_torch.core import graphs
+
+    return {name: n - _COUNTS_FROM.get(name, 0) for name, n in graphs.launches().items()}
+
+
+def reset_counts() -> None:
+    from parler_tts_tpu_torch.core import graphs
+
+    _COUNTS_FROM.update(graphs.launches())
 
 
 def valid_pairs(kv_mask: torch.Tensor, heads: int, t: int, causal: bool) -> int:
@@ -728,10 +733,10 @@ def check_routes(fa) -> None:
         try:
             for env in ("0", "1"):
                 os.environ["PARLER_FLASH_NO_FUSED_BWD"] = env
-                before = counts(fa)
+                before = counts()
                 out = fa.flash_attention_bhtd(q, k, v, kv_mask, scale=0.125)
                 grads[env] = torch.autograd.grad(out.float().sin().sum(), (q, k, v))
-                after = counts(fa)
+                after = counts()
                 launched[env] = {name: after[name] - before[name] for name in BWD_NAMES}
         finally:
             if saved is None:
@@ -821,7 +826,7 @@ def check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from
     samples = run_mod.prepare_synthetic(2, cfg, seed=SEED, desc_len=12, prompt_len=10, codes_len=40)
     batch = data_mod.Collator(0, 0, 12, 10, samples[0]["labels"].shape[1])(samples)
     results = {}
-    reset_counts(fa)
+    reset_counts()
     for device, model in (("cpu", cpu_model), ("cuda", gpu_model)):
         tensors = {key: torch.from_numpy(value).to(device) for key, value in batch.items()}
         loss = model.train_forward(**tensors, dtype=torch.float32)[0]
@@ -831,7 +836,7 @@ def check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from
         state = step_mod.create_state(model, learning_rate=1e-3, warmup_steps=1)
         metrics = step_mod.make_train_step(cfg, dtype=torch.float32)(state, batch)
         results[device] = (loss, grads, metrics["loss"].item(), metrics["grad_norm"].item())
-    launched = counts(fa)
+    launched = counts()
     (loss_c, grads_c, step_loss_c, norm_c), (loss_g, grads_g, step_loss_g, norm_g) = results["cpu"], results["cuda"]
     flat_c, flat_g = _flat(grads_c), _flat(grads_g)
     grad_err = max(float(abs(flat_g[k] - flat_c[k]).max() / max(abs(flat_c[k]).max(), 1e-12)) for k in flat_c)
@@ -926,24 +931,24 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
     hop = cfg.audio_encoder.hop_length
 
     calls = []
-    reset_counts(fa)
+    reset_counts()
     groups = []  # the DAC's decode calls: one per group of rows (models/codec.py::decode)
     decode_group = model.audio_encoder.decode
     model.audio_encoder.decode = lambda codes: groups.append(codes.shape[0]) or decode_group(codes)
     for i, (n_words, p) in enumerate(((10, pipe), (50, pipe), (200, pipe16))):
         prompts = _prompts(n_words)
-        before = fa.LAUNCHES
-        decode_before, steps_before = fa.LAUNCHES_DECODE, counter("decode.replays") + counter("decode.captures")
-        snake_before, groups_before = fa.LAUNCHES_SNAKE, len(groups)
+        before, steps_before = counts(), counter("decode.replays") + counter("decode.captures")
+        groups_before = len(groups)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sr, wavs = p.tts(DESCRIPTIONS, prompts, seed=SEED + i, max_seconds=max_seconds)
         wall = time.perf_counter() - t0
-        launched = fa.LAUNCHES - before
-        snake_launched, decode_groups = fa.LAUNCHES_SNAKE - snake_before, len(groups) - groups_before
+        after = counts()
+        launched = after["flash_attention_fwd"] - before["flash_attention_fwd"]
+        snake_launched, decode_groups = after["snake"] - before["snake"], len(groups) - groups_before
         # a captured step's warm-up launches K5 as a replay does
         decode_steps = counter("decode.replays") + counter("decode.captures") - steps_before
-        decode_launched = fa.LAUNCHES_DECODE - decode_before
+        decode_launched = after["decode_attention"] - before["decode_attention"]
         want = torch.int16 if p.pcm16 else torch.float32
         for w in wavs:
             if w.ndim != 1 or w.size == 0 or w.size % hop or str(w.dtype) != str(want).removeprefix("torch."):
@@ -967,7 +972,7 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
                       "dac_decode_groups": decode_groups, "k6_launches": snake_launched})
         emit({"phase": "tts", **calls[-1]})
     del model.audio_encoder.decode  # the class's method again
-    launches = counts(fa)
+    launches = counts()
     if any(launches[name] for name in BWD_NAMES):
         raise AssertionError(f"inference launched a backward kernel: {launches}")
 
@@ -1066,13 +1071,15 @@ def mini_batch(cfg, data_mod, *, seconds: int, prompt_lens, desc_lens, seed: int
 def train_route(step_mod, captured: bool):
     """The train and eval steps on the captured route (the default on one
     card) or, ``captured`` False, on the eager one."""
-    real = step_mod._captured_route
+    from parler_tts_tpu_torch.core import graphs
+
+    real = graphs.capturable
     if not captured:
-        step_mod._captured_route = lambda model, mesh: False
+        graphs.capturable = lambda device, groups=(): False
     try:
         yield
     finally:
-        step_mod._captured_route = real
+        graphs.capturable = real
 
 
 def train_run(cfg, base, fa, step_mod, batch, n_steps: int, captured: bool, profiled: bool = True) -> dict:
@@ -1093,7 +1100,7 @@ def train_run(cfg, base, fa, step_mod, batch, n_steps: int, captured: bool, prof
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        before = counts(fa)
+        before = counts()
         steps = []
         for _ in range(n_steps):
             timings = {}
@@ -1103,7 +1110,7 @@ def train_run(cfg, base, fa, step_mod, batch, n_steps: int, captured: bool, prof
             step_ms = 1e3 * (time.perf_counter() - t0)
             steps.append({"step": metrics["step"], "loss": loss, "grad_norm": metrics["grad_norm"].item(),
                           "step_ms": step_ms, **timings})
-        after = counts(fa)
+        after = counts()
         run = {"route": "captured" if captured else "eager", "steps": steps,
                "launches_per_step": {k: (after[k] - before[k]) / n_steps for k in after},
                "params": [p.detach().clone() for p in state.optimizer.params],
@@ -1142,7 +1149,7 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
     layers = cfg.decoder.num_hidden_layers
     base = parler.init(SEED, cfg, device="cuda")  # fp32 parameters
     n_params = sum(p.numel() for p in step_mod.trainable_parameters(base))
-    reset_counts(fa)
+    reset_counts()
     out = {"config": "mini_600m_config, fp32 parameters, bf16 compute, random weights (seed 0), dropout 0.1",
            "card": card, "trainable_params": n_params}
     for seconds, prompt_lens, desc_lens, n_steps, route in (
@@ -1198,7 +1205,7 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
             raise AssertionError(f"the loss did not fall over {n_steps} steps: {eager['steps']}")
         out[f"{seconds}s"] = summary
     del base
-    out["launches"] = counts(fa)
+    out["launches"] = counts()
     emit({"phase": "train_path", **{k: v for k, v in out.items() if not k.endswith("0s")}})
     return out
 
@@ -1377,13 +1384,13 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
                 restored.append({"path": os.path.basename(loaded["path"]), "step": state.step,
                                  "tensors": len(params), "bit_exact": set(own) == set(params) and all(
                                      torch.equal(own[k].cpu(), params[k]) for k in params)})
-            before, graphs = counts(fa), (state.graphs.captures, state.graphs.replays)
+            before, graphs = counts(), (state.graphs.captures, state.graphs.replays)
             spy.place = "train step"
             try:
                 metrics = inner(state, batch, timings)
             finally:
                 spy.place = "eval"
-            after = counts(fa)
+            after = counts()
             per_step.append({k: after[k] - before[k] for k in after})
             routes.append("captured" if state.graphs.captures > graphs[0] else
                           "replayed" if state.graphs.replays > graphs[1] else "eager")
@@ -1391,16 +1398,16 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
         return step
 
     step_mod.make_train_step, ck.load_train_state = make_spy, load_spy
-    reset_counts(fa)
+    reset_counts()
     try:
         with spy:
             first = run_mod.main(argv + ["--max_steps", "4"], device="cuda")
             ckpts_first = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
-            launches_first = counts(fa)
+            launches_first = counts()
             second = run_mod.main(argv + ["--max_steps", "6"], device="cuda")
     finally:
         step_mod.make_train_step, ck.load_train_state = make_train_step, load_train_state
-    launches = counts(fa)
+    launches = counts()
     errs = spy.hold("main path CLI")
     held = sorted({(place, name, shapes[0]) for place, name, shapes, _ in spy.captured})
     records = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
@@ -1619,10 +1626,10 @@ def run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod, data_m
     # ----- training from the prepared file -----
     layers = cfg.decoder.num_hidden_layers
     spy = KernelSpy(fa, ("flash_attention_fwd", "flash_attention_dqkv"), place="text train step")
-    reset_counts(fa)
+    reset_counts()
     with spy:
         result = run_mod.main(argv, device="cuda")
-    cli_launches = counts(fa)
+    cli_launches = counts()
     errs = spy.hold("main path text")
     final = os.path.join(out_dir, "run", "final")
     records = [json.loads(line) for line in open(os.path.join(out_dir, "run", "metrics.jsonl"))]
@@ -1738,10 +1745,10 @@ def counted(fa, layers: int, fn, *, place: str, calls=1):
     plain version.  Returns (fn's result, K1's launches, the spy, the
     largest error held)."""
     spy = KernelSpy(fa, place=place)
-    reset_counts(fa)
+    reset_counts()
     with spy:
         result = fn()
-    launched = counts(fa)
+    launched = counts()
     want = layers * (calls() if callable(calls) else calls)
     if launched["flash_attention_fwd"] != want or any(launched[name] for name in BWD_NAMES):
         raise AssertionError(f"{place} launched {launched}, want K1 {want} times and no backward")
@@ -2007,7 +2014,7 @@ def prefill_cases(model, pipe, generate_mod) -> list[dict]:
                                          prompt_attention_mask=short["prompt_attention_mask"],
                                          prompt_hidden_states=hidden, decoder_input_codes=codes[:, :, :0])),
              ("audio_prompted", greedy, {**short, "decoder_input_codes": codes})]
-    graphs = generate_mod._graphs_of(model)
+    programs = generate_mod._programs_of(model)
     rows = []
     for name, gen, inputs in cases:
         frames = 0 if inputs["decoder_input_codes"] is None else inputs["decoder_input_codes"].shape[2]
@@ -2015,9 +2022,9 @@ def prefill_cases(model, pipe, generate_mod) -> list[dict]:
         plan = generate_mod._plan(model, gen, max_length, inputs["input_ids"], inputs["prompt_input_ids"],
                                   inputs["prompt_hidden_states"], inputs["decoder_input_codes"])
         captures, capture_s = counter("prefill.captures"), counter("prefill.capture_s")
-        with graphs.lock:
-            captured, _ = generate_mod._captured_generation(model, gen, graphs, max_length=max_length, generator=None,
-                                                            noise=None, **inputs)
+        with programs.lock:
+            _, captured, _ = generate_mod._captured_generation(model, gen, programs, max_length=max_length,
+                                                               generator=None, noise=None, **inputs)
             new = counter("prefill.captures") - captures
             s = captured.state
             replay_ms = [1e3 * sync_time(lambda: generate_mod._captured_prefill(
@@ -2032,7 +2039,8 @@ def prefill_cases(model, pipe, generate_mod) -> list[dict]:
                "differing": bad, "captured_ms": sorted(replay_ms)[len(replay_ms) // 2],
                "eager_ms": sorted(eager_ms)[len(eager_ms) // 2],
                "capture_s": (counter("prefill.capture_s") - capture_s) / new if new else None,
-               "k1_launches_per_replay": captured.prefills[generate_mod._input_shapes(inputs)].launches["LAUNCHES"]}
+               "k1_launches_per_replay":
+                   captured.prefills[generate_mod._input_shapes(inputs)].program.launches["flash_attention_fwd"]}
         row["speedup"] = row["eager_ms"] / row["captured_ms"]
         emit({"phase": "decode_graph_prefill", **row})
         rows.append(row)
@@ -2112,10 +2120,10 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
             generator = seeded()
             eager_prof = launch_profile(lambda: [generate_mod.decode_step(m, gen, p, generator=generator)
                                                  for _ in range(DECODE_PROFILE_STEPS)], DECODE_PROFILE_STEPS)
-            graphs = generate_mod._graphs_of(m)
-            with graphs.lock:
-                instance, segment = generate_mod._captured_generation(m, gen, graphs, max_length=gen.max_length,
-                                                                      generator=seeded(), noise=None, **inputs)
+            programs = generate_mod._programs_of(m)
+            with programs.lock:
+                _, instance, segment = generate_mod._captured_generation(m, gen, programs, max_length=gen.max_length,
+                                                                         generator=seeded(), noise=None, **inputs)
                 state = instance.state
                 size = state.limits[0]
                 graph_prof = launch_profile(lambda: segment(size, min(gen.max_length, size - state.p_len),
@@ -2163,14 +2171,14 @@ def run_decode_graph(cfg, model, pipe, fa, generate_mod, card: str) -> tuple[int
                                                               calls=lambda: prefills[0])
     finally:
         generate_mod.prefill, generate_mod._captured_prefill = real_prefill, real_captured
-    graphs = generate_mod._graphs_of(model)
+    programs, views = generate_mod._programs_of(model), model.__dict__.get("_decode_views", {})
     summary = {
         "config": "mini_600m_config, random weights (seed 0), 4 requests x 2.5 s, prefill T = 65", "card": card,
         "cases": {r["case"]: {key: r[key] for key in ("same_tokens", "captured_ms_per_step", "eager_ms_per_step",
                                                        "speedup", "capture_s_per_graph")} for r in rows},
         "tts_replays": tts["replays"], "tts_eager_decode_steps": tts["eager_decode_steps"],
-        "static_bytes_bf16_model": sum(c.nbytes for c in graphs.sets.values()),
-        "decode_view_bytes_bf16_model": sum(x.numel() * x.element_size() for view in graphs.views.values()
+        "static_bytes_bf16_model": programs.nbytes,
+        "decode_view_bytes_bf16_model": sum(x.numel() * x.element_size() for view in views.values()
                                             for x in generate_mod._view_tensors(view)),
         "graph_memory_share": graphs_mod.GRAPH_MEMORY_SHARE,
         "peak_mem_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2293,22 +2301,24 @@ def run_stream(cfg, model, pipe, fa, generate_mod, streaming_mod, mel_mod, card:
     layers, sr = cfg.decoder.num_hidden_layers, cfg.sampling_rate
     ids = pipe.tokenize(DESCRIPTIONS, _prompts(10))
     gen = dataclasses.replace(pipe.gen, max_length=pipe.max_length(2.5))
-    steps, real_step = [0], streaming_mod.decode_step
+    steps, real_step = [0], generate_mod.decode_step
 
     def counting_step(*args, **kw):
         steps[0] += 1
         return real_step(*args, **kw)
 
+    def captured_stream():  # no eager decode_step may run in it
+        generate_mod.decode_step = counting_step
+        try:
+            return stream_run(model, streaming_mod, gen, ids, vocode_ms)
+        finally:
+            generate_mod.decode_step = real_step
+
     vocode_ms = []
     replays, captures = counter("prefill.replays"), counter("prefill.captures")
-    streaming_mod.decode_step = counting_step
-    try:
-        (run, eager), launches, _, err = counted(
-            fa, layers, lambda: (stream_run(model, streaming_mod, gen, ids, vocode_ms),
-                                 eager_stream_run(model, streaming_mod, generate_mod, gen, ids)),
-            place="stream", calls=2)
-    finally:
-        streaming_mod.decode_step = real_step
+    (run, eager), launches, _, err = counted(
+        fa, layers, lambda: (captured_stream(), eager_stream_run(model, streaming_mod, generate_mod, gen, ids)),
+        place="stream", calls=2)
     replays, captures = counter("prefill.replays") - replays, counter("prefill.captures") - captures
     chunks = run["chunks"]
     codes = np.concatenate([c.codes for c in chunks], axis=2)
@@ -3431,9 +3441,9 @@ def multiprocess_worker(spec_path: str) -> int:
         inner = make(*args, **kwargs)
 
         def step(state, batch, timings=None):
-            before = counts(fa)
+            before = counts()
             metrics = inner(state, batch, timings)
-            after = counts(fa)
+            after = counts()
             steps.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                           "rows": int(batch["labels"].shape[0]), "launches": {k: after[k] - before[k] for k in after}})
             return metrics
@@ -3441,7 +3451,7 @@ def multiprocess_worker(spec_path: str) -> int:
 
     spy = KernelSpy(fa, ("flash_attention_fwd", "flash_attention_dqkv"), place="train step")
     step_mod.make_train_step = make_spy
-    reset_counts(fa)
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     try:
         with spy:
@@ -3451,17 +3461,17 @@ def multiprocess_worker(spec_path: str) -> int:
     rank = dist.process_index()
     result = {"rank": rank, "world": dist.process_count(), "backend": tdist.get_backend(),
               "device": torch.cuda.current_device(), "steps": steps, "step_ms": out["timings"]["step_ms"],
-              "launches": counts(fa), "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": counts(), "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
               "held": sorted({(name, tuple(shapes[0])) for _, name, shapes, _ in spy.captured}),
               "max_abs_err": spy.hold(f"multiprocess {spec['name']} rank {rank}")}
     if spec.get("generate"):
         mesh = pmesh.make_mesh(data=1, model=dist.process_count())
         model, _, gen = ck.load_model(spec["artifact"], device="cuda", mesh=mesh)
-        reset_counts(fa)
+        reset_counts()
         gspy = KernelSpy(fa, place="model=2 generation prefill")
         with gspy:
             tokens = mp_generation(generate_mod, model, gen)
-        result["generation"] = {"tokens": tokens.tolist(), "k1_launches": counts(fa)["flash_attention_fwd"],
+        result["generation"] = {"tokens": tokens.tolist(), "k1_launches": counts()["flash_attention_fwd"],
                                 "max_abs_err": gspy.hold("multiprocess")["flash_attention_fwd"],
                                 "local_heads": model.decoder.num_heads}
         result["sharded_10s"] = hold_sharded_shape(fa, model.decoder.num_heads)
@@ -3639,7 +3649,7 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, strea
     runs = {"nccl": (1, "nccl", ["--per_device_train_batch_size", "2"], 2),
             "data2": (2, "gloo", ["--per_device_train_batch_size", "1"], 1),
             "model2": (2, "gloo", ["--per_device_train_batch_size", "2", "--model_parallel_size", "2"], 2)}
-    summary, launches, errs, ok = {}, {name: 0 for name in COUNTERS}, {}, True
+    summary, launches, errs, ok = {}, dict.fromkeys(counts(), 0), {}, True
     for name, (nproc, backend, extra, rows) in runs.items():
         t0 = time.perf_counter()
         ranks = launch(nproc, {"name": name, "backend": backend, "artifact": art, "generate": name == "model2",

@@ -38,24 +38,26 @@ a stream once per chunk.
 
 Where the steps run:
 
-* on a CUDA model without a model group, the JAX package's jitted programs
-  become CUDA graphs, kept per signature (rows, prompt and encoder lengths,
-  ``max_length``, the dtype, the generation config, injected noise or not,
-  the decoder's weight addresses): each bucket's step, replayed ``STAGE``
+* where ``core/graphs.capturable`` (a CUDA model without a model group),
+  the JAX package's jitted programs become CUDA graphs, kept per signature
+  (rows, prompt and encoder lengths, ``max_length``, the dtype, the
+  generation config, injected noise or not, the decoder's weight
+  addresses): each bucket's step, replayed ``STAGE``
   times per segment, and the prefill (T5 encode, prompt embedding, CFG
   rows, delay pattern, the decoder prefill with its K1 launches, the first
   logits), one graph per input shape (the audio-prompt frames included).
   The state, cache, masks, the decode view, the sampler's draws and the
-  prefill's inputs live in static buffers kept on the model
-  (``_DecodeGraphs``).  A capture or replay that fails raises: nothing
-  falls back to the eager loop.  ``streaming.stream_generate`` runs on the
-  same programs, chunk by chunk;
+  prefill's inputs live in static buffers kept on the model (a
+  ``core/graphs.Programs``).  A capture or replay that fails raises:
+  nothing falls back to the eager loop;
 * on the CPU the same prefill and segment loop run eagerly;
 * a model split over a model group keeps the eager prefill and the
   per-step eager loop (``decode_step`` until ``done``), and so does its
-  stream: gloo collectives cannot be captured, and a capture of NCCL
-  collectives over several ranks cannot be checked on the one card there
-  is.
+  stream (``core/graphs.capturable`` says why).
+
+``decoding`` picks a call's route and runs its prefill; ``generate_tokens``
+decodes to ``max_length`` in it, ``streaming.stream_generate`` chunk by
+chunk.
 
 Sampling draws its uniform numbers from the caller's generator outside the
 graph, one ``uniform_`` per step into the static draw buffer, exactly as the
@@ -77,25 +79,21 @@ slices of the unsplit model's, so the tokens are the unsplit int8 run's.
 
 from __future__ import annotations
 
-import collections
+import contextlib
 import dataclasses
-import threading
-import time
-from typing import Callable, NamedTuple
+import functools
+from typing import Callable, Iterator, NamedTuple
 
 import torch
 
+from parler_tts_tpu_torch.core import graphs
 from parler_tts_tpu_torch.core.config import GenerationConfig, ParlerTTSConfig
 from parler_tts_tpu_torch.core.device import resolve_device
-from parler_tts_tpu_torch.core.graphs import budget as _budget
-from parler_tts_tpu_torch.core.graphs import new_pool as _new_pool
-from parler_tts_tpu_torch.core.graphs import record as _record
 from parler_tts_tpu_torch.generation import sampling
 from parler_tts_tpu_torch.models import codec as codec_mod
 from parler_tts_tpu_torch.models.decoder import DecodeLayer, DecodeParams, KVCache, init_cache
 from parler_tts_tpu_torch.models.delay_pattern import build_delay_pattern, undelay_pattern
 from parler_tts_tpu_torch.models.parler import ParlerTTSModel
-from parler_tts_tpu_torch.ops import flash_attention as fa
 from parler_tts_tpu_torch.ops.nn import DenseWeight
 from parler_tts_tpu_torch.utils import profiling
 
@@ -109,7 +107,7 @@ STAGE = 64
 # replayed from CUDA graphs; ``decode.positions``, positions the loop kept
 # (every route); ``decode.captures`` and ``decode.capture_s``, step graphs
 # captured and the seconds spent on them (warm-up step included);
-# ``decode.states_dropped``, captured states ``make_room`` let go;
+# ``decode.states_dropped``, static states dropped to make room for a new one;
 # ``prefill.replays``, ``prefill.captures`` and ``prefill.capture_s``, the
 # same for prefill graphs (the warm-up, which is the capturing call's
 # prefill, included); ``decode.kv_bytes`` and ``decode.conv_state_bytes``,
@@ -403,8 +401,8 @@ def decode_step(model: ParlerTTSModel, gen: GenerationConfig, s: DecodeState, *,
     """Sample position ``s.t`` from ``s.logits``, write it, run one cached
     decoder step on it and advance ``s`` in place: the segment loop's step,
     eager, over its KV-read bucket, so both loops read the same lengths.
-    Call it while ``not s.done``.  ``stream_generate`` and the split
-    models' loop run on this function."""
+    Call it while ``not s.done``.  A split model's loop runs on this
+    function."""
     _draw(gen, s, generator, noise, s.t)
     read_len = _read_len(s)
     _advance(model, gen, s, t_hi=s.tokens.shape[2], read_len=read_len, injected=noise is not None)
@@ -457,31 +455,24 @@ def _eager_segment(model, gen, s: DecodeState, generator, noise) -> Segment:
 
 
 class _Prefill(NamedTuple):
-    """One input shape's captured prefill: its static inputs, its graph (on
-    a pool of its own) and the kernel launches the graph holds (K1's, by
-    ``flash_attention.recorded``)."""
+    """One input shape's captured prefill: its static inputs and its program
+    (on a pool of its own)."""
 
     inputs: dict[str, torch.Tensor | None]
-    graph: torch.cuda.CUDAGraph
-    launches: dict[str, int]
+    program: graphs.Program
 
 
 class _Captured:
     """One signature's static decode state and its captured programs: a step
-    graph per KV-read bucket (keyed by the bucket's fused length) sharing
-    one memory pool, with the kernel launches each holds (``launches``, by
-    ``flash_attention.recorded``: the decode attention's), and a prefill
-    graph per input shape (``_Prefill``).
-    ``nbytes`` counts the state, the static inputs and the pools.  A stream
-    leases the state for its whole life (``leased``)."""
+    program per KV-read bucket (keyed by the bucket's fused length) sharing
+    one memory pool, and a prefill per input shape (``_Prefill``).
+    ``nbytes`` counts the state, the static inputs and the pools."""
 
     def __init__(self, state: DecodeState):
         self.state = state
-        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
-        self.launches: dict[int, dict[str, int]] = {}
+        self.steps: dict[int, graphs.Program] = {}
         self.prefills: dict[tuple, _Prefill] = {}
-        self.pool = _new_pool()
-        self.leased = False
+        self.pool = graphs.new_pool()
         self.nbytes = state.cache.nbytes + _nbytes(state.position, state.tokens, state.pattern, state.finished,
                                                    state.logits, state.fused_mask, state.enc_mask, state.draw)
 
@@ -490,58 +481,19 @@ def _nbytes(*tensors: torch.Tensor | None) -> int:
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
-class _DecodeGraphs:
-    """The captured programs of one model, kept on it (so they die with it):
-    the decode views by ``int8_weights`` and dtype (shared by every
-    signature, refreshed from the weights at each call) and the signatures'
-    static states in least-recently-used order, their bytes bounded by
-    ``core/graphs.GRAPH_MEMORY_SHARE`` of the card's memory (the newest is kept even
-    alone over it).  ``lock`` is held while a call runs on them: a whole
-    ``generate_tokens``, or a stream's prefill and each of its chunks, never
-    across a ``yield``.  A state that a stream leases is neither dropped nor
-    handed to another call: that call gets an instance of its own.  A copied
-    model captures its own."""
+class _Views(dict):
+    """The decode views by ``int8_weights`` and dtype, shared by every
+    signature and refreshed from the weights at each call; a copied model
+    builds its own."""
 
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.views: dict[tuple, DecodeParams] = {}
-        self.sets: collections.OrderedDict[tuple, _Captured] = collections.OrderedDict()
-
-    def __deepcopy__(self, memo) -> "_DecodeGraphs":
-        return _DecodeGraphs()
-
-    def make_room(self, nbytes: int, device: torch.device) -> None:
-        """Drop the least recently used states that no stream leases until
-        ``nbytes`` more fit the budget, or none is left to drop."""
-        budget = _budget(device)
-        for key in [key for key, c in self.sets.items() if not c.leased]:
-            if sum(c.nbytes for c in self.sets.values()) + nbytes <= budget:
-                return
-            del self.sets[key]
-            profiling.count("decode.states_dropped")
-
-    def instance(self, signature: tuple, make: Callable[[], _Captured]) -> _Captured:
-        """The first state of ``signature`` that no stream leases, made by
-        ``make()`` when there is none, as the most recently used."""
-        i = 0
-        while (signature, i) in self.sets and self.sets[(signature, i)].leased:
-            i += 1
-        key = (signature, i)
-        if key not in self.sets:
-            self.sets[key] = make()
-        self.sets.move_to_end(key)
-        return self.sets[key]
+    def __deepcopy__(self, memo) -> "_Views":
+        return _Views()
 
 
-def _graphs_of(model: ParlerTTSModel) -> _DecodeGraphs:
-    graphs = model.__dict__.get("_decode_graphs")
-    return graphs if graphs is not None else model.__dict__.setdefault("_decode_graphs", _DecodeGraphs())
-
-
-def _captured_route(model: ParlerTTSModel) -> bool:
-    """Whether generation replays captured programs: a CUDA model without a
-    model group."""
-    return model.decoder.model_group is None and next(model.parameters()).device.type == "cuda"
+def _programs_of(model: ParlerTTSModel) -> graphs.Programs:
+    """The model's static decode states (``_Captured``) by signature, kept
+    on it so that they die with it."""
+    return model.__dict__.setdefault("_decode_programs", graphs.Programs())
 
 
 def _clone_view(p: DecodeParams) -> DecodeParams:
@@ -556,25 +508,18 @@ def _view_tensors(p: DecodeParams) -> list[torch.Tensor]:
     return [x for w in weights for x in (w.kernel, w.scale) if x is not None]
 
 
-def _capture(model, gen, s: DecodeState, captured: _Captured, *, size: int, t_hi: int,
-             injected: bool) -> torch.cuda.CUDAGraph:
-    """The step of bucket ``size`` captured on the signature's step pool,
-    the kernel launches it holds kept in ``captured.launches``.  Its warm-up
-    and capture run over the static buffers before the prefill fills them,
-    so the prefill overwrites what they wrote."""
-    t0, recorded = time.perf_counter(), fa.recorded()
-    with profiling.span("generate.capture", s.tokens.device, kind="step", rows=s.logits.shape[0],
-                        prompt_len=s.p_len, encoder_len=0 if s.enc_mask is None else s.enc_mask.shape[1],
-                        max_length=s.tokens.shape[2], bucket=size, **_state_bytes(s.cache)) as sp:
-        graph, nbytes = _record(lambda: _advance(model, gen, s, t_hi=t_hi, read_len=size, injected=injected),
-                                captured.pool)
-        seconds = time.perf_counter() - t0
-        sp.set(seconds=seconds, nbytes=nbytes)
-    captured.launches[size] = {k: n - recorded[k] for k, n in fa.recorded().items()}
-    captured.nbytes += nbytes
-    profiling.count("decode.captures")
-    profiling.count("decode.capture_s", seconds)
-    return graph
+def _capture(captured: _Captured, fn: Callable[[], None], pool, counters: str, **attrs) -> graphs.Program:
+    """``fn`` captured on ``pool`` (None: its own) in a ``generate.capture``
+    span with ``attrs``, counted in ``{counters}.captures`` and
+    ``{counters}.capture_s``; its pool's bytes count in ``captured``."""
+    s = captured.state
+    with profiling.span("generate.capture", s.tokens.device, **attrs, **_state_bytes(s.cache)) as sp:
+        program = graphs.capture(fn, pool)
+        sp.set(seconds=program.seconds, nbytes=program.nbytes)
+    captured.nbytes += program.nbytes
+    profiling.count(f"{counters}.captures")
+    profiling.count(f"{counters}.capture_s", program.seconds)
+    return program
 
 
 def _prefill_into(model, gen, plan: _Plan, s: DecodeState, max_length: int, inputs: dict) -> None:
@@ -598,13 +543,12 @@ def _input_shapes(inputs: dict) -> tuple:
 
 def _captured_prefill(model, gen, captured: _Captured, plan: _Plan, *, max_length: int, **inputs) -> None:
     """The prefill of ``inputs`` into the signature's static state, by the
-    graph of their shapes (the JAX stream's and pipeline's jitted prefill).
-    At the first call of a shape the warm-up, on the call's own inputs
-    copied into new static buffers, is the call's prefill, and the graph is
-    captured after it (a replay would run it twice); later calls copy their
-    inputs into those buffers and replay.  The host then sets what a replay
-    cannot: ``t``, the buckets and the cache's index.  A replay adds the
-    K1 launches its graph holds to ``flash_attention.LAUNCHES``."""
+    program of their shapes (the JAX stream's and pipeline's jitted
+    prefill).  At the first call of a shape the warm-up, on the call's own
+    inputs copied into new static buffers, is the call's prefill, and the
+    graph is captured after it (a replay would run it twice); later calls
+    copy their inputs into those buffers and replay.  The host then sets
+    what a replay cannot: ``t``, the buckets and the cache's index."""
     s = captured.state
     shapes = _input_shapes(inputs)
     known = captured.prefills.get(shapes)
@@ -613,48 +557,42 @@ def _captured_prefill(model, gen, captured: _Captured, plan: _Plan, *, max_lengt
                         **_state_bytes(s.cache)):
         if known is None:
             static = {name: None if x is None else x.to(device, copy=True) for name, x in inputs.items()}
-            t0, recorded = time.perf_counter(), fa.recorded()
-            with profiling.span("generate.capture", device, kind="prefill", rows=plan.rows, prompt_len=plan.p_len,
-                                encoder_len=plan.enc_len, max_length=max_length,
-                                shapes={name: list(x.shape) for name, x in inputs.items() if x is not None},
-                                **_state_bytes(s.cache)) as sp:
-                graph, nbytes = _record(lambda: _prefill_into(model, gen, plan, s, max_length, static), _new_pool())
-                seconds = time.perf_counter() - t0
-                sp.set(seconds=seconds, nbytes=nbytes)
-            captured.prefills[shapes] = _Prefill(static, graph,
-                                                 {k: n - recorded[k] for k, n in fa.recorded().items()})
-            captured.nbytes += nbytes + _nbytes(*static.values())
-            profiling.count("prefill.captures")
-            profiling.count("prefill.capture_s", seconds)
+            program = _capture(captured, lambda: _prefill_into(model, gen, plan, s, max_length, static), None,
+                               "prefill", kind="prefill", rows=plan.rows, prompt_len=plan.p_len,
+                               encoder_len=plan.enc_len, max_length=max_length,
+                               shapes={name: list(x.shape) for name, x in inputs.items() if x is not None})
+            captured.prefills[shapes] = _Prefill(static, program)
+            captured.nbytes += _nbytes(*static.values())
         else:
             for name, x in inputs.items():
                 if x is not None:
                     known.inputs[name].copy_(x)
-            known.graph.replay()
-            fa.replayed(known.launches)
+            known.program.replay()
             profiling.count("prefill.replays")
     s.t, s.limits = plan.t0, plan.limits
     s.cache.index = plan.p_len + plan.t0
 
 
-def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _DecodeGraphs, *, max_length: int,
-                         generator, noise, **inputs) -> tuple[_Captured, Segment]:
-    """A static state of this call's signature that no stream leases
+def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, programs: graphs.Programs, *,
+                         max_length: int, generator, noise, **inputs) -> tuple[tuple, _Captured, Segment]:
+    """A static state of this call's signature that no call leases
     (allocated, and its buckets' steps captured, on first use), filled by
-    the captured prefill, and the segment that replays its step graphs.
-    The caller holds ``graphs.lock``."""
+    the captured prefill: its key in ``programs``, the state, and the
+    segment that replays its step programs.  The caller holds
+    ``programs.lock``."""
     decoder = model.decoder
     plan = _plan(model, gen, max_length, inputs["input_ids"], inputs["prompt_input_ids"],
                  inputs["prompt_hidden_states"], inputs["decoder_input_codes"])
     device = next(decoder.parameters()).device
-    key = (plan.rows, plan.p_len, plan.enc_len, max_length, decoder.dtype, gen, noise is not None,
-           tuple(p.data_ptr() for p in decoder.parameters()), tuple(b.data_ptr() for b in decoder.buffers()))
+    signature = (plan.rows, plan.p_len, plan.enc_len, max_length, decoder.dtype, gen, noise is not None,
+                 tuple(p.data_ptr() for p in decoder.parameters()), tuple(b.data_ptr() for b in decoder.buffers()))
     # the decode view, refreshed from the weights at every call: a copy of
     # its own, never the parameters a plain view shares
     fresh = decoder.decode_params(gen.int8_weights)
-    view = graphs.views.get((gen.int8_weights, decoder.dtype))
+    views = model.__dict__.setdefault("_decode_views", _Views())
+    view = views.get((gen.int8_weights, decoder.dtype))
     if view is None:
-        view = graphs.views[(gen.int8_weights, decoder.dtype)] = _clone_view(fresh)
+        view = views[(gen.int8_weights, decoder.dtype)] = _clone_view(fresh)
     for dst, src in zip(_view_tensors(view), _view_tensors(fresh)):
         dst.copy_(src)
     del fresh
@@ -666,7 +604,10 @@ def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _
             return init_cache(decoder.cfg, plan.rows, plan.p_len + max_length, plan.enc_len, dtype=decoder.dtype,
                               device=where, kv_dtype=gen.kv_cache_dtype, heads=decoder.num_heads)
 
-        graphs.make_room(cache_on(torch.device("meta")).nbytes, device)  # before the new cache is allocated
+        # before the new cache is allocated
+        dropped = programs.make_room(cache_on(torch.device("meta")).nbytes, graphs.budget(device))
+        if dropped:
+            profiling.count("decode.states_dropped", dropped)
 
         def zeros(*shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
@@ -681,24 +622,70 @@ def _captured_generation(model: ParlerTTSModel, gen: GenerationConfig, graphs: _
             params=view, use_cfg=plan.use_cfg, limits=[], p_len=plan.p_len,
             draw=zeros(plan.batch, k, v, dtype=torch.float32) if gen.do_sample else None))
 
-    captured = graphs.instance(key, make)
+    key, captured = programs.instance(signature, make)
     s = captured.state
-    for size in plan.limits:
-        if size not in captured.graphs:
-            t_hi = min(max_length, size - plan.p_len)
-            captured.graphs[size] = _capture(model, gen, s, captured, size=size, t_hi=t_hi,
-                                             injected=noise is not None)
+    for size in plan.limits:  # each step's warm-up and capture run before the prefill overwrites what they wrote
+        if size not in captured.steps:
+            step = functools.partial(_advance, model, gen, s, t_hi=min(max_length, size - plan.p_len), read_len=size,
+                                     injected=noise is not None)
+            captured.steps[size] = _capture(captured, step, captured.pool, "decode", kind="step", rows=plan.rows,
+                                            prompt_len=plan.p_len, encoder_len=plan.enc_len, max_length=max_length,
+                                            bucket=size)
     _captured_prefill(model, gen, captured, plan, max_length=max_length, **inputs)
 
     def replay(size: int, t_hi: int, n: int) -> None:
-        graph = captured.graphs[size]
+        program = captured.steps[size]
+        graph = program.graph
         for i in range(n):
             _draw(gen, s, generator, noise, s.t + i)
             graph.replay()
-        fa.replayed(captured.launches[size], n)
+        program.replayed(n)
         profiling.count("decode.replays", n)
 
-    return captured, replay
+    return key, captured, replay
+
+
+@contextlib.contextmanager
+def decoding(model: ParlerTTSModel, gen: GenerationConfig, *, max_length: int, generator: torch.Generator | None,
+             noise: NoiseFn | None, **inputs) -> Iterator[tuple[DecodeState, Callable[[int], None]]]:
+    """One call's route, prefill and decode loop (``inputs`` as
+    ``generate_tokens``'): yields the state after the prefill and
+    ``decode_to(end)``, which runs the loop from ``s.t`` up to position
+    ``end`` or until every stream has finished.  The route is the module
+    docstring's: the captured programs where ``core/graphs.capturable``,
+    else the per-step loop on a split model, else the eager segments.  On
+    the captured route the call leases its signature's static state until
+    the block ends, so no other call takes it, and holds the model's graph
+    lock for the prefill and within each ``decode_to``, never between."""
+    decoder = model.decoder
+    if graphs.capturable(next(decoder.parameters()).device, [decoder.model_group]):
+        programs = _programs_of(model)
+        with programs.lock:
+            key, captured, segment = _captured_generation(model, gen, programs, max_length=max_length,
+                                                          generator=generator, noise=noise, **inputs)
+            programs.leased.add(key)
+        try:
+            def decode_to(end: int) -> None:
+                with programs.lock:
+                    _decode(captured.state, end, segment)
+
+            yield captured.state, decode_to
+        finally:
+            # no lock: a stream dropped unfinished is closed wherever the
+            # collector runs, perhaps on a thread inside ``programs.lock``
+            programs.leased.discard(key)
+        return
+    s = prefill(model, gen, max_length=max_length, **inputs)
+    if decoder.model_group is not None:
+        def decode_to(end: int) -> None:
+            while s.t < end and not s.done:
+                decode_step(model, gen, s, generator=generator, noise=noise)
+    else:
+        segment = _eager_segment(model, gen, s, generator, noise)
+
+        def decode_to(end: int) -> None:
+            _decode(s, end, segment)
+    yield s, decode_to
 
 
 @torch.no_grad()
@@ -718,26 +705,14 @@ def generate_tokens(model: ParlerTTSModel, gen: GenerationConfig, *, max_length:
     at).  The loop is the module docstring's: CUDA graphs on a CUDA model
     without a model group, the same steps eagerly on the CPU, the per-step
     loop on a split model."""
-    inputs = dict(input_ids=input_ids, attention_mask=attention_mask, prompt_input_ids=prompt_input_ids,
+    with decoding(model, gen, max_length=max_length, generator=generator, noise=noise, input_ids=input_ids,
+                  attention_mask=attention_mask, prompt_input_ids=prompt_input_ids,
                   prompt_attention_mask=prompt_attention_mask, prompt_hidden_states=prompt_hidden_states,
-                  decoder_input_codes=decoder_input_codes)
-    if model.decoder.model_group is not None:
-        s = prefill(model, gen, max_length=max_length, **inputs)
-        while not s.done:
-            decode_step(model, gen, s, generator=generator, noise=noise)
-        return s.tokens, s.t
-    if _captured_route(model):
-        graphs = _graphs_of(model)
-        with graphs.lock:
-            captured, segment = _captured_generation(model, gen, graphs, max_length=max_length,
-                                                     generator=generator, noise=noise, **inputs)
-            t = _decode(captured.state, max_length, segment)
-            _count_experts(model.decoder)
-            return captured.state.tokens.clone(), t
-    s = prefill(model, gen, max_length=max_length, **inputs)
-    t = _decode(s, max_length, _eager_segment(model, gen, s, generator, noise))
+                  decoder_input_codes=decoder_input_codes) as (s, decode_to):
+        decode_to(max_length)
+        tokens, t = s.tokens.clone(), s.t
     _count_experts(model.decoder)
-    return s.tokens, t
+    return tokens, t
 
 
 def _count_experts(decoder) -> None:

@@ -2,7 +2,8 @@
 as soon as it is ready.
 
 Port of ``parler_tts_tpu/generation/streaming.py``.  The decode loop is
-``generate``'s own, stopped every ``chunk_frames`` positions, so a stream
+``generate``'s own (``generate.decoding``, which picks the route), stopped
+every ``chunk_frames`` positions, so a stream
 and ``generate`` with the same generator (or injected noise) give the same
 codes.  On a CUDA model without a model group it runs ``generate``'s
 captured programs (the counterpart of JAX's per-signature
@@ -10,11 +11,9 @@ captured programs (the counterpart of JAX's per-signature
 chunk, the decode loop's segments replayed from the bucket graphs up to the
 chunk's end (JAX's ``run_chunk``), a chunk that crosses a bucket's end
 switching graphs inside it; no ``decode_step`` runs.  The stream leases its
-signature's static state until it ends or is closed: a call with the same
-signature meanwhile gets an instance of its own.  The model's graph lock is
-held for the prefill and for each chunk's segments, never across a
-``yield``, so a consumer may call ``generate`` on the same model between
-chunks.  The decode view is refreshed from the weights at each call's
+state until it ends or is closed, and the model's graph lock is never held
+across a ``yield``, so a consumer may call ``generate`` on the same model
+between chunks.  The decode view is refreshed from the weights at each call's
 start, so a later chunk reads the view as the last call left it: the
 stream's own unless the weights were changed in place while it was open.
 On the CPU the same chunked loop runs eagerly.  The window vocode is the
@@ -44,7 +43,6 @@ for audio, and any rank can serve the stream.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Iterator, NamedTuple
 
 import numpy as np
@@ -54,16 +52,10 @@ from parler_tts_tpu_torch.core.config import GenerationConfig
 from parler_tts_tpu_torch.generation.generate import (
     DecodeState,
     NoiseFn,
-    _captured_generation,
-    _captured_route,
-    _decode,
-    _eager_segment,
-    _graphs_of,
     audio_prompt_codes,
     check_vocodable,
-    decode_step,
+    decoding,
     model_device,
-    prefill,
     to_device,
 )
 from parler_tts_tpu_torch.models import codec as codec_mod
@@ -106,41 +98,18 @@ def stream_generate(model: ParlerTTSModel, gen: GenerationConfig, *, input_ids, 
                   prompt_input_ids=to_device(dev, prompt_input_ids),
                   prompt_attention_mask=to_device(dev, prompt_attention_mask), prompt_hidden_states=None,
                   decoder_input_codes=codes)
-    chunks = functools.partial(_chunks, model, max_length=max_length, chunk_frames=chunk_frames, lookback=lookback,
-                               vocode=vocode, dev=dev)
     group = model.decoder.model_group
-    if group is not None:
-        s = prefill(model, gen, max_length=max_length, **inputs)
-
+    with decoding(model, gen, max_length=max_length, generator=generator, noise=noise, **inputs) as (s, decode):
         def decode_to(end: int) -> None:
-            while s.t < end and not s.done:
-                decode_step(model, gen, s, generator=generator, noise=noise)
-            flat = s.tokens.long().flatten()
-            checksum = (flat * torch.arange(1, flat.numel() + 1, device=flat.device)).sum()
-            tp.check_same(torch.stack([checksum.new_tensor(s.t), checksum.new_tensor(int(s.done)), checksum]), group,
-                          "the stream's position, stop and tokens")
+            decode(end)
+            if group is not None:
+                flat = s.tokens.long().flatten()
+                checksum = (flat * torch.arange(1, flat.numel() + 1, device=flat.device)).sum()
+                tp.check_same(torch.stack([checksum.new_tensor(s.t), checksum.new_tensor(int(s.done)), checksum]),
+                              group, "the stream's position, stop and tokens")
 
-        yield from chunks(s, decode_to)
-    elif _captured_route(model):
-        graphs = _graphs_of(model)
-        with graphs.lock:
-            captured, segment = _captured_generation(model, gen, graphs, max_length=max_length, generator=generator,
-                                                     noise=noise, **inputs)
-            captured.leased = True
-        try:
-            def decode_to(end: int) -> None:
-                with graphs.lock:
-                    _decode(captured.state, end, segment)
-
-            yield from chunks(captured.state, decode_to)
-        finally:
-            # no lock: a stream dropped unfinished is closed wherever the
-            # collector runs, perhaps on a thread inside ``graphs.lock``
-            captured.leased = False
-    else:
-        s = prefill(model, gen, max_length=max_length, **inputs)
-        segment = _eager_segment(model, gen, s, generator, noise)
-        yield from chunks(s, lambda end: _decode(s, end, segment))
+        yield from _chunks(model, s, decode_to, max_length=max_length, chunk_frames=chunk_frames, lookback=lookback,
+                           vocode=vocode, dev=dev)
 
 
 def _chunks(model: ParlerTTSModel, s: DecodeState, decode_to: Callable[[int], None], *, max_length: int,

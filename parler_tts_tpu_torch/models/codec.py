@@ -40,11 +40,12 @@ def encode(codec: Codec, audio: torch.Tensor, *, n_quantizers: int | None = None
     return codec.encode(audio, n_quantizers)
 
 
-#: the most output samples one codec call decodes.  The eager vocoders hold
-#: several fp32 temporaries of their last blocks' activations (the DAC's
-#: Snakes at 96 and 192 channels), some kilobytes per output sample, where
-#: XLA fuses them: one call over 64 rows of 5 s (14 M samples) runs an 80 GB
-#: card out of memory, a call of this many samples takes about 10 GB
+#: the most output samples one codec call decodes.  The value was sized
+#: for the DAC's eager fp32 Snake temporaries at 96 and 192 channels (one
+#: call over 64 rows of 5 s, 14 M samples, ran an 80 GB card out of memory;
+#: a call of this many samples took about 10 GB).  The bf16 Snake kernel
+#: (``ops/snake.py``) has removed those temporaries on the card; what larger
+#: groups would cost or save there is not measured
 VOCODE_SAMPLES = 2**21
 
 

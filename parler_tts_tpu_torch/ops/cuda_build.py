@@ -13,6 +13,8 @@ rebuilt and a stale library is never loaded; ``nvcc``'s output is kept
 beside each library as ``lib<name>.log``.  ``build`` and ``library`` also
 take another source directory (a test builds a modified copy of the sources
 that way).  Nothing is compiled when a module is imported.
+The attention kernels' shared C interface (dtype codes, head dims) and
+``dispatch`` (plain version on CPU tensors, kernel on CUDA tensors) are here.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
@@ -32,6 +36,10 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[tuple[str, Path], ctypes.CDLL] = {}
+
+#: the attention kernels' dtypes, by the code their C entry points take
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64)
 
 
 def _nvcc() -> str:
@@ -90,3 +98,14 @@ def library(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
         build([name], csrc)
         _LIBS[key] = ctypes.CDLL(str(_library_path(name, csrc)))
     return _LIBS[key]
+
+
+def dispatch(plain, cuda, **kw):
+    """The plain version for CPU tensors, the kernel for CUDA tensors (by
+    ``q``'s device)."""
+    device = kw["q"].device
+    if device.type == "cpu":
+        return plain(**kw)
+    if device.type == "cuda":
+        return cuda(**kw)
+    raise ValueError(f"the attention kernels run on cuda or cpu tensors, got {device}")

@@ -28,8 +28,8 @@ The kernel cuts each (b, h) row's keys into ``splits`` runs only when the
 rows alone would leave the card's SMs idle (:func:`decode_split`: a stream's
 or a small server batch's few rows); each run takes its own softmax and a
 second small kernel weighs the runs by their share of the row's softmax
-mass.  Each call counts in ``flash_attention.LAUNCHES_DECODE`` (under
-capture in ``RECORDED_DECODE``).
+mass.  Each call counts as one launch of ``decode_attention``
+(``core/graphs.count``).
 """
 
 from __future__ import annotations
@@ -39,7 +39,9 @@ import functools
 
 import torch
 
-from parler_tts_tpu_torch.ops import flash_attention as fa
+from parler_tts_tpu_torch.core import graphs
+from parler_tts_tpu_torch.ops.cuda_build import DTYPES, HEAD_DIMS, dispatch
+from parler_tts_tpu_torch.ops.nn import NEG_INF
 
 #: the split route aims at this many blocks per SM
 BLOCKS_PER_SM = 4
@@ -62,7 +64,7 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, _, d = q.shape
     qg = q.reshape(b, k.shape[1], h // k.shape[1], d)  # (B, H_kv, group, D)
     scores = torch.matmul(qg.float(), k.float().transpose(-1, -2))
-    scores = scores.masked_fill(~kv_mask[:, None, None, :].bool(), fa.NEG_INF)
+    scores = scores.masked_fill(~kv_mask[:, None, None, :].bool(), NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(dtype), v.to(dtype)).reshape(b, h, 1, d)
 
@@ -100,11 +102,11 @@ def _check(q, k, v, kv_mask) -> None:
     if q.dim() != 4 or q.shape[2] != 1:
         raise ValueError(f"decode attention takes one query (B, H, 1, D), got {tuple(q.shape)}")
     b, h, _, d = q.shape
-    if q.dtype not in fa._DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode attention kernel takes fp32 or bf16 q/k/v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in fa._HEAD_DIMS:
-        raise ValueError(f"decode attention kernel takes head dim {fa._HEAD_DIMS}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode attention kernel takes head dim {HEAD_DIMS}, got {d}")
     if (k.dim() != 4 or k.shape[0] != b or k.shape[1] == 0 or h % k.shape[1] or h // k.shape[1] not in GROUPS
             or k.shape[3] != d or v.shape != k.shape or k.shape[2] == 0):
         raise ValueError(f"k/v must be (B, H_kv, R > 0, D) matching q {tuple(q.shape)}, H / H_kv in {GROUPS}, "
@@ -141,12 +143,12 @@ def _decode_cuda(q, k, v, kv_mask):
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
                         None if part_o is None else part_o.data_ptr(),
                         None if part_ml is None else part_ml.data_ptr(),
-                        b, hk, group, r, d, fa._DTYPES[q.dtype], splits, chunk, kv_mask.element_size(),
+                        b, hk, group, r, d, DTYPES[q.dtype], splits, chunk, kv_mask.element_size(),
                         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
                         v.stride(2), kv_mask.stride(0), stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
-    fa._count("LAUNCHES_DECODE")
+    graphs.count("decode_attention")
     return out
 
 
@@ -156,4 +158,4 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask:
     nonzero = valid -> out
     (B, H, 1, D) in q's dtype: the plain version on CPU tensors, the kernel on
     CUDA tensors."""
-    return fa._dispatch(decode_attention_plain, _decode_cuda, q=q, k=k, v=v, kv_mask=kv_mask)
+    return dispatch(decode_attention_plain, _decode_cuda, q=q, k=k, v=v, kv_mask=kv_mask)

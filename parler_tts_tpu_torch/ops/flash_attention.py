@@ -19,7 +19,8 @@ staged by ``cp.async``; p, and ds in the backward, are rounded to bf16
 between the two products; the building blocks are in
 ``csrc/sm90_mma.cuh``); in fp32 they use fp32 FMAs on CUDA cores, which
 hold the fp32 checks' 1e-4 tolerance that TF32 tensor cores would not.  Each
-source's header describes its designs.
+source's header describes its designs.  Each launch counts under the
+kernel's name (``core/graphs.count``).
 
 :class:`FlashAttention` is the autograd function around them, the
 counterpart of the JAX ``custom_vjp``: forward saves q, k, v, the bounds,
@@ -50,36 +51,12 @@ import os
 
 import torch
 
-NEG_INF = -1e9
-
-#: kernel launches since the counter was last reset, one counter per kernel
-#: (the plain versions and the CPU path do not count): K1, K2, K3, K4, and
-#: K5, the decode step's attention (``ops/decode_attention.py``; one per
-#: call, its combine kernel included), and K6, the DAC decoder's Snake
-#: (``ops/snake.py``).  A call while the current stream is
-#: captured launches nothing: it counts in the kernel's RECORDED counter, and
-#: whoever replays the graph adds the launches it holds (``recorded`` read
-#: around its capture) by ``replayed``
-LAUNCHES = 0
-LAUNCHES_DQ = 0
-LAUNCHES_DKV = 0
-LAUNCHES_DQKV = 0
-LAUNCHES_DECODE = 0
-LAUNCHES_SNAKE = 0
-RECORDED = 0
-RECORDED_DQ = 0
-RECORDED_DKV = 0
-RECORDED_DQKV = 0
-RECORDED_DECODE = 0
-RECORDED_SNAKE = 0
-_RECORDED = {"LAUNCHES": "RECORDED", "LAUNCHES_DQ": "RECORDED_DQ", "LAUNCHES_DKV": "RECORDED_DKV",
-             "LAUNCHES_DQKV": "RECORDED_DQKV", "LAUNCHES_DECODE": "RECORDED_DECODE",
-             "LAUNCHES_SNAKE": "RECORDED_SNAKE"}
+from parler_tts_tpu_torch.core import graphs
+from parler_tts_tpu_torch.ops.cuda_build import DTYPES, HEAD_DIMS, dispatch
+from parler_tts_tpu_torch.ops.nn import NEG_INF
 
 FUSED_MAX_LEN = 1024  # the JAX package's default tile: one tile pair -> fused backward
 
-_HEAD_DIMS = (32, 64)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kv_bounds(kv_mask: torch.Tensor | None, batch: int, heads: int, tk: int,
@@ -201,11 +178,11 @@ def _check(name, q, k, v, kv_start, kv_end, *rows):
     shape, dtype) of further inputs."""
     bh, _, d = q.shape
     tk = k.shape[1]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} kernel takes fp32 or bf16 q/k/v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head dim {_HEAD_DIMS}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head dim {HEAD_DIMS}, got {d}")
     if k.shape != (bh, tk, d) or v.shape != k.shape:
         raise ValueError(f"k/v must be (BH, Tk, D) matching q {tuple(q.shape)}, "
                          f"got {tuple(k.shape)}, {tuple(v.shape)}")
@@ -227,40 +204,11 @@ def _launch(name, tensors, q, tk, scale, causal, q_offset) -> None:
     bh, tq, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel(name)(*(t.data_ptr() for t in tensors), bh, tq, tk, d, _DTYPES[q.dtype],
+        err = _kernel(name)(*(t.data_ptr() for t in tensors), bh, tq, tk, d, DTYPES[q.dtype],
                             float(scale), int(bool(causal)), int(q_offset), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _count(launches: str) -> None:
-    """One call of the kernel whose launch counter is named ``launches``: a
-    launch, or a record under capture."""
-    name = _RECORDED[launches] if torch.cuda.is_current_stream_capturing() else launches
-    globals()[name] += 1
-
-
-def recorded() -> dict[str, int]:
-    """Each kernel's recorded calls, by its launch counter's name; a graph
-    holds the difference of two readings around its capture."""
-    return {launches: globals()[name] for launches, name in _RECORDED.items()}
-
-
-def replayed(launches: dict[str, int], times: int = 1) -> None:
-    """Add ``times`` replays' kernel launches (``recorded`` differences) to
-    the launch counters."""
-    for name, n in launches.items():
-        globals()[name] += n * times
-
-
-def _dispatch(plain, cuda, **kw):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
-    device = kw["q"].device
-    if device.type == "cpu":
-        return plain(**kw)
-    if device.type == "cuda":
-        return cuda(**kw)
-    raise ValueError(f"the attention kernels run on cuda or cpu tensors, got {device}")
+    graphs.count(name)
 
 
 def _fwd_cuda(q, k, v, kv_start, kv_end, *, scale, causal, q_offset):
@@ -269,7 +217,6 @@ def _fwd_cuda(q, k, v, kv_start, kv_end, *, scale, causal, q_offset):
     lse = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", (q, k, v, kv_start, kv_end, out, lse), q, k.shape[1], scale,
             causal, q_offset)
-    _count("LAUNCHES")
     return out, lse
 
 
@@ -284,7 +231,6 @@ def _dq_cuda(q, k, v, do, lse, delta, kv_start, kv_end, *, scale, causal, q_offs
     dq = torch.empty_like(q)
     _launch("flash_attention_dq", (q, k, v, do, lse, delta, kv_start, kv_end, dq), q, k.shape[1],
             scale, causal, q_offset)
-    _count("LAUNCHES_DQ")
     return dq
 
 
@@ -293,7 +239,6 @@ def _dkv_cuda(q, k, v, do, lse, delta, kv_start, kv_end, *, scale, causal, q_off
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_dkv", (q, k, v, do, lse, delta, kv_start, kv_end, dk, dv), q,
             k.shape[1], scale, causal, q_offset)
-    _count("LAUNCHES_DKV")
     return dk, dv
 
 
@@ -303,7 +248,6 @@ def _dqkv_cuda(q, k, v, do, lse, delta, kv_start, kv_end, *, scale, causal, q_of
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_dqkv", (q, k, v, do, lse, delta, kv_start, kv_end, dq, dk, dv), q,
             k.shape[1], scale, causal, q_offset)
-    _count("LAUNCHES_DQKV")
     return dq.to(q.dtype), dk, dv
 
 
@@ -312,7 +256,7 @@ def flash_attention_fwd(q, k, v, kv_start, kv_end, *, scale: float = 1.0, causal
     """K1.  q (BH, Tq, D), k/v (BH, Tk, D), int32 bounds (BH,) -> (out (BH,
     Tq, D), lse (BH, Tq, 1) fp32).  Keys outside ``[kv_start, kv_end)`` and,
     when ``causal``, keys after ``q_offset + row`` are masked."""
-    return _dispatch(flash_attention_plain, _fwd_cuda, q=q, k=k, v=v, kv_start=kv_start,
+    return dispatch(flash_attention_plain, _fwd_cuda, q=q, k=k, v=v, kv_start=kv_start,
                      kv_end=kv_end, scale=scale, causal=causal, q_offset=q_offset)
 
 
@@ -320,21 +264,21 @@ def flash_attention_dq(q, k, v, do, lse, delta, kv_start, kv_end, *, scale: floa
                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """K2.  ``do`` (BH, Tq, D) in q's dtype, ``lse`` and ``delta`` (BH, Tq, 1)
     fp32 -> dq (BH, Tq, D)."""
-    return _dispatch(flash_dq_plain, _dq_cuda, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
+    return dispatch(flash_dq_plain, _dq_cuda, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
                      kv_start=kv_start, kv_end=kv_end, scale=scale, causal=causal, q_offset=q_offset)
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, kv_start, kv_end, *, scale: float = 1.0,
                         causal: bool = True, q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """K3.  As K2 -> (dk, dv) (BH, Tk, D)."""
-    return _dispatch(flash_dkv_plain, _dkv_cuda, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
+    return dispatch(flash_dkv_plain, _dkv_cuda, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
                      kv_start=kv_start, kv_end=kv_end, scale=scale, causal=causal, q_offset=q_offset)
 
 
 def flash_attention_dqkv(q, k, v, do, lse, delta, kv_start, kv_end, *, scale: float = 1.0,
                          causal: bool = True, q_offset: int = 0):
     """K4.  As K2 -> (dq, dk, dv)."""
-    return _dispatch(flash_dqkv_plain, _dqkv_cuda, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
+    return dispatch(flash_dqkv_plain, _dqkv_cuda, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
                      kv_start=kv_start, kv_end=kv_end, scale=scale, causal=causal, q_offset=q_offset)
 
 

@@ -12,8 +12,7 @@ function's own expressions, over the C channels.
 
 The decoder's ``Snake`` sends its bf16 CUDA inputs here and keeps the plain
 functions everywhere else; this wrapper raises on what the kernel does not
-take.  Each call counts in ``flash_attention.LAUNCHES_SNAKE`` (under capture
-in ``RECORDED_SNAKE``).
+take.  Each call counts as one launch of ``snake`` (``core/graphs.count``).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import math
 
 import torch
 
-from parler_tts_tpu_torch.ops import flash_attention as fa
+from parler_tts_tpu_torch.core import graphs
 
 
 def _kernel():
@@ -74,5 +73,5 @@ def snake_fast_cuda(x: torch.Tensor, alpha: torch.Tensor, coeffs) -> torch.Tenso
         err = _kernel()(x.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(), b * c, c, t, *k, stream)
     if err:
         raise RuntimeError(f"snake launch failed: CUDA error {err}")
-    fa._count("LAUNCHES_SNAKE")
+    graphs.count("snake")
     return out

@@ -16,26 +16,24 @@ over counts summed over the data group, and the gradients are summed over
 the data group; a model rank holds its shards, and the gradient norm sums
 their squares over the model group.
 
-Where a step runs (``_captured_route``): on a CUDA model in one process (no
-mesh, or one without groups), the JAX package's jitted train and eval
-steps become CUDA graphs (``core/graphs.py``), one per signature: the
-batch's shapes and dtypes, and for a train step remat, dropout, whether the
-call updates or only accumulates, the optimizer and the model's tensor
-addresses.  The first call of a signature runs its step as the capture's
-warm-up (a capture runs nothing, so no update is applied twice); later
-calls copy the batch into the static inputs and replay.  What the host
-decides stays outside the graph: the dropout seeds and layerdrop draws
-(seeded into generators made once per signature and registered with the
-graph; layerdrop selects by a device mask over layers that all run), the
-learning rate and the accumulation's divisor (``Optimizer.stage``).  Loss
-and norm are 0-d copies of static outputs.  A capture that fails raises:
-nothing falls back to the eager step.  A train state keeps its graphs
-(``TrainState.graphs``), a model its eval graphs, each within
-``core/graphs.GRAPH_MEMORY_SHARE`` of the card's memory.  On the CPU, and
-on a mesh whose data or model group sums over processes, steps run
-eagerly: gloo collectives cannot be captured, and a capture of NCCL
-collectives over several ranks cannot be checked on the one card there
-is.  Both routes draw the same masks and do the same arithmetic; the
+Where a step runs (``core/graphs.capturable``): on a CUDA model in one
+process (no mesh, or one without groups), the JAX package's jitted train
+and eval steps become CUDA graphs (``core/graphs.capture``), one per
+signature: the batch's shapes and dtypes, and for a train step remat,
+dropout, whether the call updates or only accumulates, the optimizer and
+the model's tensor addresses.  The first call of a signature runs its step
+as the capture's warm-up (a capture runs nothing, so no update is applied
+twice); later calls copy the batch into the static inputs and replay.  What
+the host decides stays outside the graph: the dropout seeds and layerdrop
+draws (seeded into generators made once per signature and registered with
+the graph; layerdrop selects by a device mask over layers that all run),
+the learning rate and the accumulation's divisor
+(``Optimizer.stage``).  Loss and norm are 0-d copies of static outputs.  A
+capture that fails raises: nothing falls back to the eager step.  A train
+state keeps its graphs (``TrainState.graphs``), a model its eval graphs,
+each within ``core/graphs.GRAPH_MEMORY_SHARE`` of the card's memory.  On the
+CPU, and on a mesh whose data or model group sums over processes, steps run
+eagerly.  Both routes draw the same masks and do the same arithmetic; the
 captured step reports its whole time only (``timings["step_ms"]``).
 """
 
@@ -49,14 +47,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from parler_tts_tpu_torch.core import graphs
 from parler_tts_tpu_torch.core.config import ParlerTTSConfig
-from parler_tts_tpu_torch.core.graphs import Programs
-from parler_tts_tpu_torch.core.graphs import budget as _budget
-from parler_tts_tpu_torch.core.graphs import new_pool as _new_pool
-from parler_tts_tpu_torch.core.graphs import record as _record
 from parler_tts_tpu_torch.models.decoder import ReplayedRng, TrainRandom, train_draws
 from parler_tts_tpu_torch.models.parler import TRAINABLE_KEYS, ParlerTTSModel, set_trainable
-from parler_tts_tpu_torch.ops import flash_attention as fa
 from parler_tts_tpu_torch.parallel.mesh import Mesh, composite_param_specs
 from parler_tts_tpu_torch.training.optim import Optimizer, make_optimizer
 
@@ -70,7 +64,7 @@ class TrainState:
     optimizer: Optimizer
     step: int = 0
     #: the captured train steps over this state, by signature
-    graphs: Programs = dataclasses.field(default_factory=Programs, repr=False, compare=False)
+    graphs: graphs.Programs = dataclasses.field(default_factory=graphs.Programs, repr=False, compare=False)
 
 
 def trainable_names(model: ParlerTTSModel) -> list[str]:
@@ -132,13 +126,6 @@ def _device(model: ParlerTTSModel) -> torch.device:
     return model.decoder.embed_tokens.embedding.device
 
 
-def _captured_route(model: ParlerTTSModel, mesh: Mesh | None) -> bool:
-    """Whether the steps replay captured programs: a CUDA model in one
-    process (a mesh without data or model group)."""
-    one_process = mesh is None or (mesh.data_group is None and mesh.model_group is None)
-    return one_process and _device(model).type == "cuda"
-
-
 def _sum_over(tensors: list[torch.Tensor], group) -> None:
     """All-reduce (sum) each tensor in place over ``group``, all in flight
     together."""
@@ -155,9 +142,8 @@ def _grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]
 class _Captured:
     """One signature's captured step: static inputs shaped as the batch,
     0-d static outputs, ``fn`` (set by the caller: the step over them), its
-    graph on a pool of its own once captured, the kernel launches the graph
-    holds, its bytes (pool and inputs) and, for a train step with dropout,
-    its ``TrainRandom``."""
+    program once captured, its bytes (pool and inputs) and, for a train
+    step with dropout, its ``TrainRandom``."""
 
     def __init__(self, tensors: dict[str, torch.Tensor], device: torch.device, outputs: tuple[str, ...]):
         self.device = device
@@ -165,29 +151,25 @@ class _Captured:
         self.outputs = {name: torch.zeros((), device=device) for name in outputs}
         self.fn: Callable[[], None] | None = None
         self.random: TrainRandom | None = None
-        self.graph = None
-        self.launches: dict[str, int] = {}
+        self.program: graphs.Program | None = None
         self.nbytes = 0
 
     def generators(self) -> list[torch.Generator]:
         r = self.random
         return [] if r is None else [g for rng in (*r.layers, r.embed) for g in rng.gens]
 
-    def run(self, tensors: dict[str, torch.Tensor], programs: Programs, key: tuple) -> dict[str, torch.Tensor]:
+    def run(self, tensors: dict[str, torch.Tensor], programs: graphs.Programs, key: tuple) -> dict[str, torch.Tensor]:
         """``fn`` over ``tensors`` copied into the static inputs: captured at
         the signature's first run, whose warm-up is this run's step, and
         replayed after.  Returns copies of the outputs."""
         for k, t in tensors.items():
             self.inputs[k].copy_(t)
-        if self.graph is None:
-            t0, before = time.perf_counter(), fa.recorded()
-            self.graph, pool_bytes = _record(self.fn, _new_pool(), self.generators())
-            self.launches = {k: n - before[k] for k, n in fa.recorded().items()}
-            self.nbytes = pool_bytes + sum(x.numel() * x.element_size() for x in self.inputs.values())
-            programs.add(key, self, time.perf_counter() - t0, _budget(self.device))
+        if self.program is None:
+            self.program = graphs.capture(self.fn, generators=self.generators())
+            self.nbytes = self.program.nbytes + sum(x.numel() * x.element_size() for x in self.inputs.values())
+            programs.add(key, self, self.program.seconds, graphs.budget(self.device))
         else:
-            self.graph.replay()
-            fa.replayed(self.launches)
+            self.program.replay()
             programs.replays += 1
         return {name: out.clone() for name, out in self.outputs.items()}
 
@@ -243,6 +225,7 @@ def make_train_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16
     docstring says which route a step takes."""
     use_dropout = dropout_seed is not None and has_dropout(cfg)
     data_group = None if mesh is None else mesh.data_group
+    groups = () if mesh is None else (mesh.data_group, mesh.model_group)  # what a step sums over
     data_rank = 0 if mesh is None else mesh.data_index
 
     def eager(state: TrainState, batch: dict, timings: dict | None) -> dict[str, Any]:
@@ -293,7 +276,7 @@ def make_train_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16
         return out
 
     def step(state: TrainState, batch: dict, timings: dict | None = None) -> dict[str, Any]:
-        run = captured if _captured_route(state.model, mesh) else eager
+        run = captured if graphs.capturable(_device(state.model), groups) else eager
         metrics = {**run(state, batch, timings), "step": state.step}
         state.step += 1
         return metrics
@@ -301,9 +284,8 @@ def make_train_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16
     return step
 
 
-def _eval_graphs(model: ParlerTTSModel) -> Programs:
-    graphs = model.__dict__.get("_eval_graphs")
-    return graphs if graphs is not None else model.__dict__.setdefault("_eval_graphs", Programs())
+def _eval_graphs(model: ParlerTTSModel) -> graphs.Programs:
+    return model.__dict__.setdefault("_eval_graphs", graphs.Programs())
 
 
 def make_eval_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16, mesh: Mesh | None = None):
@@ -313,18 +295,19 @@ def make_eval_step(cfg: ParlerTTSConfig, *, dtype: torch.dtype = torch.bfloat16,
     pass is a graph kept on the model."""
     del cfg  # the model carries its config; kept for the JAX signature
     data_group = None if mesh is None else mesh.data_group
+    groups = () if mesh is None else (mesh.data_group, mesh.model_group)
 
     @torch.no_grad()
     def step(model: ParlerTTSModel, batch: dict) -> dict[str, torch.Tensor]:
-        if _captured_route(model, mesh):
-            tensors, graphs = _host_tensors(batch), _eval_graphs(model)
+        if graphs.capturable(_device(model), groups):
+            tensors, programs = _host_tensors(batch), _eval_graphs(model)
             key = _signature(model, tensors, "eval", dtype)
-            program = graphs.get(key)
+            program = programs.get(key)
             if program is None:
                 program = _Captured(tensors, _device(model), ("loss",))
                 program.fn = lambda: program.outputs["loss"].copy_(
                     model.train_forward(**program.inputs, dtype=dtype)[0])
-            return program.run(tensors, graphs, key)
+            return program.run(tensors, programs, key)
         loss, _ = model.train_forward(**_to_device(batch, _device(model)), dtype=dtype, count_group=data_group)
         if data_group is not None:
             torch.distributed.all_reduce(loss, group=data_group)

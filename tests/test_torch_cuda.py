@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from parler_tts_tpu_torch.core import graphs as pgraphs
 from parler_tts_tpu_torch.ops import cuda_build
 from parler_tts_tpu_torch.ops import flash_attention as pfa
 from parler_tts_tpu_torch.utils import profiling
@@ -29,8 +30,17 @@ TILE = 64
 TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
+BWD = ("flash_attention_dq", "flash_attention_dkv", "flash_attention_dqkv")
+
+
 def counter(name: str) -> float:
     return profiling.counters().get(name, 0)
+
+
+def _launched(*kernels: str):
+    """The launches of one kernel so far, or a tuple of several's."""
+    now = pgraphs.launches()
+    return now[kernels[0]] if len(kernels) == 1 else tuple(now[k] for k in kernels)
 
 
 @pytest.fixture
@@ -64,10 +74,10 @@ def test_flash_attention_kernel_matches_plain_version(cuda, shape, pad, causal, 
                for _ in range(3))
     kv_mask = torch.ones((b, t), dtype=torch.int32, device="cuda")
     kv_mask[0, :pad] = 0
-    before = pfa.LAUNCHES
+    before = _launched("flash_attention_fwd")
     out, lse = pfa.flash_attention_bhtd_lse(q, k, v, kv_mask, scale=0.125, causal=causal)
     torch.cuda.synchronize()
-    assert pfa.LAUNCHES == before + 1
+    assert _launched("flash_attention_fwd") == before + 1
     start, end = pfa.kv_bounds(kv_mask, b, h, t, q.device)
     ref_out, ref_lse = pfa.flash_attention_plain(q.reshape(b * h, t, d), k.reshape(b * h, t, d),
                                                  v.reshape(b * h, t, d), start, end, scale=0.125,
@@ -160,11 +170,11 @@ def test_backward_kernels_match_plain_versions(cuda, shape, pad, causal, dtype, 
     """K2, K3 and K4, each launched once, against their plain versions."""
     args = _bwd_inputs(shape, pad, causal, dtype, **extra)
     kw = dict(scale=0.125, causal=causal, q_offset=extra.get("q_offset", 0))
-    before = (pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+    before = _launched(*BWD)
     got = (pfa.flash_attention_dq(*args, **kw), *pfa.flash_attention_dkv(*args, **kw),
            *pfa.flash_attention_dqkv(*args, **kw))
     torch.cuda.synchronize()
-    assert (pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV) == tuple(n + 1 for n in before)
+    assert _launched(*BWD) == tuple(n + 1 for n in before)
     assert all(bool(torch.isfinite(g).all()) for g in got)
     ref = pfa.flash_dqkv_plain(*args, **kw)
     _assert_grads_close(got[:3], ref, dtype)
@@ -187,10 +197,10 @@ def test_autograd_takes_k4_or_k2_and_k3(cuda, monkeypatch, dtype):
     grads = {}
     for env in ("0", "1"):
         monkeypatch.setenv("PARLER_FLASH_NO_FUSED_BWD", env)
-        before = (pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+        before = _launched(*BWD)
         out = pfa.flash_attention_bhtd(q, k, v, kv_mask, scale=0.125)
         grads[env] = torch.autograd.grad(out.float().sin().sum(), (q, k, v))
-        after = (pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+        after = _launched(*BWD)
         assert [a - b for a, b in zip(after, before)] == ([0, 0, 1] if env == "0" else [1, 1, 0])
     _assert_grads_close(grads["0"], grads["1"], dtype)
 
@@ -320,10 +330,10 @@ def test_decode_attention_kernel_matches_plain_version(cuda, b, h, r, d, dtype, 
     from parler_tts_tpu_torch.ops import decode_attention as pda
 
     q, k, v, mask = _decode_attention_inputs(b, h, r, d, dtype, max_len=max_len)
-    before = pfa.LAUNCHES_DECODE
+    before = _launched("decode_attention")
     out = pda.decode_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    assert pfa.LAUNCHES_DECODE == before + 1
+    assert _launched("decode_attention") == before + 1
     splits, _ = pda.decode_split(b * h, r, torch.cuda.get_device_properties(0).multi_processor_count)
     assert (splits == 1) == (b * h >= 1536 or r <= 64)
     _assert_decode_close(out, pda.decode_attention_plain(q, k, v, mask), dtype)
@@ -409,25 +419,25 @@ def test_captured_decode_attention_equals_the_eager_call(cuda, b):
     """Captured in a CUDA graph (one split at 96 rows, several at 1, whose
     scratch comes from the graph's pool), a replay gives the eager call's
     output bit for bit, before and after the inputs change in place; the
-    capture records one call and launches none."""
+    capture records one call into its program and launches none (its
+    warm-up launches one), and each replay counts the call it holds."""
     from parler_tts_tpu_torch.ops import decode_attention as pda
 
     q, k, v, mask = _decode_attention_inputs(b, 16, 934, 64, torch.bfloat16)
     pda.decode_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    recorded, launches = pfa.recorded(), pfa.LAUNCHES_DECODE
-    with torch.cuda.graph(graph):
-        out = pda.decode_attention(q, k, v, mask)
-    held = {name: n - recorded[name] for name, n in pfa.recorded().items()}
-    assert held["LAUNCHES_DECODE"] == 1 and pfa.LAUNCHES_DECODE == launches
+    outs, launches = [], _launched("decode_attention")
+    program = pgraphs.capture(lambda: outs.append(pda.decode_attention(q, k, v, mask)))
+    out = outs[-1]
+    assert program.launches["decode_attention"] == 1 and _launched("decode_attention") == launches + 1
     for step in range(2):
-        graph.replay()
+        program.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, pda.decode_attention(q, k, v, mask))
         q.mul_(-1.5)
         k[:, :, step * 100 : step * 100 + 50] = 0.5
         mask[:, 40 + step] = ~mask[:, 40 + step]
+    assert _launched("decode_attention") == launches + 5  # the warm-up, two replays, two eager calls
 
 
 @pytest.mark.cuda
@@ -515,10 +525,10 @@ def test_snake_kernel_equals_snake_fast_bit_for_bit(cuda, b, c, t, alpha_dtype):
 
     gen = torch.Generator(device="cuda").manual_seed(b * 10007 + c * 101 + t)
     x, alpha = _snake_inputs(b, c, t, alpha_dtype, gen)
-    before = pfa.LAUNCHES_SNAKE
+    before = _launched("snake")
     out = psnake.snake_fast_cuda(x, alpha, pdac._SIN2_COEFFS)
     torch.cuda.synchronize()
-    assert pfa.LAUNCHES_SNAKE == before + 1
+    assert _launched("snake") == before + 1
     ref = pdac.snake_fast(x, alpha)
     same = out.view(torch.int16) == ref.view(torch.int16)
     assert bool(same.all()), f"{int((~same).sum())} of {same.numel()} elements differ, first at {(~same).nonzero()[0]}"
@@ -586,21 +596,21 @@ def test_a_bf16_dac_decode_equals_the_plain_chain_bit_for_bit(cuda, monkeypatch)
     model = model.to("cuda", torch.bfloat16)
     codes = torch.randint(0, cfg.codebook_size, (3, cfg.num_codebooks, 43), generator=gen).cuda()
     with torch.no_grad():
-        before = pfa.LAUNCHES_SNAKE
+        before = _launched("snake")
         wave = pcodec.decode(model, codes)
         torch.cuda.synchronize()
-        assert pfa.LAUNCHES_SNAKE - before == 29
+        assert _launched("snake") - before == 29
         monkeypatch.setattr(pdac, "snake_fast_cuda", lambda x, alpha, coeffs: pdac.snake_fast(x, alpha))
         ref = pcodec.decode(model, codes)
     assert wave.shape == ref.shape == (3, 43 * cfg.hop_length)
     assert torch.equal(wave, ref)
-    assert pfa.LAUNCHES_SNAKE - before == 29
+    assert _launched("snake") - before == 29
 
 
 @pytest.mark.cuda
 def test_a_captured_96_row_tts_call_launches_the_decode_kernel_twice_a_layer(cuda):
     """A replayed ``tts`` call of 96 rows at Mini's width runs its self and
-    cross attention through the decode kernel: ``LAUNCHES_DECODE`` grows by
+    cross attention through the decode kernel: its launches grow by
     48 per replayed step, counted through the step graphs' replays."""
     from parler_tts_tpu_torch.core import config as pcfg
     from parler_tts_tpu_torch.models import parler as pparler
@@ -617,11 +627,11 @@ def test_a_captured_96_row_tts_call_launches_the_decode_kernel_twice_a_layer(cud
     words = "a calm voice reads the news slowly in a quiet room".split()
     texts = ([" ".join(words[: 3 + i % 8]) for i in range(96)], [" ".join(words[: 1 + i % 10]) for i in range(96)])
     pipe.tts(*texts, seed=1, max_seconds=1.0)  # captures
-    launches, replays = pfa.LAUNCHES_DECODE, counter("decode.replays")
+    launches, replays = _launched("decode_attention"), counter("decode.replays")
     pipe.tts(*texts, seed=2, max_seconds=1.0)
     steps = counter("decode.replays") - replays
     assert 2 * cfg.decoder.num_hidden_layers == 48 and steps > 0
-    assert pfa.LAUNCHES_DECODE - launches == 48 * steps
+    assert _launched("decode_attention") - launches == 48 * steps
 
 
 # --- the captured decode loop ------------------------------------------------------------------
@@ -752,8 +762,8 @@ def test_captured_stream_equals_the_eager_stream(cuda, monkeypatch, dtype, b, kw
     gen = pcfg.GenerationConfig(max_length=DECODE_LENGTH, **kw)
     inputs = _decode_inputs(b)
     steps, views = [], []
-    real_step, real_view = pstream.decode_step, model.decoder.decode_params
-    monkeypatch.setattr(pstream, "decode_step", lambda *a, **k: steps.append(1) or real_step(*a, **k))
+    real_step, real_view = pgen.decode_step, model.decoder.decode_params
+    monkeypatch.setattr(pgen, "decode_step", lambda *a, **k: steps.append(1) or real_step(*a, **k))
     monkeypatch.setattr(model.decoder, "decode_params", lambda int8=False: views.append(int8) or real_view(int8))
     replays = counter("prefill.replays")
     first, _ = _stream_codes(model, gen, inputs, seed=5)
@@ -786,12 +796,12 @@ def test_captured_prefill_equals_the_eager_prefill(cuda, prompt_len, frames):
     if frames:
         inputs["decoder_input_codes"] = torch.randint(0, 1024, (2, model.cfg.decoder.num_codebooks, frames),
                                                       generator=g).cuda()
-    graphs = pgen._graphs_of(model)
+    programs = pgen._programs_of(model)
     captures = counter("prefill.captures")
     for _ in range(2):  # the first call captures, the second replays
-        with graphs.lock:
-            captured, _ = pgen._captured_generation(model, gen, graphs, max_length=120, generator=None, noise=None,
-                                                    **inputs)
+        with programs.lock:
+            _, captured, _ = pgen._captured_generation(model, gen, programs, max_length=120, generator=None,
+                                                       noise=None, **inputs)
     assert counter("prefill.captures") - captures == 1
     s = captured.state
     ref = pgen.prefill(model, gen, max_length=120, **inputs)
@@ -924,20 +934,20 @@ def test_generate_between_two_chunks_of_an_open_stream(cuda):
     gen = pcfg.GenerationConfig(max_length=DECODE_LENGTH, do_sample=False)
     inputs = _decode_inputs(2)
     ref, _ = _stream_codes(model, gen, inputs, seed=0)
-    graphs = pgen._graphs_of(model)
+    programs = pgen._programs_of(model)
     it = pstream.stream_generate(model, gen, chunk_frames=40, vocode=False, **inputs)
     codes = [next(it).codes]
     tokens, _ = pgen.generate_tokens(model, gen, max_length=gen.max_length, **inputs)
-    assert sum(c.leased for c in graphs.sets.values()) == 1 and len(graphs.sets) == 2
+    assert len(programs.leased) == 1 and len(programs) == 2
     codes += [c.codes for c in it]
     np.testing.assert_array_equal(np.concatenate(codes, axis=2), ref)
     np.testing.assert_array_equal(undelay_pattern(tokens[:, :, 1:]).cpu().numpy()[:, :, :ref.shape[2]], ref)
-    assert not any(c.leased for c in graphs.sets.values())
+    assert not programs.leased
     it = pstream.stream_generate(model, gen, chunk_frames=40, vocode=False, **inputs)
     next(it)
-    assert any(c.leased for c in graphs.sets.values())
+    assert programs.leased
     it.close()
-    assert not any(c.leased for c in graphs.sets.values())
+    assert not programs.leased
 
 
 # --- the captured train and eval steps -------------------------------------------------------------
@@ -975,15 +985,15 @@ def _train_run(cfg, model, batches, *, captured: bool, remat: bool = False, lr: 
 
     state = pstep.create_state(copy.deepcopy(model), learning_rate=lr, warmup_steps=1)
     step = pstep.make_train_step(cfg, dtype=torch.bfloat16, dropout_seed=0, remat=remat)
-    real = pstep._captured_route
+    real = pgraphs.capturable
     if not captured:
-        pstep._captured_route = lambda model, mesh: False
+        pgraphs.capturable = lambda device, groups=(): False
     try:
-        before = (pfa.LAUNCHES, pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+        before = _launched("flash_attention_fwd", *BWD)
         out = [step(state, batches[i % len(batches)]) for i in range(steps)]
-        after = (pfa.LAUNCHES, pfa.LAUNCHES_DQ, pfa.LAUNCHES_DKV, pfa.LAUNCHES_DQKV)
+        after = _launched("flash_attention_fwd", *BWD)
     finally:
-        pstep._captured_route = real
+        pgraphs.capturable = real
     return {"losses": torch.stack([m["loss"] for m in out]), "norms": torch.stack([m["grad_norm"] for m in out]),
             "params": [p.detach().clone() for p in state.optimizer.params],
             "launches": [(a - b) / steps for a, b in zip(after, before)], "graphs": state.graphs}
@@ -1059,17 +1069,17 @@ def test_captured_eval_step_equals_the_eager_eval(cuda):
 
     cfg, model, batches = _train_setup()
     step = pstep.make_eval_step(cfg, dtype=torch.bfloat16)
-    before = pfa.LAUNCHES
+    before = _launched("flash_attention_fwd")
     got = [step(model, b)["loss"] for b in batches]
-    assert pfa.LAUNCHES - before == 2 * cfg.decoder.num_hidden_layers
+    assert _launched("flash_attention_fwd") - before == 2 * cfg.decoder.num_hidden_layers
     graphs = pstep._eval_graphs(model)
     assert (graphs.captures, graphs.replays) == (1, 1)
-    real = pstep._captured_route
-    pstep._captured_route = lambda model, mesh: False
+    real = pgraphs.capturable
+    pgraphs.capturable = lambda device, groups=(): False
     try:
         want = [step(model, b)["loss"] for b in batches]
     finally:
-        pstep._captured_route = real
+        pgraphs.capturable = real
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 

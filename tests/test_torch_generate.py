@@ -15,9 +15,9 @@ from parler_tts_tpu.core import config as jcfg
 from parler_tts_tpu.generation import generate as jgenerate
 from parler_tts_tpu.pipeline import ParlerTTSPipeline as JaxPipeline
 from parler_tts_tpu_torch.core import config as pcfg
+from parler_tts_tpu_torch.core import graphs as pgraphs
 from parler_tts_tpu_torch.generation import generate as pgenerate
 from parler_tts_tpu_torch.models import parler as pparler
-from parler_tts_tpu_torch.ops import flash_attention as pfa
 from parler_tts_tpu_torch.pipeline import ParlerTTSPipeline
 from parler_tts_tpu_torch.utils.toy_tokenizer import ToyTokenizer
 from tests.test_torch_blocks import close, jax_params, port_model, tiny_config
@@ -121,7 +121,7 @@ def test_entry_points_refuse_cuda_without_it(models, monkeypatch):
 
 def test_cpu_run_launches_no_kernel(models):
     _, model = models
-    before = pfa.LAUNCHES
+    before = pgraphs.launches()
     pgenerate.generate(model, pcfg.GenerationConfig(max_length=24, do_sample=False, **SPECIALS),
                        device="cpu", **_batch())
-    assert pfa.LAUNCHES == before
+    assert pgraphs.launches() == before

@@ -13,10 +13,10 @@ import subprocess
 import pytest
 import torch
 
+from parler_tts_tpu_torch.core import graphs as pgraphs
 from parler_tts_tpu_torch.core.config import DACConfig
 from parler_tts_tpu_torch.models import dac as pdac
 from parler_tts_tpu_torch.ops import cuda_build
-from parler_tts_tpu_torch.ops import flash_attention as pfa
 from parler_tts_tpu_torch.ops import snake as psnake
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
@@ -36,7 +36,7 @@ def _inputs(dtype, c: int = 6, t: int = 13):
     (False, torch.float32, pdac.snake),
 ])
 def test_snake_off_the_card_is_the_plain_function(monkeypatch, fast, dtype, plain):
-    monkeypatch.setattr(pfa, "LAUNCHES_SNAKE", 0)
+    before = pgraphs.launches()["snake"]
     monkeypatch.setattr(pdac, "snake_fast_cuda", lambda *a: pytest.fail("K6 called off the card"))
     x, alpha = _inputs(dtype)
     module = pdac.Snake(x.shape[1], fast=fast)
@@ -45,7 +45,7 @@ def test_snake_off_the_card_is_the_plain_function(monkeypatch, fast, dtype, plai
         got = module(x)
     assert got.dtype == dtype
     assert torch.equal(got, plain(x, module.alpha))
-    assert pfa.LAUNCHES_SNAKE == 0
+    assert pgraphs.launches()["snake"] == before
 
 
 def test_a_bf16_dac_decode_on_the_cpu_runs_29_plain_snakes_a_call(monkeypatch):
@@ -55,7 +55,7 @@ def test_a_bf16_dac_decode_on_the_cpu_runs_29_plain_snakes_a_call(monkeypatch):
     calls = []
     plain = pdac.snake_fast
     monkeypatch.setattr(pdac, "snake_fast", lambda x, a: calls.append(x.shape) or plain(x, a))
-    monkeypatch.setattr(pfa, "LAUNCHES_SNAKE", 0)
+    before = pgraphs.launches()["snake"]
     cfg = DACConfig(codebook_size=64, latent_dim=32, decoder_hidden_size=32, encoder_hidden_size=8)
     codec = pdac.DAC(cfg)
     codec.reset_parameters(torch.Generator().manual_seed(0))
@@ -64,7 +64,7 @@ def test_a_bf16_dac_decode_on_the_cpu_runs_29_plain_snakes_a_call(monkeypatch):
     with torch.no_grad():
         wave = codec.decode(codes)
     assert wave.shape == (2, 3 * cfg.hop_length) and bool(torch.isfinite(wave).all())
-    assert len(calls) == 29 and pfa.LAUNCHES_SNAKE == 0
+    assert len(calls) == 29 and pgraphs.launches()["snake"] == before
     assert calls[0] == (2, 32, 3) and calls[-1] == (2, 2, 3 * cfg.hop_length)
 
 
@@ -79,7 +79,7 @@ def test_a_bf16_dac_decode_on_the_cpu_runs_29_plain_snakes_a_call(monkeypatch):
 ])
 def test_wrapper_refuses_before_loading_a_library(monkeypatch, case, error, match):
     monkeypatch.setattr(cuda_build, "library", lambda *a, **k: pytest.fail("a library was loaded"))
-    monkeypatch.setattr(pfa, "LAUNCHES_SNAKE", 0)
+    before = pgraphs.launches()["snake"]
     x, alpha = _inputs(torch.bfloat16)
     if case == "fp32":
         x = x.float()
@@ -95,7 +95,7 @@ def test_wrapper_refuses_before_loading_a_library(monkeypatch, case, error, matc
         alpha = alpha.requires_grad_()
     with pytest.raises(error, match=match):
         psnake.snake_fast_cuda(x, alpha, pdac._SIN2_COEFFS)
-    assert pfa.LAUNCHES_SNAKE == 0
+    assert pgraphs.launches()["snake"] == before
 
 
 def test_the_build_takes_snake_from_csrc(monkeypatch, tmp_path):

@@ -22,6 +22,7 @@ import torch
 from parler_tts_tpu.core import config as jcfg
 from parler_tts_tpu.generation import streaming as jstreaming
 from parler_tts_tpu_torch.core import config as pcfg
+from parler_tts_tpu_torch.core import graphs as pgraphs
 from parler_tts_tpu_torch.generation import generate as pgenerate
 from parler_tts_tpu_torch.generation import streaming as pstreaming
 from parler_tts_tpu_torch.utils import profiling
@@ -77,15 +78,14 @@ def captured_route(monkeypatch):
     in bytes."""
     budget = [float("inf")]
 
-    def record(fn, pool):
+    def record(fn, pool, generators=()):
         fn()
         return _Graph(fn), 0
 
-    monkeypatch.setattr(pgenerate, "_record", record)
-    monkeypatch.setattr(pgenerate, "_new_pool", lambda: None)
-    monkeypatch.setattr(pgenerate, "_budget", lambda device: budget[0])
-    for mod in (pgenerate, pstreaming):
-        monkeypatch.setattr(mod, "_captured_route", lambda model: model.decoder.model_group is None)
+    monkeypatch.setattr(pgraphs, "record", record)
+    monkeypatch.setattr(pgraphs, "new_pool", lambda: None)
+    monkeypatch.setattr(pgraphs, "budget", lambda device: budget[0])
+    monkeypatch.setattr(pgraphs, "capturable", lambda device, groups=(): all(g is None for g in groups))
     return budget
 
 
@@ -159,7 +159,7 @@ def test_stream_loop_matches_jax_stream(request, case, route):
 
 
 def _leased(model) -> list[tuple]:
-    return [key for key, c in pgenerate._graphs_of(model).sets.items() if c.leased]
+    return sorted(pgenerate._programs_of(model).leased)
 
 
 def test_a_leased_state_is_neither_dropped_nor_handed_out_twice(long_run, captured_route):
@@ -173,20 +173,20 @@ def test_a_leased_state_is_neither_dropped_nor_handed_out_twice(long_run, captur
     ref = np.concatenate([c.codes for c in pstreaming.stream_generate(
         model, pcfg.GenerationConfig(max_length=120, **SPECIALS, **kw), chunk_frames=30, vocode=False,
         device="cpu", **batch(2))], axis=2)
-    pgenerate._graphs_of(model).sets.clear()
+    model.__dict__.pop("_decode_programs", None)
     gen = pcfg.GenerationConfig(max_length=120, **SPECIALS, **kw)
     it = pstreaming.stream_generate(model, gen, chunk_frames=30, vocode=False, device="cpu", **batch(2))
     codes = [next(it).codes]
-    graphs = pgenerate._graphs_of(model)
+    programs = pgenerate._programs_of(model)
     (lease,) = _leased(model)
     assert lease[1] == 0
     inputs = {k: torch.from_numpy(v) for k, v in batch(2).items()}
     tokens, _ = pgenerate.generate_tokens(model, gen, max_length=120, **inputs)  # same signature: a second instance
-    assert (lease[0], 1) in graphs.sets and graphs.sets[lease].leased
+    assert (lease[0], 1) in programs and _leased(model) == [lease]
     codes.append(next(it).codes)
     captured_route[0] = 0  # every state that no stream leases goes
     pgenerate.generate_tokens(model, dataclasses.replace(gen, max_length=100), max_length=100, **inputs)
-    assert lease in graphs.sets and (lease[0], 1) not in graphs.sets and len(graphs.sets) == 2
+    assert lease in programs and (lease[0], 1) not in programs and len(programs) == 2
     codes += [c.codes for c in it]
     np.testing.assert_array_equal(np.concatenate(codes, axis=2), ref)
     np.testing.assert_array_equal(pgenerate.undelay_pattern(tokens[:, :, 1:]).numpy()[:, :, :ref.shape[2]], ref)
@@ -235,11 +235,11 @@ def test_a_replayed_prefill_reads_the_new_inputs(long_run, captured_route):
                  decoder_input_codes=None)
     second = dict(first, input_ids=first["input_ids"].flip(1).contiguous(),
                   prompt_input_ids=(first["prompt_input_ids"] + 7) % 160)
-    graphs = pgenerate._graphs_of(model)
+    programs = pgenerate._programs_of(model)
     replays = profiling.counters().get("prefill.replays", 0)
     for inputs in (first, second, first):
-        captured, _ = pgenerate._captured_generation(model, gen, graphs, max_length=60, generator=None, noise=None,
-                                                     **inputs)
+        _, captured, _ = pgenerate._captured_generation(model, gen, programs, max_length=60, generator=None,
+                                                        noise=None, **inputs)
         s, ref = captured.state, pgenerate.prefill(model, gen, max_length=60, **inputs)
         assert torch.equal(s.logits, ref.logits) and torch.equal(s.tokens, ref.tokens)
         assert torch.equal(s.cache.self_k[:, :, :, :ref.cache.index], ref.cache.self_k[:, :, :, :ref.cache.index])

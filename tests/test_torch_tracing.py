@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from parler_tts_tpu_torch.core import config as pcfg
+from parler_tts_tpu_torch.core import graphs as pgraphs
 from parler_tts_tpu_torch.generation import generate as pgenerate
 from parler_tts_tpu_torch.generation import streaming as pstreaming
 from parler_tts_tpu_torch.models import parler as pparler
@@ -149,16 +150,22 @@ class _Graph:
         self.replay = fn
 
 
+def _fake_captures(monkeypatch, *, budget: float) -> None:
+    """The captured route on the CPU: a capture runs its function once (the
+    warm-up), a replay runs it again; ``budget`` bytes per owner."""
+    monkeypatch.setattr(pgraphs, "record", lambda fn, pool, generators=(): (fn(), (_Graph(fn), 0))[1])
+    monkeypatch.setattr(pgraphs, "new_pool", lambda: None)
+    monkeypatch.setattr(pgraphs, "budget", lambda device: budget)
+    monkeypatch.setattr(pgraphs, "capturable", lambda device, groups=(): True)
+
+
 def test_the_captured_route_counts_replays_positions_captures_and_drops(pipe, monkeypatch):
     """The captured route with its CUDA calls factored out (a graph is its
     function, run again at each replay): a step graph per bucket captured
     in a ``generate.capture`` span with its signature, steps replayed past
     the last position every stream kept are counted, and a budget too small
     for two signatures drops the older's state."""
-    monkeypatch.setattr(pgenerate, "_record", lambda fn, pool: (fn(), (_Graph(fn), 0))[1])
-    monkeypatch.setattr(pgenerate, "_new_pool", lambda: None)
-    monkeypatch.setattr(pgenerate, "_budget", lambda device: 1.0)
-    monkeypatch.setattr(pgenerate, "_captured_route", lambda model: True)
+    _fake_captures(monkeypatch, budget=1.0)
     ids = {k: torch.as_tensor(v) for k, v in pipe.tokenize(["a voice", "another"], ["hi", "hello you"]).items()}
     names = ("decode.positions", "decode.replays", "decode.captures", "decode.states_dropped", "prefill.captures",
              "prefill.replays")
@@ -321,10 +328,7 @@ def test_state_bytes_by_kind_in_spans_and_counters(lfm2_model, captured, monkeyp
     their bucket), on the eager and the captured route."""
     cfg, model = lfm2_model
     if captured:
-        monkeypatch.setattr(pgenerate, "_record", lambda fn, pool: (fn(), (_Graph(fn), 0))[1])
-        monkeypatch.setattr(pgenerate, "_new_pool", lambda: None)
-        monkeypatch.setattr(pgenerate, "_captured_route", lambda model: True)
-        monkeypatch.setattr(pgenerate, "_budget", lambda device: 1e18)
+        _fake_captures(monkeypatch, budget=1e18)
     gen = pcfg.GenerationConfig(do_sample=False)
     before = {name: counter(name) for name in ("decode.kv_bytes", "decode.conv_state_bytes", "decode.positions")}
     ids = _lfm2_ids(cfg)
@@ -356,10 +360,7 @@ def test_moe_counters_count_on_the_device_through_replays(lfm2_model, monkeypatc
     a token, summed over MoE calls; ``moe.dropped`` stays 0, and a dropped
     pair raises."""
     cfg, model = lfm2_model
-    monkeypatch.setattr(pgenerate, "_record", lambda fn, pool: (fn(), (_Graph(fn), 0))[1])
-    monkeypatch.setattr(pgenerate, "_new_pool", lambda: None)
-    monkeypatch.setattr(pgenerate, "_captured_route", lambda model: True)
-    monkeypatch.setattr(pgenerate, "_budget", lambda device: 1e18)
+    _fake_captures(monkeypatch, budget=1e18)
     names = ("moe.assignments", "moe.experts_touched", "moe.dropped", "decode.replays")
     before = {name: counter(name) for name in names}
     reads = []

@@ -23,6 +23,7 @@ import copy
 import dataclasses
 import importlib
 import io
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +40,6 @@ from parler_tts_tpu_torch.core import graphs as pgraphs
 from parler_tts_tpu_torch.core.from_jax import to_jax_tree
 from parler_tts_tpu_torch.models import decoder as pdecoder
 from parler_tts_tpu_torch.models import parler as pparler
-from parler_tts_tpu_torch.ops import flash_attention as pfa
 from parler_tts_tpu_torch.training import data as pdata
 from parler_tts_tpu_torch.training import optim as poptim
 from parler_tts_tpu_torch.training import run_training as prun
@@ -56,6 +56,10 @@ class _Graph:
         self.replay = fn
 
 
+def _eager(device, groups=()) -> bool:
+    return False
+
+
 @pytest.fixture
 def captured_route(monkeypatch):
     """The captured route on the CPU (module docstring).  Returns the list
@@ -67,10 +71,10 @@ def captured_route(monkeypatch):
         fn()
         return _Graph(fn), 0
 
-    monkeypatch.setattr(pstep, "_record", record)
-    monkeypatch.setattr(pstep, "_new_pool", lambda: None)
-    monkeypatch.setattr(pstep, "_budget", lambda device: float("inf"))
-    monkeypatch.setattr(pstep, "_captured_route", lambda model, mesh: mesh is None or mesh.data_group is None)
+    monkeypatch.setattr(pgraphs, "record", record)
+    monkeypatch.setattr(pgraphs, "new_pool", lambda: None)
+    monkeypatch.setattr(pgraphs, "budget", lambda device: float("inf"))
+    monkeypatch.setattr(pgraphs, "capturable", lambda device, groups=(): all(g is None for g in groups))
     return registered
 
 
@@ -138,7 +142,7 @@ def test_captured_steps_equal_the_eager_steps_bit_for_bit(dummy, captured_route,
     make = dict(dtype=torch.float32, dropout_seed=0, remat=remat)
     eager, captured = _state(model, cfg, accum), _state(model, cfg, accum)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pstep, "_captured_route", lambda model, mesh: False)
+        mp.setattr(pgraphs, "capturable", _eager)
         want = _run(eager, pstep.make_train_step(cfg, **make), batches, steps)
     got = _run(captured, pstep.make_train_step(cfg, **make), batches, steps)
     for (loss, norm, at), (ref_loss, ref_norm, ref_at) in zip(got, want):
@@ -197,7 +201,7 @@ def test_the_cli_resumes_on_the_captured_route_bit_for_bit(tmp_path, monkeypatch
     split = list(seen)
     seen.clear()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pstep, "_captured_route", lambda model, mesh: False)
+        mp.setattr(pgraphs, "capturable", _eager)
         _main(art, tmp_path / "eager", "--max_steps", "4", *common)
     assert seen == split and len(set(split)) == 4
     a, b = _train(tmp_path / "eager"), _train(tmp_path / "split")
@@ -218,7 +222,7 @@ def test_the_cli_eval_replays_its_captured_pass(tmp_path, captured_route):
             "--per_device_eval_batch_size", "2", "--generation_max_length", "0")
     _main(art, tmp_path / "captured", *argv)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pstep, "_captured_route", lambda model, mesh: False)
+        mp.setattr(pgraphs, "capturable", _eager)
         _main(art, tmp_path / "eager", *argv)
     losses = [[r["eval/loss"] for r in _records(tmp_path / name) if "eval/loss" in r]
               for name in ("captured", "eager")]
@@ -234,7 +238,7 @@ def test_eval_steps_capture_per_batch_shape(dummy, captured_route):
     short = {k: v[:1] for k, v in batches[0].items()}
     got = [step(model, b)["loss"] for b in (batches[0], batches[1], short, batches[0])]
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pstep, "_captured_route", lambda model, mesh: False)
+        mp.setattr(pgraphs, "capturable", _eager)
         want = [step(model, b)["loss"] for b in (batches[0], batches[1], short, batches[0])]
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     graphs = pstep._eval_graphs(model)
@@ -256,7 +260,7 @@ def test_both_routes_match_jax_jitted_steps(tiny, captured_route, monkeypatch, r
     parameters within ``GRAD_TOL``)."""
     jc, pc, params, batch = tiny
     if route == "eager":
-        monkeypatch.setattr(pstep, "_captured_route", lambda model, mesh: False)
+        monkeypatch.setattr(pgraphs, "capturable", _eager)
     tx = joptim.make_optimizer(1e-3, warmup_steps=1)
     state, frozen = jstep.create_state({k: v for k, v in params.items() if k != "audio_encoder"}, tx)
     jtrain = jax.jit(jstep.make_train_step(jc, tx, dtype=jnp.float32))
@@ -313,22 +317,61 @@ def test_programs_keep_the_newest_within_their_budget():
     assert (programs.captures, programs.capture_seconds) == (4, 1.0)
 
 
-def test_replays_add_the_launches_their_graphs_hold(monkeypatch):
-    """Calls under capture count as recorded; a replay adds a graph's
-    recorded calls to the launch counters."""
-    for name in ("LAUNCHES", "LAUNCHES_DQ", "LAUNCHES_DKV", "LAUNCHES_DQKV", "LAUNCHES_DECODE", "LAUNCHES_SNAKE",
-                 "RECORDED", "RECORDED_DQ", "RECORDED_DKV", "RECORDED_DQKV", "RECORDED_DECODE", "RECORDED_SNAKE"):
-        monkeypatch.setattr(pfa, name, 0)
-    before = pfa.recorded()
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
-    for name in ("LAUNCHES", "LAUNCHES_DQKV", "LAUNCHES_DQKV", "LAUNCHES_DECODE", "LAUNCHES_SNAKE"):
-        pfa._count(name)
-    held = {k: n - before[k] for k, n in pfa.recorded().items()}
-    assert held == {"LAUNCHES": 1, "LAUNCHES_DQ": 0, "LAUNCHES_DKV": 0, "LAUNCHES_DQKV": 2, "LAUNCHES_DECODE": 1,
-                    "LAUNCHES_SNAKE": 1}
-    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE, pfa.LAUNCHES_SNAKE) == (0, 0, 0, 0)
-    pfa.replayed(held)
-    pfa.replayed(held)
-    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQ, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE, pfa.LAUNCHES_SNAKE) == (2, 0, 4, 2, 2)
-    pfa.replayed(held, 3)  # three replays at once, as a decode segment adds them
-    assert (pfa.LAUNCHES, pfa.LAUNCHES_DQKV, pfa.LAUNCHES_DECODE, pfa.LAUNCHES_SNAKE) == (5, 10, 5, 5)
+def test_programs_never_drop_a_leased_entry():
+    """``instance`` hands out the first entry of a signature that no one
+    leases, making one when there is none; ``make_room`` and ``add`` drop
+    the least recently used entries, never a leased one."""
+    class P:
+        def __init__(self, nbytes):
+            self.nbytes = nbytes
+
+    programs = pgraphs.Programs()
+    key, first = programs.instance("s", lambda: P(4))
+    assert key == ("s", 0) and programs.instance("s", lambda: P(4)) == (key, first)
+    programs.leased.add(key)
+    second_key, second = programs.instance("s", lambda: P(4))
+    assert second_key == ("s", 1) and second is not first and len(programs) == 2
+    assert programs.make_room(4, limit=4) == 1 and programs.get(key) is first and second_key not in programs
+    programs.add("t", P(4), 0.0, limit=0)
+    assert key in programs and "t" in programs and len(programs) == 2
+    programs.leased.discard(key)
+    assert programs.make_room(0, limit=4) == 1 and key not in programs and len(programs) == 1
+
+
+@pytest.mark.parametrize("replays", [1, 3], ids=["one_replay", "three_replays_counted_at_once"])
+def test_replays_add_the_launches_their_graphs_hold(monkeypatch, replays):
+    """A kernel call under a capture goes to the capturing program's
+    tally, not to the launch counters, also from another thread (autograd
+    runs a captured backward on its own); a replay adds the program's
+    launches, and ``replayed(n)`` those of n replays at once, as a decode
+    segment adds them.  The function captured here counts two kernels."""
+    def fn():
+        pgraphs.count("flash_attention_fwd")
+        worker = threading.Thread(target=lambda: [pgraphs.count("decode_attention") for _ in range(2)])
+        worker.start()
+        worker.join(timeout=30)
+        assert not worker.is_alive()
+
+    def record(fn, pool, generators=()):
+        with monkeypatch.context() as mp:  # the capture: each call records, none launches
+            mp.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+            fn()
+        return _Graph(lambda: None), 0
+
+    monkeypatch.setattr(pgraphs, "record", record)
+    monkeypatch.setattr(pgraphs, "new_pool", lambda: None)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    before = pgraphs.launches()
+    program = pgraphs.capture(fn)
+    assert pgraphs.launches() == before
+    assert program.launches == {"flash_attention_fwd": 1, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                                "flash_attention_dqkv": 0, "decode_attention": 2, "snake": 0}
+    fn()  # an eager call launches
+    assert pgraphs.launches()["decode_attention"] == before["decode_attention"] + 2
+    before = pgraphs.launches()
+    if replays == 1:
+        program.replay()
+    else:
+        program.replayed(replays)
+    moved = {k: n - before[k] for k, n in pgraphs.launches().items()}
+    assert moved == {k: n * replays for k, n in program.launches.items()}

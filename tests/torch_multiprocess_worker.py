@@ -222,7 +222,7 @@ def _engine(model, cfg, job: dict) -> dict:
 def _early_stop(job: dict) -> dict:
     from parler_tts_tpu_torch.core import checkpoint as ck
     from parler_tts_tpu_torch.core.config import GenerationConfig
-    from parler_tts_tpu_torch.generation import streaming
+    from parler_tts_tpu_torch.generation import generate, streaming
     from parler_tts_tpu_torch.parallel import distributed as dist
     from parler_tts_tpu_torch.parallel import mesh as pmesh
 
@@ -230,7 +230,7 @@ def _early_stop(job: dict) -> dict:
     model, _, _ = ck.load_model(job["artifact"], device="cpu", mesh=mesh)
     inputs = {k: torch.from_numpy(v) for k, v in np.load(job["inputs"]).items()}
     prompt = {k: inputs[k] for k in ("input_ids", "attention_mask", "prompt_input_ids", "prompt_attention_mask")}
-    steps, real = [0], streaming.decode_step
+    steps, real = [0], generate.decode_step
 
     def stop_early(model, gen, s, **kw):
         real(model, gen, s, **kw)
@@ -239,7 +239,7 @@ def _early_stop(job: dict) -> dict:
             s.finished.fill_(True)
 
     if mesh.model_index == mesh.model - 1:
-        streaming.decode_step = stop_early
+        generate.decode_step = stop_early
     t0 = time.perf_counter()
     try:
         chunks = len(list(streaming.stream_generate(model, GenerationConfig(**job["generation"]),

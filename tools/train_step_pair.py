@@ -9,8 +9,8 @@ and ``chip_smoke.py`` (kernels built from its own sources): Mini at full
 width with the smoke run's recipe and batches, 3 x 10 s then 1 x 30 s; at
 each shape 2 warm-up steps, 8 timed steps (synchronised), one step under
 torch.profiler and one more for the host's launch calls.  A tree written
-``PATH:eager`` runs its train step on the eager route (a tree that captures
-train steps on one card, ``training/step._captured_route``).  Prints
+``PATH:eager`` runs its train step on the eager route (``core/graphs.capturable``
+set false; a tree without that rule cannot be asked for it).  Prints
 ``nvidia-smi``'s name and power limit, then a JSON line per tree and shape:
 the step times, their median (the 5th of 8 sorted), the device's busy ms,
 the port attention kernels' ms and the host's launch calls per step.
@@ -31,13 +31,16 @@ def run_tree(root: str, eager: bool = False) -> None:
 
     import chip_smoke as cs
     from parler_tts_tpu_torch.core import config as cfg_mod
+    from parler_tts_tpu_torch.core import graphs as graphs_mod
     from parler_tts_tpu_torch.models import parler
     from parler_tts_tpu_torch.training import data as data_mod
     from parler_tts_tpu_torch.training import step as step_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if eager:
-        step_mod._captured_route = lambda model, mesh: False
+        if not hasattr(graphs_mod, "capturable"):
+            raise SystemExit(f"{root}: no core/graphs.capturable to turn the captured route off")
+        graphs_mod.capturable = lambda device, groups=(): False
     cfg = cfg_mod.mini_600m_config()
     model = parler.init(0, cfg, device="cuda")
     state = step_mod.create_state(model, learning_rate=9.5e-4, warmup_steps=1, b1=0.9, b2=0.99,
