@@ -19,8 +19,8 @@ Phases, in order; any failure exits non-zero before the result line:
    backward's two routes (K4, and K2 + K3 forced by
    ``PARLER_FLASH_NO_FUSED_BWD=1``) against each other in fp32 and bf16;
    the build fails unless ``ptxas`` reports each bf16 tensor-core K1, K2,
-   K3 and K4 and each K5 kernel at head dims 32 and 64, and K6's two
-   instances, with no spills;
+   K3 and K4 and each K5 kernel at head dims 32 and 64, K6's two instances
+   and K7's four, with no spills;
    device times (CUDA-graph replay) of each kernel, its plain version and the
    one PyTorch call computing the same function (timed as a yardstick only,
    never called by the port); the LFM2 cell's grouped experts against the
@@ -28,7 +28,14 @@ Phases, in order; any failure exits non-zero before the result line:
    the DAC decoder's Snake, against ``snake_fast`` bit for bit at each of the
    decoder's five levels for 4 rows of 10 s (``snake_time`` lines: its ms
    and the plain chain's against the bf16 tensor read and written once;
-   ``snake_summary``: per audio second over a decode's 29 Snakes);
+   ``snake_summary``: per audio second over a decode's 29 Snakes); K7, the
+   DAC decoder's stride-1 convolutions, at each of a decode group's 25
+   (``dac_conv_time`` lines: every output within one bf16 rounding of the
+   fp32 result; its ms against its bound, the plain version's, the parent's
+   cuDNN chain with the kernels it ran, and cuDNN channels-last under
+   ``cudnn.benchmark`` as a yardstick; ``dac_conv_summary``: per audio
+   second over a decode group, and one decode group of Mini's DAC profiled
+   with K7 and with the parent's chain in its place);
 3. reference: a small config (``dummy_config``) at fp32 on the card (kernel
    path) and on the CPU (plain path): greedy generation (composite,
    decoder-only continuation, int8 KV cache and weights, and a stream whose
@@ -44,8 +51,8 @@ Phases, in order; any failure exits non-zero before the result line:
    width (random weights from a seed, bf16), three calls of four requests
    whose prompt buckets give prefill lengths 17, 65 and 257; each call must
    launch K1 once per decoder layer, K5 twice per layer per decode step
-   (replayed or captured) and K6 29 times per DAC decode group (the train
-   paths none).  Then one more call with each phase synchronised and
+   (replayed or captured), K6 29 times and K7 25 times per DAC decode group
+   (the train paths none).  Then one more call with each phase synchronised and
    timed, and a short call under torch.profiler for the device's busy
    time.  On the same model, each path with the counts set
    to 0 just before it and read just after, K1 once per layer per prefill
@@ -164,6 +171,7 @@ Output: a JSON line per phase, then the kernels line, then ``nvidia-smi``'s
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -239,6 +247,17 @@ SNAKE_KERNELS = ("snake_kernelIjE", "snake_kernelIyE")
 # frame, Snakes at that level); 29 in all
 SNAKE_LEVELS = ((1536, 1, 1), (768, 8, 7), (384, 64, 7), (192, 256, 7), (96, 512, 7))
 SNAKES_PER_DECODE = sum(n for _, _, n in SNAKE_LEVELS)
+# K7's instances: 7 and 1 taps at 128-row (MI 4) and 96-row (MI 3) channel tiles
+DAC_CONV_KERNELS = ("dac_conv7_kernelILi4E", "dac_conv7_kernelILi3E", "dac_conv1_kernelILi4E",
+                    "dac_conv1_kernelILi3E")
+# the DAC decoder's stride-1 convolutions per decode group at 86 frames a second: (C_in, C_out, taps,
+# dilation, T per frame, residual); conv_in, then each level's three residual units (a k7 conv at
+# dilation 1, 3, 9 and a k1 conv with the unit's input as residual); 25 in all
+DAC_CONV_SHAPES = ((1024, 1536, 7, 1, 1, False),) + tuple(
+    (c, c, k, d, per_frame, k == 1) for c, per_frame in ((768, 8), (384, 64), (192, 256), (96, 512))
+    for d in (1, 3, 9) for k in (7, 1))
+DAC_CONVS_PER_DECODE = len(DAC_CONV_SHAPES)
+H100_BF16_FLOPS = 989e12  # dense, SXM data sheet
 
 DESCRIPTIONS = [
     "a female speaker with a low pitched voice speaks very fast",
@@ -915,6 +934,149 @@ def check_snake(dac_mod, snake_mod, frames: int = 862, rows: int = 4) -> dict:
     return {"per_shape": rows_out, **summary}
 
 
+def dac_conv_bound(c_in: int, c_out: int, taps: int, t: int, residual: bool, rows: int) -> dict:
+    """Operations and bytes of one decoder convolution (inputs read once,
+    the output written once) and the least time the card could take."""
+    flops = 2 * c_out * c_in * taps * t * rows
+    nbytes = (c_in * t + c_out * t + c_out * t * residual) * 2 * rows + c_out * c_in * taps * 2
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def device_kernels(fn) -> list:
+    """The CUDA kernels of one ``fn()`` under torch.profiler, after a warm-up
+    call: [name, device ms], longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    return [[name, ms] for name, ms in by_name.most_common()]
+
+
+def check_dac_conv(dac_mod, conv_mod, codec_mod, cfg_mod, frames: int = 862, rows: int = 4) -> dict:
+    """Phase 2: K7 at each of the DAC decoder's stride-1 convolutions
+    (``DAC_CONV_SHAPES``) for a group of ``rows`` rows of ``frames`` frames
+    (10 s at 86 Hz), weights of std 1 / sqrt(fan-in): every output within one
+    bf16 rounding (2**-8 of its size) of the fp32 result plus the fp32 sums'
+    own reordering (2**-16 of the sum of the terms' sizes); then device times
+    (CUDA-graph replay) of K7, of the plain version (fp32), of the parent's
+    cuDNN chain (``nn.Conv1d`` with its bias, then the residual add) with
+    the cuDNN kernels it ran, and of cuDNN channels-last with
+    ``cudnn.benchmark`` on (a yardstick, set here only), against the bound
+    (``dac_conv_bound``).  The summary weighs the shapes per audio second
+    over a decode group, and profiles one decode group of Mini's DAC both
+    ways: each device kernel's ms, the transposed convolutions' too."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    keys = ("ms", "plain_ms", "library_ms", "channels_last_ms", "bound_ms")
+    rows_out, totals = [], dict.fromkeys(keys, 0.0)
+    timed = {}  # the k1 convolutions repeat at each level: timed once
+    for c_in, c_out, taps, d, per_frame, res in DAC_CONV_SHAPES:
+        t = frames * per_frame
+        conv = torch.nn.Conv1d(c_in, c_out, taps, dilation=d, padding=(taps - 1) // 2 * d).cuda()
+        with torch.no_grad():
+            conv.weight.normal_(0.0, (c_in * taps) ** -0.5, generator=gen)
+            conv.bias.normal_(0.0, 0.1, generator=gen)
+        conv = conv.to(torch.bfloat16).requires_grad_(False)
+        x = torch.randn((rows, c_in, t), generator=gen, device="cuda").to(torch.bfloat16)
+        r = torch.randn((rows, c_out, t), generator=gen, device="cuda").to(torch.bfloat16) if res else None
+        pad = (taps - 1) // 2 * d
+        with torch.no_grad():
+            out = conv_mod.dac_conv_cuda(x, conv, r).float()
+            ref = F.conv1d(x.float(), conv.weight.float(), conv.bias.float(), padding=pad, dilation=d)
+            size = F.conv1d(x.float().abs(), conv.weight.float().abs(), conv.bias.float().abs(), padding=pad,
+                            dilation=d)
+            if r is not None:
+                ref += r.float()
+                size += r.float().abs()
+            tol = 2.0**-8 * ref.abs() + 2.0**-16 * size
+            ratio = float(((out - ref).abs() / tol).max())
+            nearest = float((out != ref.to(torch.bfloat16).float()).float().mean())
+            edges = [float(((out - ref).abs() / tol)[..., cols].max())
+                     for cols in (slice(0, 256), slice((t - 1) // 256 * 256, t))]
+        del out, ref, size, tol
+        row = {"shape": [rows, c_in, c_out, t], "taps": taps, "dilation": d, "residual": res,
+               "max_err_over_tol": ratio, "first_last_tile_err_over_tol": edges, "share_not_nearest": nearest,
+               **dac_conv_bound(c_in, c_out, taps, t, res, rows)}
+        key = (c_in, c_out, taps, t, res, d if taps > 1 else 0)
+        if key not in timed:
+            parent = (lambda: r + conv(x)) if res else (lambda: conv(x))
+            x4, w4 = (v.unsqueeze(2).contiguous(memory_format=torch.channels_last) for v in (x, conv.weight))
+            r4 = None if r is None else r.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+
+            def channels_last():
+                y = F.conv2d(x4, w4, conv.bias, padding=(0, pad), dilation=(1, d))
+                return y if r4 is None else y + r4
+
+            saved = torch.backends.cudnn.benchmark
+            torch.backends.cudnn.benchmark = True
+            try:
+                with torch.no_grad():
+                    channels_last_ms = graph_ms(channels_last)
+            finally:
+                torch.backends.cudnn.benchmark = saved
+            with torch.no_grad():
+                timed[key] = {
+                    "ms": graph_ms(lambda: conv_mod.dac_conv_cuda(x, conv, r)),
+                    "plain_ms": graph_ms(lambda: conv_mod.dac_conv(x, conv.weight, conv.bias, d, r), calls=2,
+                                         replays=3),
+                    "library_ms": graph_ms(parent),
+                    "channels_last_ms": channels_last_ms,
+                    "library_kernels": device_kernels(parent)}
+            del x4, w4, r4
+        row.update(timed[key])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["faster_than_parent"] = row["ms"] < row["library_ms"]
+        emit({"phase": "dac_conv_time", **row})
+        if not ratio <= 1.0:
+            raise AssertionError(f"K7 is off by {ratio} of its tolerance at {row['shape']}, taps {taps}, dilation {d}")
+        for k in keys:
+            totals[k] += row[k]
+        rows_out.append(row)
+        del x, r, conv
+        torch.cuda.empty_cache()
+    audio_s = rows * frames / 86
+    summary = {f"{key}_per_audio_s": v / audio_s for key, v in totals.items()}
+    summary["share_of_bound"] = totals["bound_ms"] / totals["ms"]
+    summary["slower_than_parent"] = [r["shape"] + [r["taps"], r["dilation"]] for r in rows_out
+                                     if not r["faster_than_parent"]]
+
+    # one decode group of Mini's DAC, K7 and the parent's chain in its place: each device kernel's ms
+    dac_cfg = cfg_mod.DACConfig()
+    codec = dac_mod.DAC(dac_cfg)
+    codec.reset_parameters(torch.Generator().manual_seed(SEED))
+    codec = codec.to("cuda", torch.bfloat16).requires_grad_(False)
+    codes = torch.randint(0, dac_cfg.codebook_size, (rows, dac_cfg.num_codebooks, frames), device="cuda",
+                          generator=gen)
+    profiles = {}
+    with torch.no_grad():
+        profiles["k7"] = device_kernels(lambda: codec_mod.decode(codec, codes))
+        route = dac_mod.dac_conv_cuda
+        dac_mod.dac_conv_cuda = lambda x, module, residual=None: (module(x) if residual is None
+                                                                    else residual + module(x))
+        try:
+            profiles["parent"] = device_kernels(lambda: codec_mod.decode(codec, codes))
+        finally:
+            dac_mod.dac_conv_cuda = route
+    summary["decode_group_ms"] = {name: sum(ms for _, ms in kernels) for name, kernels in profiles.items()}
+    summary["decode_group_kernels"] = {name: kernels[:16] for name, kernels in profiles.items()}
+    del codec, codes
+    torch.cuda.empty_cache()
+    emit({"phase": "dac_conv_summary", "frames": frames, "rows": rows, "convs_per_decode": DAC_CONVS_PER_DECODE,
+          **summary})
+    return {"per_shape": rows_out, **summary}
+
+
 def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
     """Phase 4: tts at full Mini width.  Returns the kernel launches of the
     counted calls, the model and its pipeline (the later inference phases
@@ -946,6 +1108,7 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
         after = counts()
         launched = after["flash_attention_fwd"] - before["flash_attention_fwd"]
         snake_launched, decode_groups = after["snake"] - before["snake"], len(groups) - groups_before
+        conv_launched = after["dac_conv"] - before["dac_conv"]
         # a captured step's warm-up launches K5 as a replay does
         decode_steps = counter("decode.replays") + counter("decode.captures") - steps_before
         decode_launched = after["decode_attention"] - before["decode_attention"]
@@ -963,13 +1126,17 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
         if snake_launched != SNAKES_PER_DECODE * decode_groups or not decode_groups:
             raise AssertionError(f"tts call launched snake {snake_launched} times over {decode_groups} DAC decode "
                                  f"groups, want {SNAKES_PER_DECODE} a group")
+        if conv_launched != DAC_CONVS_PER_DECODE * decode_groups:
+            raise AssertionError(f"tts call launched dac_conv {conv_launched} times over {decode_groups} DAC decode "
+                                 f"groups, want {DAC_CONVS_PER_DECODE} a group")
         prompt_tokens = max(len(tok.encode(x)) for x in prompts)
         calls.append({"requests": len(wavs), "prompt_tokens": prompt_tokens,
                       "prefill_T": pipeline_mod._bucket(prompt_tokens) + 1, "pcm16": p.pcm16,
                       "samples": [int(w.size) for w in wavs], "sampling_rate": sr,
                       "wall_s": wall, "audio_s_per_wall_s": sum(w.size for w in wavs) / sr / wall,
                       "k1_launches": launched, "decode_steps": decode_steps, "k5_launches": decode_launched,
-                      "dac_decode_groups": decode_groups, "k6_launches": snake_launched})
+                      "dac_decode_groups": decode_groups, "k6_launches": snake_launched,
+                      "k7_launches": conv_launched})
         emit({"phase": "tts", **calls[-1]})
     del model.audio_encoder.decode  # the class's method again
     launches = counts()
@@ -1166,7 +1333,8 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
             del run["params"]
         tol = {k: TRAIN_GRAPH_SPREAD * v for k, v in spread.items()}
         want = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                "flash_attention_dqkv": 0, "decode_attention": 0, "snake": 0}
+                "flash_attention_dqkv": 0, "decode_attention": 0, "snake": 0,
+                "dac_conv": 0}
         if route == "flash_attention_dqkv":
             want["flash_attention_dqkv"] = layers
         else:
@@ -1415,7 +1583,8 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
     evals = [r for r in records if "eval/loss" in r]
     losses = [r["train/loss"] for r in train]
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                 "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0}
+                 "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0,
+                 "dac_conv": 0}
     # K1 also runs in each eval loss batch and each eval generation prefill (2 + 2 of them)
     want_first = {"flash_attention_fwd": layers * (4 + 2 + 2), "flash_attention_dqkv": layers * 4}
     ckpts = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
@@ -1637,7 +1806,8 @@ def run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod, data_m
     carried = all(open(os.path.join(final, f), "rb").read() == open(os.path.join(t5_dir, f), "rb").read()
                   for f in tokenizer_mod.FILES)
     want_cli = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                "flash_attention_dqkv": 2 * layers, "decode_attention": 0, "snake": 0}
+                "flash_attention_dqkv": 2 * layers, "decode_attention": 0, "snake": 0,
+                "dac_conv": 0}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3645,7 +3815,8 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, strea
     norm_bound = max(MP_SPREAD_FACTOR * norm_spread, MP_NORM_FLOOR)
     layers = cfg.decoder.num_hidden_layers
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                 "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0}
+                 "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0,
+                 "dac_conv": 0}
     runs = {"nccl": (1, "nccl", ["--per_device_train_batch_size", "2"], 2),
             "data2": (2, "gloo", ["--per_device_train_batch_size", "1"], 1),
             "model2": (2, "gloo", ["--per_device_train_batch_size", "2", "--model_parallel_size", "2"], 2)}
@@ -3748,6 +3919,7 @@ def main() -> int:
     from parler_tts_tpu_torch.models import dac as dac_mod
     from parler_tts_tpu_torch.models import parler
     from parler_tts_tpu_torch.ops import cuda_build
+    from parler_tts_tpu_torch.ops import dac_conv as dac_conv_mod
     from parler_tts_tpu_torch.ops import decode_attention as da
     from parler_tts_tpu_torch.ops import flash_attention as fa
     from parler_tts_tpu_torch.ops import moe as moe_mod
@@ -3767,16 +3939,17 @@ def main() -> int:
                             "cudnn": torch.backends.cudnn.allow_tf32}})
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_attention", "snake"])
+    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_attention", "snake", "dac_conv"])
     kernels_built = ptxas_report("\n".join(logs.values()))
     spills = {name: r for name, r in kernels_built.items()
-              if ("mma_kernel" in name or "decode_attn" in name or "snake_kernel" in name) and r["spill_bytes"]}
+              if ("mma_kernel" in name or "decode_attn" in name or "snake_kernel" in name or "dac_conv" in name)
+              and r["spill_bytes"]}
     # each tensor-core instance and each K5 instance (the mangled name holds the head dim) must be in the report
     missing = [f"{kernel}<{d}>" for kernel in MMA_KERNELS for d in (32, 64)
                if not any(f"{kernel}ILi{d}E" in name and r["registers"] for name, r in kernels_built.items())]
     missing += [f"{kernel}<{t}, {d}>" for kernel in DECODE_KERNELS for t in ("13__nv_bfloat16", "f") for d in (32, 64)
                 if not any(f"{kernel}I{t}Li{d}E" in name and r["registers"] for name, r in kernels_built.items())]
-    missing += [kernel for kernel in SNAKE_KERNELS
+    missing += [kernel for kernel in SNAKE_KERNELS + DAC_CONV_KERNELS
                 if not any(kernel in name and r["registers"] for name, r in kernels_built.items())]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "flags": " ".join(cuda_build.NVCC_FLAGS),
           "ptxas": kernels_built, "missing_from_ptxas": missing, "ok": not spills and not missing})
@@ -3788,6 +3961,7 @@ def main() -> int:
         bwd = check_backward(fa)
         k5 = check_decode_kernel(da)
         k6 = check_snake(dac_mod, snake_mod)
+        k7 = check_dac_conv(dac_mod, dac_conv_mod, codec_mod, cfg_mod)
         experts = check_experts(moe_mod)
         check_reference(cfg_mod, parler, generate_mod, streaming_mod)
         check_encodec_reference(cfg_mod, parler, generate_mod, codec_mod)
@@ -3926,6 +4100,25 @@ def main() -> int:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": "bytes", "shape": head["shape"],
         "per_shape": k6["per_shape"],
         "per_audio_s": {key: k6[key] for key in ("ms_per_audio_s", "plain_ms_per_audio_s", "bound_ms_per_audio_s",
+                                                 "share_of_bound")},
+    })
+    head = next(r for r in k7["per_shape"] if r["shape"][1] == 384 and r["taps"] == 7 and r["dilation"] == 1)
+    kernels.append({
+        "name": "dac_conv", "route": "cuda", "source": "parler_tts_tpu_torch/csrc/dac_conv.cu",
+        "replaces": "no TPU kernel: XLA's convolutions in parler_tts_tpu/models/dac.py",
+        # each path's own count, set to 0 just before it; checked: DAC_CONVS_PER_DECODE per DAC decode group in
+        # tts, none in a train step
+        "launches": sum(p["dac_conv"] for p in (tts_launches, train_launches, cli_launches, text_launches,
+                                                 mp_launches)),
+        "launches_by_path": {"tts": tts_launches["dac_conv"], "train": train_launches["dac_conv"],
+                             "train_cli": cli_launches["dac_conv"], "text": text_launches["dac_conv"],
+                             "multiprocess": mp_launches["dac_conv"]},
+        "max_err_over_tol": max(r["max_err_over_tol"] for r in k7["per_shape"]), "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "library_call": "nn.Conv1d (cuDNN) then the residual add",
+        "shape": head["shape"], "per_shape": k7["per_shape"],
+        "per_audio_s": {key: k7[key] for key in ("ms_per_audio_s", "plain_ms_per_audio_s", "library_ms_per_audio_s",
+                                                 "channels_last_ms_per_audio_s", "bound_ms_per_audio_s",
                                                  "share_of_bound")},
     })
     emit({"kernels": kernels, "grouped_experts": experts["per_shape"]})

@@ -11,7 +11,8 @@ byte budget, the least recently used dropped first, never one that is
 leased.
 
 The hand-written kernels (``KERNELS``: K1-K4 in ``ops/flash_attention.py``,
-K5 in ``ops/decode_attention.py``, K6 in ``ops/snake.py``) count each call
+K5 in ``ops/decode_attention.py``, K6 in ``ops/snake.py``, K7 in
+``ops/dac_conv.py``) count each call
 through ``count``: a launch, or, while a stream is captured, a launch of the
 capturing program, which each replay then adds (``Program.replayed``).  So
 ``launches()`` reads every launch, eager or replayed.  The plain versions
@@ -34,7 +35,7 @@ GRAPH_MEMORY_SHARE = 0.25
 
 #: the hand-written kernels, each with its launch counter
 KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "flash_attention_dqkv",
-           "decode_attention", "snake")
+           "decode_attention", "snake", "dac_conv")
 
 _launches = dict.fromkeys(KERNELS, 0)
 # the launches of the program being captured; a module global, not a

@@ -30,6 +30,7 @@ from torch import nn
 
 from parler_tts_tpu_torch.core.config import DACConfig
 from parler_tts_tpu_torch.ops.conv import fp32_convolutions
+from parler_tts_tpu_torch.ops.dac_conv import dac_conv_cuda
 from parler_tts_tpu_torch.ops.snake import snake_fast_cuda
 
 
@@ -84,22 +85,34 @@ class Snake(nn.Module):
         return snake_fast(x, self.alpha)
 
 
+def _conv(module: nn.Conv1d, x: torch.Tensor, *, fast: bool, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``residual + module(x)`` (``module(x)`` without a residual); the
+    decoder's (``fast``) bf16 CUDA activations take K7, which rounds the
+    sum once."""
+    if fast and x.dtype == torch.bfloat16 and x.is_cuda:
+        return dac_conv_cuda(x.contiguous(), module, residual)
+    y = module(x)
+    return y if residual is None else residual + y
+
+
 _DILATIONS = (1, 3, 9)
 
 
 class ResUnit(nn.Module):
     """Snake -> dilated conv7 -> Snake -> conv1, residual add; ``fast`` as
-    ``Snake``'s."""
+    ``Snake``'s, and the decoder's convolutions on the card by K7."""
 
     def __init__(self, dim: int, dilation: int, *, fast: bool):
         super().__init__()
+        self.fast = fast
         self.snake1 = Snake(dim, fast=fast)
         self.conv1 = nn.Conv1d(dim, dim, 7, dilation=dilation, padding=3 * dilation)
         self.snake2 = Snake(dim, fast=fast)
         self.conv2 = nn.Conv1d(dim, dim, 1)
 
     def forward(self, x):
-        return x + self.conv2(self.snake2(self.conv1(self.snake1(x))))
+        h = self.snake2(_conv(self.conv1, self.snake1(x), fast=self.fast))
+        return _conv(self.conv2, h, fast=self.fast, residual=x)
 
 
 class EncoderBlock(nn.Module):
@@ -168,7 +181,7 @@ class DACDecoder(nn.Module):
         self.conv_out = nn.Conv1d(d, 1, 7, padding=3)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.conv_in(z)
+        x = _conv(self.conv_in, z, fast=True)
         for block in self.blocks:
             x = block(x)
         x = self.conv_out(self.snake_out(x))

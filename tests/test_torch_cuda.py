@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (the flash-attention kernels K1-K4, the decode step's attention K5, the DAC
-decoder's Snake K6), the
+decoder's Snake K6 and its stride-1 convolutions K7), the
 decode loop, the stream and the prefill captured in CUDA graphs
 against the per-step eager loop and the eager prefill, the captured train
 and eval steps against the eager ones, and failed captures (they raise,
@@ -605,6 +605,154 @@ def test_a_bf16_dac_decode_equals_the_plain_chain_bit_for_bit(cuda, monkeypatch)
     assert wave.shape == ref.shape == (3, 43 * cfg.hop_length)
     assert torch.equal(wave, ref)
     assert _launched("snake") - before == 29
+
+
+# the DAC decoder's distinct stride-1 convolutions at 4 rows of 10 s: (C_in, C_out, taps, dilation, T,
+# residual); a decode group runs conv_in once, each level's k7 once at each dilation and its k1 three times
+DAC_CONV_CASES = [(1024, 1536, 7, 1, MINI_FRAMES, False)] + [
+    (c, c, k, d, per_frame * MINI_FRAMES, k == 1)
+    for c, per_frame in ((768, 8), (384, 64), (192, 256), (96, 512))
+    for k, d in ((7, 1), (7, 3), (7, 9), (1, 1))]
+
+
+def _dac_conv_case(b, c_in, c_out, taps, d, t, residual, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    conv = torch.nn.Conv1d(c_in, c_out, taps, dilation=d, padding=(taps - 1) // 2 * d).cuda()
+    with torch.no_grad():
+        conv.weight.normal_(0.0, (c_in * taps) ** -0.5, generator=gen)
+        conv.bias.normal_(0.0, 0.1, generator=gen)
+    conv = conv.to(torch.bfloat16).requires_grad_(False)
+    x = torch.randn((b, c_in, t), generator=gen, device="cuda").to(torch.bfloat16)
+    r = torch.randn((b, c_out, t), generator=gen, device="cuda").to(torch.bfloat16) if residual else None
+    return conv, x, r
+
+
+def _assert_within_one_rounding(out, conv, x, r):
+    """Every element within one bf16 rounding (2**-8 of its size) of the fp32
+    result, plus the fp32 sums' reordering (2**-16 of the sum of the terms'
+    sizes); the first and last 256-step tile of each row included."""
+    import torch.nn.functional as F
+
+    d, pad = conv.dilation[0], conv.padding[0]
+    with torch.no_grad():
+        ref = F.conv1d(x.float(), conv.weight.float(), conv.bias.float(), padding=pad, dilation=d)
+        size = F.conv1d(x.float().abs(), conv.weight.float().abs(), conv.bias.float().abs(), padding=pad, dilation=d)
+        if r is not None:
+            ref += r.float()
+            size += r.float().abs()
+        ratio = (out.float() - ref).abs() / (2.0**-8 * ref.abs() + 2.0**-16 * size)
+    t = x.shape[2]
+    worst = {"all": float(ratio.max()), "first_tile": float(ratio[..., :256].max()),
+             "last_tile": float(ratio[..., (t - 1) // 256 * 256:].max())}
+    assert all(v <= 1.0 for v in worst.values()), worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,taps,d,t,residual", DAC_CONV_CASES)
+def test_dac_conv_kernel_within_one_rounding_at_the_decoder_shapes(cuda, c_in, c_out, taps, d, t, residual):
+    from parler_tts_tpu_torch.ops import dac_conv as pconv
+
+    conv, x, r = _dac_conv_case(4, c_in, c_out, taps, d, t, residual, seed=c_in * 31 + taps * 7 + d)
+    before = _launched("dac_conv")
+    with torch.no_grad():
+        out = pconv.dac_conv_cuda(x, conv, r)
+    torch.cuda.synchronize()
+    assert _launched("dac_conv") == before + 1
+    assert out.shape == (4, c_out, t) and out.dtype == torch.bfloat16
+    _assert_within_one_rounding(out, conv, x, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c_in,c_out,taps,d,t,residual", [
+    (2, 64, 96, 7, 3, 37, True),  # T odd: element-by-element loads and stores
+    (3, 32, 64, 7, 9, 5, False),  # T shorter than the halo
+    (2, 32, 160, 7, 1, 300, True),  # T even, no multiple of 8; a 96-channel tile half outside C_out
+    (2, 64, 32, 1, 1, 513, True),  # 1 tap, T past two tiles and odd
+    (2, 64, 160, 1, 1, 302, True),  # 1 tap, T even, no multiple of 8; a tile half outside C_out
+    (1, 96, 96, 7, 56, 1000, False),  # the largest dilation the 7-tap window fits at 96 channels
+    (1, 32, 32, 7, 45, 700, True),  # a window of more 8-step blocks than the block has warps
+])
+def test_dac_conv_kernel_within_one_rounding_at_odd_shapes(cuda, b, c_in, c_out, taps, d, t, residual):
+    from parler_tts_tpu_torch.ops import dac_conv as pconv
+
+    conv, x, r = _dac_conv_case(b, c_in, c_out, taps, d, t, residual, seed=t)
+    with torch.no_grad():
+        _assert_within_one_rounding(pconv.dac_conv_cuda(x, conv, r), conv, x, r)
+        # and from tensors that do not start on a 16-byte boundary
+        shifted = torch.empty((b * c_in * t + 1,), dtype=torch.bfloat16, device="cuda")[1:].view(b, c_in, t)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16
+        _assert_within_one_rounding(pconv.dac_conv_cuda(shifted, conv, r), conv, x, r)
+
+
+@pytest.mark.cuda
+def test_dac_conv_kernel_refuses_what_it_does_not_take(cuda):
+    from parler_tts_tpu_torch.ops import dac_conv as pconv
+
+    conv, x, r = _dac_conv_case(2, 32, 32, 1, 1, 16, True, seed=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pconv.dac_conv_cuda(x, conv.cpu(), r)
+    conv = conv.cuda()
+    with pytest.raises(ValueError, match="residual"):
+        pconv.dac_conv_cuda(x, conv, r.cpu())
+    too_wide = torch.nn.Conv1d(32, 32, 7, dilation=73, padding=219).to("cuda", torch.bfloat16)
+    with pytest.raises(RuntimeError, match="dac_conv launch failed"):
+        pconv.dac_conv_cuda(x, too_wide.requires_grad_(False))
+    assert pconv.dac_conv_cuda(x[:0], conv).shape == (0, 32, 16)
+    # the relaid weight follows an in-place change of the module's weight
+    with torch.no_grad():
+        first = pconv.dac_conv_cuda(x, conv, r)
+        conv.weight.mul_(2.0)
+        _assert_within_one_rounding(pconv.dac_conv_cuda(x, conv, r), conv, x, r)
+        assert not torch.equal(first, pconv.dac_conv_cuda(x, conv, r))
+
+
+@pytest.mark.cuda
+def test_a_bf16_dac_decode_takes_k7_25_times_a_group_near_the_parent_chain(cuda, monkeypatch):
+    """Mini's DAC in bf16 from weights drawn as the benchmark draws them
+    (``perfbench/weights.py``: kernels and biases of std 0.02, Snake alphas
+    around 1, unit codebooks), one decode group: 25 K7 launches, and the
+    waveform's distance from an fp32 decode of the same weights no larger
+    than the parent's chain (``nn.Conv1d``, then the residual add) gives, or
+    than the benchmark's highest ``wave_rel_err`` reading (0.0211), and
+    within its limit (0.07) of the parent's waveform."""
+    from parler_tts_tpu_torch.core.config import DACConfig
+    from parler_tts_tpu_torch.models import codec as pcodec
+    from parler_tts_tpu_torch.models import dac as pdac
+
+    cfg = DACConfig()
+    model = pdac.DAC(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("alpha"):
+                p.copy_(1.0 + 0.2 * torch.randn(p.shape, generator=gen))
+            elif name.endswith("bias"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+            elif name == "quantizer.codebooks":
+                p.copy_(torch.randn(p.shape, generator=gen))
+    fp32 = model.to("cuda").requires_grad_(False)
+    codes = torch.randint(0, cfg.codebook_size, (3, cfg.num_codebooks, 43), generator=gen).cuda()
+    with torch.no_grad():
+        ref = pcodec.decode(fp32, codes)
+        model = fp32.to(torch.bfloat16)
+        before = _launched("dac_conv")
+        wave = pcodec.decode(model, codes)
+        torch.cuda.synchronize()
+        assert _launched("dac_conv") - before == 25
+        monkeypatch.setattr(pdac, "dac_conv_cuda", lambda x, module, residual=None: (
+            module(x) if residual is None else residual + module(x)))
+        parent = pcodec.decode(model, codes)
+    assert _launched("dac_conv") - before == 25
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    errs = {"k7": rel(wave, ref), "parent": rel(parent, ref), "k7_vs_parent": rel(wave, parent)}
+    print(errs)
+    assert wave.shape == ref.shape == (3, 43 * cfg.hop_length)
+    assert errs["k7"] <= max(errs["parent"], 0.0211) and errs["k7_vs_parent"] < 0.07, errs
 
 
 @pytest.mark.cuda
