@@ -35,7 +35,12 @@ Phases, in order; any failure exits non-zero before the result line:
    cuDNN chain with the kernels it ran, and cuDNN channels-last under
    ``cudnn.benchmark`` as a yardstick; ``dac_conv_summary``: per audio
    second over a decode group, and one decode group of Mini's DAC profiled
-   with K7 and with the parent's chain in its place);
+   with K7 and with the parent's chain in its place); the Nemotron-H cell's
+   K8, the Mamba-2 state update, against its plain version at the cell's
+   128 rows (``ssm_check``; ``ssm_step_time``: its ms and % of its bound,
+   the fp32 state read and written once), K5 at head dim 128 (groups 16
+   and 1) and K1 at head dim 128 at the cell's shapes (``k5_time`` and
+   ``k1_time`` lines with head dim 128);
 3. reference: a small config (``dummy_config``) at fp32 on the card (kernel
    path) and on the CPU (plain path): greedy generation (composite,
    decoder-only continuation, int8 KV cache and weights, and a stream whose
@@ -257,6 +262,10 @@ DAC_CONV_SHAPES = ((1024, 1536, 7, 1, 1, False),) + tuple(
     (c, c, k, d, per_frame, k == 1) for c, per_frame in ((768, 8), (384, 64), (192, 256), (96, 512))
     for d in (1, 3, 9) for k in (7, 1))
 DAC_CONVS_PER_DECODE = len(DAC_CONV_SHAPES)
+# the Nemotron-H cell's instances (mangled): K8 at a state of 128 in bf16, K1 at head dim 128, K5 at head
+# dim 128 with groups of 16 and of 1
+NEMOTRON_H_KERNELS = ("ssm_step_kernelI13__nv_bfloat16Li128EE", "flash_fwd_mma_kernelILi128E",
+                      "decode_attn_kernelI13__nv_bfloat16Li128ELi16E", "decode_attn_kernelI13__nv_bfloat16Li128ELi1E")
 H100_BF16_FLOPS = 989e12  # dense, SXM data sheet
 
 DESCRIPTIONS = [
@@ -474,15 +483,15 @@ def check_kernels(fa) -> dict:
     return {"max_abs_err": worst, "per_shape": per_shape}
 
 
-def decode_inputs(b: int, h: int, r: int, dtype, *, cross: bool, gen, group: int = 1) -> tuple:
-    """q (B, H * group, 1, 64) pre-scaled; k/v (H K/V heads) as the decode
-    step reads them: layer 1 of (2, B, H, r + 61, 64) self buffers over r
-    keys, or a contiguous (B, H, r, 64) cross layer; a bool mask (B, r) with
+def decode_inputs(b: int, h: int, r: int, dtype, *, cross: bool, gen, group: int = 1, d: int = 64) -> tuple:
+    """q (B, H * group, 1, d) pre-scaled; k/v (H K/V heads) as the decode
+    step reads them: layer 1 of (2, B, H, r + 61, d) self buffers over r
+    keys, or a contiguous (B, H, r, d) cross layer; a bool mask (B, r) with
     holes (left bucket padding, a short prompt's right padding, keys not yet
     decoded)."""
-    q = (torch.randn((b, h * group, 1, 64), generator=gen, device="cuda") * 0.125).to(dtype)
+    q = (torch.randn((b, h * group, 1, d), generator=gen, device="cuda") * d**-0.5).to(dtype)
     length = r if cross else r + 61
-    kbuf, vbuf = (torch.randn((2, b, h, length, 64), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    kbuf, vbuf = (torch.randn((2, b, h, length, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
     mask = torch.ones((b, r), dtype=torch.bool, device="cuda")
     mask[0, : r // 5] = False
     mask[:, r // 3 : r // 3 + 9] = False
@@ -603,6 +612,80 @@ def check_experts(moe) -> dict:
         rows.append(row)
         emit({"phase": "experts_time", **row})
     return {"per_shape": rows}
+
+
+def check_nemotron_h_kernels(ssm_mod, da, fa) -> dict:
+    """Phase 2: the Nemotron-H cell's new kernel and shapes.  K8 (the Mamba-2
+    state update) against its plain version at the cell's step: 128 rows of
+    64 heads x 64 over a state of 128 in 8 groups, x, B, C and dt read
+    through one projection row's strides (``ssm_check``: the state within
+    1e-5 + 1e-5 of itself, y within one bf16 rounding); its device time (``ssm_step_time``)
+    against the fp32 state read and written once plus its inputs and output
+    at 3.35 TB/s, and the plain version's.  K5 at head dim 128 at the cell's
+    shapes (``k5_time`` lines with ``head_dim`` 128): self attention at
+    group 16 over its first and last fused lengths (129, 822), cross
+    attention at group 1 over 64; K1 at head dim 128 over the prefill's 32
+    heads x 128 rows at 65 positions (a ``k1_time`` line)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    b, heads, p, n, groups = 128, 64, 64, 128, 8
+    inner = heads * p
+    state = torch.randn((b, heads, p, n), generator=gen, device="cuda")
+    row = torch.randn((b, 2 * inner + 2 * groups * n + heads), generator=gen, device="cuda").bfloat16()
+    x, bm = row[:, inner:2 * inner], row[:, 2 * inner:2 * inner + groups * n]
+    cm, dt = row[:, 2 * inner + groups * n:2 * inner + 2 * groups * n], row[:, 2 * inner + 2 * groups * n:]
+    dt_bias = (-2.0 - 4.0 * torch.rand(heads, generator=gen, device="cuda")).bfloat16()
+    a_log = torch.log(1.0 + 15.0 * torch.rand(heads, generator=gen, device="cuda")).bfloat16()
+    d = torch.ones(heads, device="cuda", dtype=torch.bfloat16)
+    want_state = state.clone()
+    want = ssm_mod.ssm_step_plain(want_state, x, bm, cm, dt, dt_bias, a_log, d)
+    y = ssm_mod.ssm_step(state, x, bm, cm, dt, dt_bias, a_log, d)
+    torch.cuda.synchronize()
+    # each element's error over its tolerance: the state 1e-5 + 1e-5 |want|, y 1e-4 + 2^-7 |want|
+    state_err = ((state - want_state).abs() / (1e-5 + 1e-5 * want_state.abs())).max().item()
+    y_err = ((y.float() - want.float()).abs() / (1e-4 + 2**-7 * want.float().abs())).max().item()
+    ok = state_err <= 1.0 and y_err <= 1.0
+    emit({"phase": "ssm_check", "shape": [b, heads, p, n], "groups": groups, "state_err_over_tol": state_err,
+          "y_err_over_tol": y_err, "ok": ok})
+    if not ok:
+        raise AssertionError("K8 disagrees with its plain version at the cell's step")
+    nbytes = 2 * state.numel() * 4 + b * (2 * inner + 2 * groups * n + heads) * 2
+    del want_state
+    k8 = {"shape": [b, heads, p, n], "ms": graph_ms(lambda: ssm_mod.ssm_step(state, x, bm, cm, dt, dt_bias, a_log, d)),
+          "plain_ms": graph_ms(lambda: ssm_mod.ssm_step_plain(state, x, bm, cm, dt, dt_bias, a_log, d), calls=2,
+                               replays=3),
+          "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S}
+    k8["share_of_bound"] = k8["bound_ms"] / k8["ms"]
+    emit({"phase": "ssm_step_time", **k8})
+    del state
+    torch.cuda.empty_cache()
+
+    rows = []
+    for kv_heads, group, r, cross in ((2, 16, 129, False), (2, 16, 822, False), (32, 1, 64, True)):
+        q, k, v, mask = decode_inputs(b, kv_heads, r, torch.bfloat16, cross=cross, gen=gen, group=group, d=128)
+        out = da.decode_attention(q, k, v, mask)
+        err = (out.float() - da.decode_attention_plain(q, k, v, mask).float()).abs().max().item()
+        if not err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"K5 at head dim 128 disagrees with its plain version ({err})")
+        row = {"kind": "Nemotron-H " + ("cross" if cross else "self") + " attention",
+               "shape": [b, kv_heads * group, r, 128], "head_dim": 128, "kv_heads": kv_heads, "group": group,
+               "max_abs_err": err, "ms": graph_ms(lambda: da.decode_attention(q, k, v, mask)),
+               "plain_ms": graph_ms(lambda: da.decode_attention_plain(q, k, v, mask)),
+               "bound_ms": 1e3 * 2 * int(mask.sum()) * kv_heads * 128 * 2 / H100_BYTES_PER_S}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        emit({"phase": "k5_time", **row})
+    t = 65
+    q, k, v = (torch.randn((b * 32, t, 128), generator=gen, device="cuda").bfloat16() for _ in range(3))
+    start = torch.zeros(b * 32, dtype=torch.int32, device="cuda")
+    end = torch.full((b * 32,), t, dtype=torch.int32, device="cuda")
+    kw = {"scale": 128**-0.5, "causal": True}
+    out, _ = fa.flash_attention_fwd(q, k, v, start, end, **kw)
+    err = (out.float() - fa.flash_attention_plain(q, k, v, start, end, **kw)[0].float()).abs().max().item()
+    if not err <= TOL[torch.bfloat16]:
+        raise AssertionError(f"K1 at head dim 128 disagrees with its plain version ({err})")
+    k1 = {"kind": "Nemotron-H prefill", **k1_row(fa, q, k, v, start, end, kw), "max_abs_err": err}
+    emit({"phase": "k1_time", **k1})
+    return {"ssm_step": k8, "k5": rows, "k1": k1}
 
 
 def tile_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1334,7 +1417,7 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
         tol = {k: TRAIN_GRAPH_SPREAD * v for k, v in spread.items()}
         want = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                 "flash_attention_dqkv": 0, "decode_attention": 0, "snake": 0,
-                "dac_conv": 0}
+                "dac_conv": 0, "ssm_step": 0}
         if route == "flash_attention_dqkv":
             want["flash_attention_dqkv"] = layers
         else:
@@ -1584,7 +1667,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
     losses = [r["train/loss"] for r in train]
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                  "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0,
-                 "dac_conv": 0}
+                 "dac_conv": 0, "ssm_step": 0}
     # K1 also runs in each eval loss batch and each eval generation prefill (2 + 2 of them)
     want_first = {"flash_attention_fwd": layers * (4 + 2 + 2), "flash_attention_dqkv": layers * 4}
     ckpts = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
@@ -1807,7 +1890,7 @@ def run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod, data_m
                   for f in tokenizer_mod.FILES)
     want_cli = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                 "flash_attention_dqkv": 2 * layers, "decode_attention": 0, "snake": 0,
-                "dac_conv": 0}
+                "dac_conv": 0, "ssm_step": 0}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3816,7 +3899,7 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, strea
     layers = cfg.decoder.num_hidden_layers
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                  "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0,
-                 "dac_conv": 0}
+                 "dac_conv": 0, "ssm_step": 0}
     runs = {"nccl": (1, "nccl", ["--per_device_train_batch_size", "2"], 2),
             "data2": (2, "gloo", ["--per_device_train_batch_size", "1"], 1),
             "model2": (2, "gloo", ["--per_device_train_batch_size", "2", "--model_parallel_size", "2"], 2)}
@@ -3924,6 +4007,7 @@ def main() -> int:
     from parler_tts_tpu_torch.ops import flash_attention as fa
     from parler_tts_tpu_torch.ops import moe as moe_mod
     from parler_tts_tpu_torch.ops import snake as snake_mod
+    from parler_tts_tpu_torch.ops import ssm as ssm_mod
     from parler_tts_tpu_torch.training import data as data_mod
     from parler_tts_tpu_torch.training import run_training as run_mod
     from parler_tts_tpu_torch.training import step as step_mod
@@ -3939,17 +4023,19 @@ def main() -> int:
                             "cudnn": torch.backends.cudnn.allow_tf32}})
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_attention", "snake", "dac_conv"])
+    logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_attention", "snake", "dac_conv",
+                             "ssm_step"])
     kernels_built = ptxas_report("\n".join(logs.values()))
     spills = {name: r for name, r in kernels_built.items()
-              if ("mma_kernel" in name or "decode_attn" in name or "snake_kernel" in name or "dac_conv" in name)
+              if ("mma_kernel" in name or "decode_attn" in name or "snake_kernel" in name or "dac_conv" in name
+                  or "ssm_step" in name)
               and r["spill_bytes"]}
     # each tensor-core instance and each K5 instance (the mangled name holds the head dim) must be in the report
     missing = [f"{kernel}<{d}>" for kernel in MMA_KERNELS for d in (32, 64)
                if not any(f"{kernel}ILi{d}E" in name and r["registers"] for name, r in kernels_built.items())]
     missing += [f"{kernel}<{t}, {d}>" for kernel in DECODE_KERNELS for t in ("13__nv_bfloat16", "f") for d in (32, 64)
                 if not any(f"{kernel}I{t}Li{d}E" in name and r["registers"] for name, r in kernels_built.items())]
-    missing += [kernel for kernel in SNAKE_KERNELS + DAC_CONV_KERNELS
+    missing += [kernel for kernel in SNAKE_KERNELS + DAC_CONV_KERNELS + NEMOTRON_H_KERNELS
                 if not any(kernel in name and r["registers"] for name, r in kernels_built.items())]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "flags": " ".join(cuda_build.NVCC_FLAGS),
           "ptxas": kernels_built, "missing_from_ptxas": missing, "ok": not spills and not missing})
@@ -3963,6 +4049,7 @@ def main() -> int:
         k6 = check_snake(dac_mod, snake_mod)
         k7 = check_dac_conv(dac_mod, dac_conv_mod, codec_mod, cfg_mod)
         experts = check_experts(moe_mod)
+        nemotron_h = check_nemotron_h_kernels(ssm_mod, da, fa)
         check_reference(cfg_mod, parler, generate_mod, streaming_mod)
         check_encodec_reference(cfg_mod, parler, generate_mod, codec_mod)
         check_train_reference(cfg_mod, parler, fa, step_mod, run_mod, data_mod, from_jax)
@@ -4121,7 +4208,7 @@ def main() -> int:
                                                  "channels_last_ms_per_audio_s", "bound_ms_per_audio_s",
                                                  "share_of_bound")},
     })
-    emit({"kernels": kernels, "grouped_experts": experts["per_shape"]})
+    emit({"kernels": kernels, "grouped_experts": experts["per_shape"], "nemotron_h": nemotron_h})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -186,13 +186,17 @@ class DecoderConfig:
     bos_token_id: int = 1025
     eos_token_id: int = 1024
     tie_word_embeddings: bool = False
-    # The block family: "musicgen" (the fields above) or "lfm2" (LFM2's
+    # The block family: "musicgen" (the fields above), "lfm2" (LFM2's
     # gated short convolutions and GQA attention with RoPE, in
     # ``layer_types`` order, a dense SwiGLU in the first ``num_dense_layers``
-    # and sigmoid-routed experts after them, RMSNorm; ``models/lfm2.py``).
-    # The fields below are LFM2's and leave a MusicGen decoder's JSON as it was.
+    # and sigmoid-routed experts after them, RMSNorm; ``models/lfm2.py``) or
+    # "nemotron_h" (Nemotron-H's Mamba-2, NoPE GQA and shared-expert MoE
+    # blocks, one mixer each; ``models/nemotron_h.py``).  The fields below
+    # are the two families' and leave a MusicGen decoder's JSON as it was.
     block_type: str = "musicgen"
-    layer_types: tuple[str, ...] | None = None  # "conv" or "full_attention" per layer
+    # LFM2: "conv" or "full_attention" per layer; Nemotron-H: "mamba", "moe"
+    # or "attention" per block
+    layer_types: tuple[str, ...] | None = None
     num_key_value_heads: int | None = None
     conv_L_cache: int = 3
     conv_bias: bool = False
@@ -206,16 +210,32 @@ class DecoderConfig:
     routed_scaling_factor: float = 1.0
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
+    # Nemotron-H's fields (absent from an LFM2 decoder's JSON too).  The
+    # experts' router spans ``num_experts``; a card holds ``experts_held``
+    # of them (0: all), from index ``first_expert`` on (expert parallelism).
+    attention_head_dim: int = 0  # 0: hidden_size // num_attention_heads
+    mamba_num_heads: int = 0
+    mamba_head_dim: int = 0
+    ssm_state_size: int = 0
+    mamba_n_groups: int = 1
+    conv_kernel: int = 4
+    use_conv_bias: bool = False
+    chunk_size: int = 128
+    mlp_hidden_act: str = "relu2"
+    moe_shared_expert_intermediate_size: int = 0
+    experts_held: int = 0
+    first_expert: int = 0
 
     def __post_init__(self):
-        if self.block_type not in ("musicgen", "lfm2"):
-            raise ValueError(f"block_type must be musicgen|lfm2, got {self.block_type!r}")
+        if self.block_type not in FAMILIES:
+            raise ValueError(f"block_type must be {'|'.join(FAMILIES)}, got {self.block_type!r}")
         if self.block_type == "musicgen":
             return
         types = tuple(self.layer_types or ())
         object.__setattr__(self, "layer_types", types)
-        if len(types) != self.num_hidden_layers or set(types) - {"conv", "full_attention"}:
-            raise ValueError(f"layer_types must give conv|full_attention for each of the {self.num_hidden_layers} "
+        kinds = FAMILIES[self.block_type]
+        if len(types) != self.num_hidden_layers or set(types) - set(kinds):
+            raise ValueError(f"layer_types must give {'|'.join(kinds)} for each of the {self.num_hidden_layers} "
                              f"layers, got {types}")
         kv = self.num_key_value_heads or self.num_attention_heads
         object.__setattr__(self, "num_key_value_heads", kv)
@@ -225,26 +245,55 @@ class DecoderConfig:
             raise NotImplementedError("LFM2 short convolutions with a bias")
         if self.num_experts and not 0 < self.num_experts_per_tok <= self.num_experts:
             raise ValueError(f"num_experts_per_tok {self.num_experts_per_tok} of {self.num_experts} experts")
+        if self.block_type == "nemotron_h":
+            self._check_nemotron_h()
+
+    def _check_nemotron_h(self) -> None:
+        if self.mlp_hidden_act != "relu2":
+            raise NotImplementedError(f"Nemotron-H experts with {self.mlp_hidden_act!r} (relu2 is built)")
+        if self.mamba_num_heads % self.mamba_n_groups:
+            raise ValueError(f"{self.mamba_num_heads} Mamba heads do not group over {self.mamba_n_groups} groups")
+        held = self.experts_held or self.num_experts
+        object.__setattr__(self, "experts_held", held)
+        if not (0 < held and 0 <= self.first_expert and self.first_expert + held <= self.num_experts):
+            raise ValueError(f"experts [{self.first_expert}, {self.first_expert + held}) are not among "
+                             f"{self.num_experts}")
 
     @property
     def head_dim(self) -> int:
+        if self.attention_head_dim:
+            return self.attention_head_dim
         if self.hidden_size % self.num_attention_heads:
             raise ValueError("hidden_size must be a multiple of num_attention_heads")
         return self.hidden_size // self.num_attention_heads
 
+    @property
+    def mamba_inner(self) -> int:
+        """Nemotron-H: the Mamba mixer's inner width, heads x head dim."""
+        return self.mamba_num_heads * self.mamba_head_dim
+
+    @property
+    def mamba_conv_dim(self) -> int:
+        """Nemotron-H: the convolution's channels, x then B and C of every group."""
+        return self.mamba_inner + 2 * self.mamba_n_groups * self.ssm_state_size
+
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
-        if self.block_type == "musicgen":
-            for name in LFM2_FIELDS:
-                del d[name]
+        dropped = {"musicgen": FAMILY_FIELDS, "lfm2": NEMOTRON_H_FIELDS}.get(self.block_type, ())
+        for name in dropped:
+            del d[name]
         return d
 
     from_dict = classmethod(_fromdict)
 
 
-#: the LFM2 family's fields of ``DecoderConfig``, absent from a MusicGen one's JSON
+#: each block family's kinds of layer (``layer_types``)
+FAMILIES = {"musicgen": (), "lfm2": ("conv", "full_attention"), "nemotron_h": ("mamba", "moe", "attention")}
 _DECODER_FIELDS = [f.name for f in dataclasses.fields(DecoderConfig)]
-LFM2_FIELDS = tuple(_DECODER_FIELDS[_DECODER_FIELDS.index("block_type"):])
+#: the block families' fields of ``DecoderConfig``, absent from a MusicGen one's JSON
+FAMILY_FIELDS = tuple(_DECODER_FIELDS[_DECODER_FIELDS.index("block_type"):])
+#: Nemotron-H's own fields, absent from an LFM2 one's JSON
+NEMOTRON_H_FIELDS = tuple(_DECODER_FIELDS[_DECODER_FIELDS.index("attention_head_dim"):])
 
 
 @dataclass(frozen=True)
@@ -443,5 +492,66 @@ def lfm2_8b_a1b_config() -> ParlerTTSConfig:
             routed_scaling_factor=1.0,
             rope_theta=1e6,
             norm_eps=1e-5,
+        ),
+    )
+
+
+#: Nemotron-3-Nano-30B-A3B's ``hybrid_override_pattern``: M Mamba-2, E MoE, * attention
+NEMOTRON_3_NANO_PATTERN = "MEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEMEM*EMEMEMEME"
+
+
+def nemotron_h_layer_types(pattern: str) -> tuple[str, ...]:
+    """A ``hybrid_override_pattern`` as ``layer_types``."""
+    return tuple({"M": "mamba", "E": "moe", "*": "attention"}[c] for c in pattern)
+
+
+def nemotron_3_nano_30b_a3b_config(experts_held: int = 16, first_expert: int = 0) -> ParlerTTSConfig:
+    """Nemotron-3-Nano-30B-A3B's decoder stack (52 blocks at 2688: 23
+    Mamba-2 mixers of 64 heads x 64 over a 128-wide state in 8 groups, 23
+    MoE layers routing each token to 6 of 128 relu2 experts of width 1856
+    plus a shared one of 3712, 6 NoPE GQA layers of 32 query and 2 K/V
+    heads of 128) as the codec decoder over EnCodec 24 kHz's first 8
+    codebooks, flan-t5-base as the text encoder and Nemotron's 131,072-entry
+    vocabulary as the prompt table.  One card's share of an 8-card
+    expert-parallel node: ``experts_held`` of the 128 experts from
+    ``first_expert`` on.  Parler's parts replace the text LM's embedding and
+    head, and each attention block gains a cross-attention sublayer
+    (``models/nemotron_h.py``)."""
+    return ParlerTTSConfig(
+        vocab_size=131072,
+        text_encoder=T5EncoderConfig(),
+        audio_encoder=EncodecConfig(num_codebooks=8),
+        decoder=DecoderConfig(
+            vocab_size=1088,
+            hidden_size=2688,
+            num_hidden_layers=52,
+            num_attention_heads=32,
+            num_codebooks=8,
+            max_position_embeddings=262144,
+            pad_token_id=1024,
+            eos_token_id=1024,
+            bos_token_id=1025,
+            block_type="nemotron_h",
+            layer_types=nemotron_h_layer_types(NEMOTRON_3_NANO_PATTERN),
+            num_key_value_heads=2,
+            num_experts=128,
+            num_experts_per_tok=6,
+            moe_intermediate_size=1856,
+            use_expert_bias=True,
+            norm_topk_prob=True,
+            routed_scaling_factor=2.5,
+            norm_eps=1e-5,
+            attention_head_dim=128,
+            mamba_num_heads=64,
+            mamba_head_dim=64,
+            ssm_state_size=128,
+            mamba_n_groups=8,
+            conv_kernel=4,
+            use_conv_bias=True,
+            chunk_size=128,
+            mlp_hidden_act="relu2",
+            moe_shared_expert_intermediate_size=3712,
+            experts_held=experts_held,
+            first_expert=first_expert,
         ),
     )

@@ -35,7 +35,7 @@ GRAPH_MEMORY_SHARE = 0.25
 
 #: the hand-written kernels, each with its launch counter
 KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "flash_attention_dqkv",
-           "decode_attention", "snake", "dac_conv")
+           "decode_attention", "snake", "dac_conv", "ssm_step")
 
 _launches = dict.fromkeys(KERNELS, 0)
 # the launches of the program being captured; a module global, not a

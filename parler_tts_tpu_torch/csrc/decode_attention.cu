@@ -19,7 +19,10 @@
 // memory.
 //
 // Grouped-query attention: K/V may hold kv_heads = H / G heads, query head h
-// reading K/V head h / G (G = 1 or 4, a template parameter); G = 1 is MHA.
+// reading K/V head h / G (G = 1, 4 or 16, a template parameter); G = 1 is MHA.
+// At G = 16 a thread keeps two keys' loads in flight instead of four (its 16
+// queries' registers), and at D = 128 its block asks for shared memory above
+// 48 KB (32 KB of warp sums beside its scores).
 //
 // decode_attn_kernel: one block of 128 threads per (b, K/V head) row and split
 // of its keys [k0, k0 + n), for the G query heads that share it: each K and V
@@ -127,6 +130,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   constexpr int kVec = 16 / sizeof(T);     // elements per 16-byte load
   constexpr int kLanes = D / kVec;         // threads per key row
   constexpr int kGroups = kThreads / kLanes;  // keys per load instruction of the block
+  constexpr int kKeys = G > 4 ? 2 : kUnroll;  // keys each thread has in flight
   static_assert(kLanes <= 32 && 32 % kLanes == 0, "a key row lies inside one warp");
   __shared__ float red[kWarps];
   __shared__ float wo[kWarps][G * D];
@@ -151,17 +155,17 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   __syncthreads();
 
   // pass 1: scores of the valid keys, -1e9 for the others; each K row read once for the group
-  for (int i0 = 0; i0 < n; i0 += kGroups * kUnroll) {
-    uint4 raw[kUnroll];
-    bool ok[kUnroll];
+  for (int i0 = 0; i0 < n; i0 += kGroups * kKeys) {
+    uint4 raw[kKeys];
+    bool ok[kKeys];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kKeys; ++u) {
       const int i = i0 + u * kGroups + g;
       ok[u] = i < n && valid[i];
       if (ok[u]) raw[u] = __ldcs(reinterpret_cast<const uint4*>(kp + i * st.k_r));
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kKeys; ++u) {
       float kf[kVec];
       if (ok[u]) to_float(raw[u], kf);
       const int i = i0 + u * kGroups + g;
@@ -207,11 +211,11 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   for (int j = 0; j < G; ++j)
 #pragma unroll
     for (int e = 0; e < kVec; ++e) acc[j][e] = 0.f;
-  for (int i0 = 0; i0 < n; i0 += kGroups * kUnroll) {
-    uint4 raw[kUnroll];
-    float p[kUnroll][G];
+  for (int i0 = 0; i0 < n; i0 += kGroups * kKeys) {
+    uint4 raw[kKeys];
+    float p[kKeys][G];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kKeys; ++u) {
       const int i = i0 + u * kGroups + g;
       bool any = false;
 #pragma unroll
@@ -223,7 +227,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       else raw[u] = make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kKeys; ++u) {
       float vf[kVec];
       to_float(raw[u], vf);
 #pragma unroll
@@ -278,6 +282,11 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
            void* part_ml, int bhk, int kv_heads, int r, int splits, int chunk, int mask_bytes,
            const Strides& st, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(G) * chunk * sizeof(float) + chunk;
+  if constexpr (G * D * kWarps * sizeof(float) > 16 * 1024) {  // its scores beside 32 KB of warp sums
+    constexpr int kMaxChunk = 4096 / G;
+    const cudaError_t err = sm90::allow_smem<decode_attn_kernel<T, D, G>>(G * kMaxChunk * sizeof(float) + kMaxChunk);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   decode_attn_kernel<T, D, G><<<dim3(bhk, splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const unsigned char*>(mask), static_cast<T*>(out), static_cast<float*>(part_o),
@@ -299,6 +308,7 @@ int launch_group(int group, const void* q, const void* k, const void* v, const v
   switch (group) {
     case 1: return PARLER_GROUP(1);
     case 4: return PARLER_GROUP(4);
+    case 16: return PARLER_GROUP(16);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PARLER_GROUP
@@ -308,7 +318,7 @@ int launch_group(int group, const void* q, const void* k, const void* v, const v
 
 // q (b, kv_heads * group, 1, d) and k/v (b, kv_heads, r, d) with unit stride
 // over d and the other strides (in elements) given, every row 16-byte
-// aligned; query head h reads K/V head h / group (group 1 or 4); mask (b, r)
+// aligned; query head h reads K/V head h / group (group 1, 4 or 16); mask (b, r)
 // of 1-, 2-, 4- or 8-byte elements (row stride m_b, unit stride over r); out
 // (b * kv_heads * group, d) contiguous; fp32 (is_bf16 = 0) or bf16 (is_bf16 =
 // 1).  The keys are cut into `splits` runs of `chunk` (the last may be
@@ -316,8 +326,8 @@ int launch_group(int group, const void* q, const void* k, const void* v, const v
 // splits, d) and part_ml (b * heads * splits, 2) are fp32 scratch.  Launches
 // on `stream` without synchronising and returns cudaGetLastError() (0 =
 // launched), cudaErrorMisalignedAddress for a misaligned tensor, or
-// cudaErrorInvalidValue for a head dim other than 32 or 64, another group or
-// a bad cut.
+// cudaErrorInvalidValue for a head dim other than 32, 64 or 128, another
+// group or a bad cut.
 extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* mask,
                                 void* out, void* part_o, void* part_ml, int b, int kv_heads,
                                 int group, int r, int d, int is_bf16, int splits, int chunk,
@@ -338,6 +348,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, con
                      mask_bytes, st, s)
   if (d == 64) return is_bf16 ? PARLER_LAUNCH(bf16, 64) : PARLER_LAUNCH(float, 64);
   if (d == 32) return is_bf16 ? PARLER_LAUNCH(bf16, 32) : PARLER_LAUNCH(float, 32);
+  if (d == 128) return is_bf16 ? PARLER_LAUNCH(bf16, 128) : PARLER_LAUNCH(float, 128);
 #undef PARLER_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -35,6 +35,9 @@
 // sum stays 0 (no valid key) writes out = 0 and the plain version's lse,
 // -1e9 + log(1e-30), which the backward kernels read.
 //
+// D = 128 (bf16; Nemotron-H's GQA prefill) is the same kernel with 85 KB of
+// shared memory a block, two blocks an SM.
+//
 // fp32 (flash_fwd_kernel): the first, CUDA-core design, which holds the
 // fp32 checks' 1e-4 that TF32 tensor cores would not: one block of 128
 // threads per (bh, 64-row query tile), two threads per query row each
@@ -57,8 +60,12 @@ constexpr int kChunk = 16;             // fp32: keys per online-softmax update
 constexpr int kThreads = 2 * kBlockQ;  // fp32: two threads per query row
 constexpr float kNegInf = -1e9f;       // finite mask value, as the TPU kernel
 constexpr float kLn2 = 0.6931471805599453f;
-// resident blocks per SM that __launch_bounds__ asks registers for (bf16)
+// resident blocks per SM that __launch_bounds__ asks registers for (bf16):
+// 3 up to D = 64; 2 at D = 128, whose accumulator and q fragments take
+// twice the registers and whose tiles take 85 KB of shared memory
 constexpr int kFwdBlocksPerSm = 3;
+template <int D>
+constexpr int fwd_blocks_per_sm() { return D > 64 ? 2 : kFwdBlocksPerSm; }
 
 // K1 in fp32: one (bh, 64-row query tile).
 template <int D>
@@ -223,7 +230,7 @@ __device__ __forceinline__ void fwd_tile(float (&o)[D / 8][4], float (&m)[2], fl
 // K1 in bf16: one (bh, 64-row query tile); warp w owns the rows
 // [q0 + 16w, q0 + 16w + 16).
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, kFwdBlocksPerSm)
+__global__ void __launch_bounds__(kMmaThreads, fwd_blocks_per_sm<D>())
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ kv_start,
                      const int* __restrict__ kv_end, bf16* __restrict__ out,
@@ -322,6 +329,9 @@ void launch(const void* q, const void* k, const void* v, const void* kv_start,
                    const void* kv_end, void* out, void* lse, int bh, int tq, int tk, float scale,
                    int causal, int q_offset, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>) {
+    if constexpr (fwd_mma_smem<D>() > 48 * 1024) {  // D = 128
+      if (allow_smem<flash_fwd_mma_kernel<D>>(fwd_mma_smem<D>()) != cudaSuccess) return;
+    }
     const dim3 grid(bh, (tq + kTile - 1) / kTile);
     flash_fwd_mma_kernel<D><<<grid, kMmaThreads, fwd_mma_smem<D>(), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -343,7 +353,7 @@ void launch(const void* q, const void* k, const void* v, const void* kv_start,
 // lse (bh, tq) fp32.  Launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 = launched), cudaErrorMisalignedAddress for a
 // misaligned bf16 tensor, or cudaErrorInvalidValue for a head dim other than
-// 32 or 64.
+// 32 or 64 (or 128 in bf16).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kv_start, const void* kv_end, void* out,
                                    void* lse, int bh, int tq, int tk, int d, int is_bf16,
@@ -360,6 +370,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   } else if (d == 32) {
     if (is_bf16) PARLER_LAUNCH(bf16, 32);
     else PARLER_LAUNCH(float, 32);
+  } else if (d == 128 && is_bf16) {  // bf16 only: the fp32 kernel's tiles exceed its static shared memory
+    PARLER_LAUNCH(bf16, 128);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -29,7 +29,11 @@ segment, as JAX's ``make_cond`` does.  A step reads the cache over its
 bucket's static length and keeps its new position, tokens, ``finished`` and
 logits only where ``(t < t_hi) & ~all(finished)`` holds on the device; a
 masked step's cache write lands at the position the next real step
-rewrites.  The host knows ``t`` at each segment's start (it advances by one
+rewrites.  A segment never runs past its bucket's ``t_hi``, so a step is
+masked only once every stream has finished: the states a step updates in
+place (the LFM2 and Nemotron-H conv states, Nemotron-H's SSM state) are
+never moved by a step whose position is not kept while a stream still
+reads them.  The host knows ``t`` at each segment's start (it advances by one
 per step until every stream has finished), so a bucket's last segment runs
 only its ``t_hi - t`` steps, which JAX's fixed-length scan runs masked.  The
 loop stops at a given position too (``_decode``'s ``end``, JAX
@@ -110,15 +114,19 @@ STAGE = 64
 # ``decode.states_dropped``, static states dropped to make room for a new one;
 # ``prefill.replays``, ``prefill.captures`` and ``prefill.capture_s``, the
 # same for prefill graphs (the warm-up, which is the capturing call's
-# prefill, included); ``decode.kv_bytes`` and ``decode.conv_state_bytes``,
-# the cache bytes the kept steps read (``KVCache.step_bytes``: self K/V over
-# the bucket, cross K/V; the LFM2 family's conv state); ``moe.assignments``,
-# ``moe.experts_touched`` and ``moe.dropped`` (always 0, and checked), a
-# call's routed (token, expert) pairs, experts given a token summed over MoE
-# calls, and pairs dropped, counted on the device from the prefill on and
-# read once after the loop (``ops/moe.py``).  Spans: ``generate.capture``
-# and ``generate.prefill`` (both with the state's ``kv_bytes`` and
-# ``conv_bytes``), ``generate.segment`` and ``generate.finalize``.
+# prefill, included); ``decode.kv_bytes``, ``decode.conv_state_bytes`` and
+# ``decode.ssm_state_bytes``, the cache bytes the kept steps move
+# (``KVCache.step_bytes``: self K/V over the bucket and cross K/V, read; the
+# LFM2 and Nemotron-H families' conv state, read; Nemotron-H's fp32 SSM
+# state, read and written); ``moe.assignments``, ``moe.experts_touched``,
+# ``moe.dropped`` (always 0, and checked) and, for a layer holding a share of
+# the experts, ``moe.pairs_elsewhere``: a call's routed (token, expert)
+# pairs, the held experts given a token summed over MoE calls, pairs
+# dropped, and pairs routed to experts held elsewhere, counted on the device
+# from the prefill on and read once after the loop (``ops/moe.py``).  Spans:
+# ``generate.capture`` and ``generate.prefill`` (both with the state's
+# ``kv_bytes``, ``conv_bytes`` and ``ssm_bytes``), ``generate.segment`` and
+# ``generate.finalize``.
 
 
 class GenerateOutput(NamedTuple):
@@ -415,6 +423,7 @@ def _count_steps(s: DecodeState, read_len: int, kept: int) -> None:
     read = s.cache.step_bytes(read_len)
     profiling.count("decode.kv_bytes", kept * read["kv"])
     profiling.count("decode.conv_state_bytes", kept * read["conv"])
+    profiling.count("decode.ssm_state_bytes", kept * read["ssm"])
 
 
 #: runs ``n`` steps of one bucket: (bucket's fused length, its t_hi, n)
@@ -721,10 +730,12 @@ def _count_experts(decoder) -> None:
     stats = getattr(decoder, "moe_stats", None)
     if stats is None:
         return
-    assignments, touched, dropped = stats.tolist()
+    assignments, touched, dropped, *elsewhere = stats.tolist()
     profiling.count("moe.assignments", assignments)
     profiling.count("moe.experts_touched", touched)
     profiling.count("moe.dropped", dropped)
+    if elsewhere:
+        profiling.count("moe.pairs_elsewhere", elsewhere[0])
     if dropped:
         raise RuntimeError(f"the experts dropped {dropped} routed (token, expert) pairs")
 

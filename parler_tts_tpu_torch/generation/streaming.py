@@ -89,6 +89,8 @@ def stream_generate(model: ParlerTTSModel, gen: GenerationConfig, *, input_ids, 
     holding a special id."""
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be at least 1, got {chunk_frames}")
+    if model.cfg.decoder.block_type == "nemotron_h":
+        raise NotImplementedError("stream_generate for the Nemotron-H block family")
     dev = model_device(model, device)
     if vocode:
         check_vocodable(model.cfg)

@@ -179,7 +179,10 @@ class KVCache:
     its position from the caller and leaves ``index`` alone.  The LFM2
     family (``models/lfm2.py``) keeps self K/V for its attention layers only,
     at its K/V heads, and ``conv`` ``(L_conv, B, conv_L_cache - 1, H)``: each
-    conv layer's last inputs."""
+    conv layer's last inputs.  The Nemotron-H family (``models/nemotron_h.py``)
+    keeps self and cross K/V for its attention blocks only, ``conv`` ``(L_mamba,
+    B, conv_kernel - 1, conv channels)`` and ``ssm`` ``(L_mamba, B, heads, head
+    dim, state size)`` in fp32: each Mamba layer's state."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
@@ -191,6 +194,7 @@ class KVCache:
     cross_v_scale: torch.Tensor | None = None
     index: int = 0
     conv: torch.Tensor | None = None
+    ssm: torch.Tensor | None = None
 
     @property
     def nbytes(self) -> int:
@@ -198,18 +202,20 @@ class KVCache:
         return sum(self.nbytes_by_kind().values())
 
     def nbytes_by_kind(self) -> dict[str, int]:
-        """Bytes the cache holds as K/V (self and cross, scales included)
-        and as convolution state."""
+        """Bytes the cache holds as K/V (self and cross, scales included),
+        as convolution state and as SSM state."""
         kv = _nbytes(self.self_k, self.self_v, self.cross_k, self.cross_v, self.self_k_scale, self.self_v_scale,
                      self.cross_k_scale, self.cross_v_scale)
-        return {"kv": kv, "conv": _nbytes(self.conv)}
+        return {"kv": kv, "conv": _nbytes(self.conv), "ssm": _nbytes(self.ssm)}
 
     def step_bytes(self, read_len: int) -> dict[str, int]:
-        """Bytes of state one decode step reads: the self K/V (scales
-        included) over ``[0, read_len)`` and the cross K/V; the conv state."""
+        """Bytes of state one decode step moves: the self K/V (scales
+        included) read over ``[0, read_len)`` and the cross K/V; the conv
+        state read; the SSM state read and written."""
         self_kv = _nbytes(self.self_k, self.self_v, self.self_k_scale, self.self_v_scale)
         cross = _nbytes(self.cross_k, self.cross_v, self.cross_k_scale, self.cross_v_scale)
-        return {"kv": cross + self_kv * read_len // self.self_k.shape[3], "conv": _nbytes(self.conv)}
+        return {"kv": cross + self_kv * read_len // self.self_k.shape[3], "conv": _nbytes(self.conv),
+                "ssm": 2 * _nbytes(self.ssm)}
 
 
 def _nbytes(*tensors: torch.Tensor | None) -> int:
@@ -228,6 +234,8 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *,
         raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
     if cfg.block_type == "lfm2":
         return _init_lfm2_cache(cfg, batch, max_len, enc_len, dtype=dtype, device=device, kv_dtype=kv_dtype)
+    if cfg.block_type == "nemotron_h":
+        return _init_nemotron_h_cache(cfg, batch, max_len, enc_len, dtype=dtype, device=device, kv_dtype=kv_dtype)
     l, h, d = cfg.num_hidden_layers, heads or cfg.num_attention_heads, cfg.head_dim
     quant = kv_dtype == "int8"
 
@@ -260,6 +268,28 @@ def _init_lfm2_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int,
     return KVCache(zeros(attn, batch, cfg.num_key_value_heads, max_len, d),
                    zeros(attn, batch, cfg.num_key_value_heads, max_len, d), cross(), cross(),
                    conv=zeros(cfg.num_hidden_layers - attn, batch, cfg.conv_L_cache - 1, cfg.hidden_size))
+
+
+def _init_nemotron_h_cache(cfg: DecoderConfig, batch: int, max_len: int, enc_len: int, *, dtype: torch.dtype,
+                           device: torch.device, kv_dtype: str | None) -> KVCache:
+    """The Nemotron-H family's cache: self K/V at the K/V heads and cross
+    K/V at the query heads of its attention blocks, each Mamba layer's conv
+    state in ``dtype`` and its SSM state in fp32."""
+    if kv_dtype is not None:
+        raise NotImplementedError("an int8 cache for the Nemotron-H block family")
+    attn, mamba, d = cfg.layer_types.count("attention"), cfg.layer_types.count("mamba"), cfg.head_dim
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def cross():
+        return zeros(attn, batch, cfg.num_attention_heads, enc_len, d) if enc_len else None
+
+    return KVCache(zeros(attn, batch, cfg.num_key_value_heads, max_len, d),
+                   zeros(attn, batch, cfg.num_key_value_heads, max_len, d), cross(), cross(),
+                   conv=zeros(mamba, batch, cfg.conv_kernel - 1, cfg.mamba_conv_dim),
+                   ssm=zeros(mamba, batch, cfg.mamba_num_heads, cfg.mamba_head_dim, cfg.ssm_state_size,
+                             dtype=torch.float32))
 
 
 def _put(buf: torch.Tensor, scales: torch.Tensor | None, layer: int, pos: slice | torch.Tensor,

@@ -215,6 +215,7 @@ class LFM2Decoder(nn.Module):
     reads it once a call."""
 
     model_group = None
+    family = "LFM2"  # as refusals name it
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()

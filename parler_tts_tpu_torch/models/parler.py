@@ -21,8 +21,13 @@ from parler_tts_tpu_torch.models import codec as codec_mod
 from parler_tts_tpu_torch.models.decoder import ParlerDecoder, TrainRandom, loss_fn
 from parler_tts_tpu_torch.models.delay_pattern import labels_to_decoder_inputs
 from parler_tts_tpu_torch.models.lfm2 import LFM2Decoder
+from parler_tts_tpu_torch.models.nemotron_h import NemotronHDecoder
 from parler_tts_tpu_torch.models.t5_encoder import T5Encoder
 from parler_tts_tpu_torch.ops.nn import Dense, Embedding
+
+
+#: the decoder of each block family (``DecoderConfig.block_type``)
+DECODERS = {"musicgen": ParlerDecoder, "lfm2": LFM2Decoder, "nemotron_h": NemotronHDecoder}
 
 
 def has_proj(cfg: ParlerTTSConfig) -> bool:
@@ -38,7 +43,7 @@ class ParlerTTSModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.text_encoder = T5Encoder(cfg.text_encoder)
-        self.decoder = LFM2Decoder(cfg.decoder) if cfg.decoder.block_type == "lfm2" else ParlerDecoder(cfg.decoder)
+        self.decoder = DECODERS[cfg.decoder.block_type](cfg.decoder)
         self.embed_prompts = Embedding(cfg.vocab_size, cfg.decoder.hidden_size)
         self.enc_to_dec_proj = (
             Dense(cfg.text_encoder.d_model, cfg.decoder.hidden_size, bias=True) if has_proj(cfg) else None
@@ -72,8 +77,8 @@ class ParlerTTSModel(nn.Module):
         rank's share of the global batch's (``models/decoder.loss_fn``).
         Returns (loss, logits (B, K, T, V))."""
         dcfg = self.cfg.decoder
-        if dcfg.block_type == "lfm2":
-            raise NotImplementedError("training the LFM2 block family")
+        if dcfg.block_type != "musicgen":
+            raise NotImplementedError(f"training the {self.decoder.family} block family")
         enc_hidden = self.encode_text(input_ids, attention_mask, dtype)
         prompt_hidden = self.embed_prompts(prompt_input_ids, dtype)
         decoder_input_ids = labels_to_decoder_inputs(labels, bos_token_id=dcfg.bos_token_id,

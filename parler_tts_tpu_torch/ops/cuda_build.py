@@ -3,7 +3,7 @@
 Each library is one source ``parler_tts_tpu_torch/csrc/<name>.cu`` whose
 kernels have a plain C interface (``flash_attention_fwd.cu`` holds K1,
 ``flash_attention_bwd.cu`` K2-K4, ``decode_attention.cu`` K5, ``snake.cu``
-K6, ``dac_conv.cu`` K7), plus the headers of ``csrc/`` it includes (``sm90_mma.cuh``, the tensor-core
+K6, ``dac_conv.cu`` K7, ``ssm_step.cu`` K8), plus the headers of ``csrc/`` it includes (``sm90_mma.cuh``, the tensor-core
 building blocks and helpers they share).  It
 is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
 and loaded with ``ctypes``.  Libraries live in
@@ -40,6 +40,8 @@ _LIBS: dict[tuple[str, Path], ctypes.CDLL] = {}
 #: the attention kernels' dtypes, by the code their C entry points take
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
+#: K1 in bf16 and K5 also take head dim 128 (Nemotron-H's attention)
+WIDE_HEAD_DIM = 128
 
 
 def _nvcc() -> str:

@@ -40,7 +40,7 @@ import functools
 import torch
 
 from parler_tts_tpu_torch.core import graphs
-from parler_tts_tpu_torch.ops.cuda_build import DTYPES, HEAD_DIMS, dispatch
+from parler_tts_tpu_torch.ops.cuda_build import DTYPES, HEAD_DIMS, WIDE_HEAD_DIM, dispatch
 from parler_tts_tpu_torch.ops.nn import NEG_INF
 
 #: the split route aims at this many blocks per SM
@@ -52,7 +52,7 @@ MIN_CHUNK = 64
 
 _MASK_BYTES = (1, 2, 4, 8)
 #: query heads per K/V head the kernel takes
-GROUPS = (1, 4)
+GROUPS = (1, 4, 16)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,8 +105,8 @@ def _check(q, k, v, kv_mask) -> None:
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode attention kernel takes fp32 or bf16 q/k/v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode attention kernel takes head dim {HEAD_DIMS}, got {d}")
+    if d not in HEAD_DIMS + (WIDE_HEAD_DIM,):
+        raise ValueError(f"decode attention kernel takes head dim {HEAD_DIMS + (WIDE_HEAD_DIM,)}, got {d}")
     if (k.dim() != 4 or k.shape[0] != b or k.shape[1] == 0 or h % k.shape[1] or h // k.shape[1] not in GROUPS
             or k.shape[3] != d or v.shape != k.shape or k.shape[2] == 0):
         raise ValueError(f"k/v must be (B, H_kv, R > 0, D) matching q {tuple(q.shape)}, H / H_kv in {GROUPS}, "

@@ -9,7 +9,8 @@ kernel's plain PyTorch version with materialised scores.  There is no other
 path: a CUDA tensor the kernel does not take (dtype, head dim, layout)
 raises.
 
-* K1 ``flash_attention_fwd``: ``out`` and ``lse``;
+* K1 ``flash_attention_fwd``: ``out`` and ``lse`` (head dims 32 and 64,
+  and 128 in bf16);
 * K2 ``flash_attention_dq``: ``dq``, query-major;
 * K3 ``flash_attention_dkv``: ``dk`` and ``dv``, key-major;
 * K4 ``flash_attention_dqkv``: all three in one pass.
@@ -52,7 +53,7 @@ import os
 import torch
 
 from parler_tts_tpu_torch.core import graphs
-from parler_tts_tpu_torch.ops.cuda_build import DTYPES, HEAD_DIMS, dispatch
+from parler_tts_tpu_torch.ops.cuda_build import DTYPES, HEAD_DIMS, WIDE_HEAD_DIM, dispatch
 from parler_tts_tpu_torch.ops.nn import NEG_INF
 
 FUSED_MAX_LEN = 1024  # the JAX package's default tile: one tile pair -> fused backward
@@ -181,8 +182,9 @@ def _check(name, q, k, v, kv_start, kv_end, *rows):
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} kernel takes fp32 or bf16 q/k/v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head dim {HEAD_DIMS}, got {d}")
+    dims = HEAD_DIMS + ((WIDE_HEAD_DIM,) if name == "flash_attention_fwd" and q.dtype == torch.bfloat16 else ())
+    if d not in dims:
+        raise ValueError(f"{name} kernel takes head dim {dims} in {q.dtype}, got {d}")
     if k.shape != (bh, tk, d) or v.shape != k.shape:
         raise ValueError(f"k/v must be (BH, Tk, D) matching q {tuple(q.shape)}, "
                          f"got {tuple(k.shape)}, {tuple(v.shape)}")

@@ -193,8 +193,8 @@ def shard_params(model: nn.Module, mesh: Mesh, specs: Specs | None = None) -> nn
     ``ModelGroup`` (with one model rank there is nothing to do).  Raises
     when a split dimension, or a head count, does not divide by ``model``.
     Returns ``model``."""
-    if mesh.model_group is not None and model.cfg.decoder.block_type == "lfm2":
-        raise NotImplementedError("tensor parallelism for the LFM2 block family")
+    if mesh.model_group is not None and model.cfg.decoder.block_type != "musicgen":
+        raise NotImplementedError(f"tensor parallelism for the {model.decoder.family} block family")
     specs = composite_param_specs(model) if specs is None else specs
     _check_covers(specs, model)
     _heads_divide(model, mesh.model)

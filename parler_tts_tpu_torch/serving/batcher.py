@@ -102,6 +102,9 @@ class BatchingEngine:
                  length_bucket_seconds: tuple[float, ...] = (5.0, 10.0, 30.0),
                  fill_wait_ms: float = 150.0, fill_threshold: float = 0.6):
         model = getattr(pipeline, "model", None)
+        if getattr(getattr(model, "cfg", None), "decoder", None) is not None \
+                and model.cfg.decoder.block_type == "nemotron_h":
+            raise NotImplementedError("the batching server for the Nemotron-H block family")
         self.group = getattr(getattr(model, "decoder", None), "model_group", None)
         self.pipeline = pipeline
         self.max_batch = max_batch

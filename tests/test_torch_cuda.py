@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (the flash-attention kernels K1-K4, the decode step's attention K5, the DAC
-decoder's Snake K6 and its stride-1 convolutions K7), the
+decoder's Snake K6 and its stride-1 convolutions K7, the Mamba-2 state
+update K8), the
 decode loop, the stream and the prefill captured in CUDA graphs
 against the per-step eager loop and the eager prefill, the captured train
 and eval steps against the eager ones, and failed captures (they raise,
@@ -61,6 +62,8 @@ def cuda():
     ((3, 16, 903, 64), 20, True, torch.float32),
     ((1, 16, 2623, 64), 12, True, torch.bfloat16),  # the 1 x 30 s training shape
     ((2, 3, 333, 32), 9, True, torch.bfloat16),  # D = 32, T not a multiple of 64
+    ((4, 32, 65, 128), 10, True, torch.bfloat16),  # D = 128: the Nemotron-H cell's prefill, K/V repeated to 32 heads
+    ((2, 4, 300, 128), 20, True, torch.bfloat16),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, shape, pad, causal, dtype):
     """Tolerances on ``out``: fp32 1e-4 (sums in another order), bf16 2e-2
@@ -1331,3 +1334,146 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         pgen.generate_tokens(model, gen, max_length=40, **_decode_inputs(2))
     _draw_from_every_generator()
+
+
+# --- the Nemotron-H family: K8, and K1 and K5 at head dim 128 ----------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,p,n,groups,dtype", [
+    (128, 64, 64, 128, 8, torch.bfloat16),  # the cell's step: 128 rows of Nemotron-3-Nano's heads
+    (3, 4, 8, 64, 2, torch.bfloat16),
+    (3, 4, 12, 128, 1, torch.float32),  # rows a warp takes not a multiple of its 4 in flight
+])
+def test_ssm_step_kernel_matches_plain_version(cuda, b, heads, p, n, groups, dtype):
+    """K8 against its plain version, x, B, C and dt read through the row
+    strides of one projection row: the fp32 state updated in place within
+    1e-5 (sums in another order), y within one output rounding (bf16: 2^-7
+    relative; fp32 1e-5), one launch counted."""
+    from parler_tts_tpu_torch.ops import ssm
+
+    g = torch.Generator(device="cuda").manual_seed(b)
+    state = torch.randn((b, heads, p, n), generator=g, device="cuda")
+    inner, bc = heads * p, groups * n
+    row = torch.randn((b, 2 * inner + 2 * bc + heads + 5), generator=g, device="cuda").to(dtype)
+    x, bm, cm = row[:, inner:2 * inner], row[:, 2 * inner:2 * inner + bc], row[:, 2 * inner + bc:2 * inner + 2 * bc]
+    dt = row[:, 2 * inner + 2 * bc:2 * inner + 2 * bc + heads]
+    dt_bias = (-2.0 - 4.0 * torch.rand(heads, generator=g, device="cuda")).to(dtype)
+    a_log = torch.log(1.0 + 15.0 * torch.rand(heads, generator=g, device="cuda")).to(dtype)
+    d = torch.randn(heads, generator=g, device="cuda").to(dtype)
+    want_state = state.clone()
+    want = ssm.ssm_step_plain(want_state, x, bm, cm, dt, dt_bias, a_log, d)
+    before, ptr = _launched("ssm_step"), state.data_ptr()
+    y = ssm.ssm_step(state, x, bm, cm, dt, dt_bias, a_log, d)
+    torch.cuda.synchronize()
+    assert _launched("ssm_step") == before + 1 and state.data_ptr() == ptr
+    torch.testing.assert_close(state, want_state, atol=1e-5, rtol=1e-5)
+    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), want.float(), atol=1e-4, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_k1_takes_head_dim_128_in_bf16_only(cuda):
+    q = torch.zeros((2, 8, 128), device="cuda")
+    bounds = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        pfa.flash_attention_fwd(q, q, q, bounds, bounds)
+    with pytest.raises(ValueError, match="head dim"):  # the backward kernels stop at 64
+        pfa.flash_attention_dq(*(q.bfloat16(),) * 4, q[..., :1].contiguous(), q[..., :1].contiguous(), bounds,
+                               bounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kv_heads,group,r,max_len", [
+    (128, 2, 16, 129, None),  # the Nemotron-H cell's self attention: 2 K/V heads of 16 queries, first bucket
+    (128, 2, 16, 822, None),  # its fused length at the last step
+    (128, 32, 1, 64, 64),  # its cross attention (MHA, group 1)
+    (1, 2, 16, 934, None),  # the split route at group 16
+    (3, 2, 16, 333, None),
+    (3, 2, 4, 333, None),
+])
+def test_decode_attention_at_head_dim_128_matches_plain_version(cuda, b, kv_heads, group, r, max_len):
+    """K5 at head dim 128 (groups 1, 4 and 16) against its plain version,
+    bf16."""
+    from parler_tts_tpu_torch.ops import decode_attention as pda
+
+    _, k, v, mask = _decode_attention_inputs(b, kv_heads, r, 128, torch.bfloat16, max_len=max_len)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = (torch.randn((b, kv_heads * group, 1, 128), generator=g, device="cuda") / 11.3).to(torch.bfloat16)
+    out = pda.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    _assert_decode_close(out, pda.decode_attention_plain(q, k, v, mask), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_a_captured_nemotron_h_call_launches_k8_once_a_mamba_layer(cuda):
+    """A replayed ``tts`` call of a small bf16 Nemotron-H decoder (head dim
+    128, K5 at group 4, a state of 64, a share of the experts) runs every
+    Mamba layer's step through K8 and every attention block's self and cross
+    attention through K5: their launches grow by 3 and 2 per replayed step,
+    counted through the step graphs' replays; its waveforms are finite."""
+    from parler_tts_tpu_torch.core import config as pcfg
+    from parler_tts_tpu_torch.models import parler as pparler
+    from parler_tts_tpu_torch.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.utils.toy_tokenizer import ToyTokenizer
+
+    base = pcfg.dummy_config(4)
+    dec = pcfg.DecoderConfig(vocab_size=1088, hidden_size=256, num_hidden_layers=7, num_attention_heads=8,
+                             num_codebooks=4, max_position_embeddings=1024, block_type="nemotron_h",
+                             layer_types=pcfg.nemotron_h_layer_types("MEM*EME"), num_key_value_heads=2,
+                             num_experts=8, num_experts_per_tok=2, moe_intermediate_size=64, use_expert_bias=True,
+                             routed_scaling_factor=2.5, attention_head_dim=128, mamba_num_heads=4,
+                             mamba_head_dim=16, ssm_state_size=64, mamba_n_groups=2, use_conv_bias=True,
+                             chunk_size=16, moe_shared_expert_intermediate_size=96, experts_held=4, first_expert=2)
+    cfg = pcfg.ParlerTTSConfig(vocab_size=512, text_encoder=base.text_encoder,
+                               audio_encoder=pcfg.EncodecConfig(num_codebooks=4), decoder=dec)
+    model = pparler.init(0, cfg, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():  # no special id but EOS: every row runs its second
+        model.decoder.lm_heads.kernel[..., cfg.audio_encoder.codebook_size + 1:] = 0
+    tok = ToyTokenizer(cfg.vocab_size)
+    pipe = ParlerTTSPipeline(model, cfg, pcfg.GenerationConfig(do_sample=True, top_k=50), tok, tok,
+                             dtype=torch.bfloat16, device="cuda")
+    words = "a calm voice reads the news slowly in a quiet room".split()
+    texts = ([" ".join(words[: 3 + i % 8]) for i in range(6)], [" ".join(words[: 1 + i % 10]) for i in range(6)])
+    pipe.tts(*texts, seed=1, max_seconds=1.0)  # captures
+    launches, replays = _launched("ssm_step", "decode_attention"), counter("decode.replays")
+    _, audio = pipe.tts(*texts, seed=2, max_seconds=1.0)
+    steps = counter("decode.replays") - replays
+    k8, k5 = (now - then for now, then in zip(_launched("ssm_step", "decode_attention"), launches))
+    assert steps > 0 and (k8, k5) == (3 * steps, 2 * steps)
+    assert all(np.isfinite(a).all() for a in audio)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [128, 128 * 65])
+def test_a_grouped_expert_share_matches_the_loop_at_the_cell_shapes(cuda, tokens):
+    """The Nemotron-H cell's expert share on the card: 16 of 128 relu2
+    experts of 2688 -> 1856 -> 2688 held (experts 32-47), 6 a token, at its
+    decode step's 128 tokens and its prefill's 128 x 65.  The pairs held
+    elsewhere sort past the grouped products' last offset, whose rows they
+    leave unwritten and the sum never reads: each token's output within 1e-2
+    of the loop's (relative), the same counts, the pairs held elsewhere
+    counted as such and none dropped."""
+    from parler_tts_tpu_torch.ops import moe
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    e, held, first, h, f, k = 128, 16, 32, 2688, 1856, 6
+
+    def draw(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+
+    up, down, router, bias = draw(held, h, f), draw(held, f, h), draw(h, e), draw(e)
+    x = torch.randn((tokens, h), generator=g, device="cuda").to(torch.bfloat16)
+    weights, experts = moe.route(x, router, bias, k, scaling=2.5, fp32_logits=True, eps=1e-20)
+    stats = [torch.zeros(4, dtype=torch.int64, device="cuda") for _ in range(2)]
+    got = moe.experts_grouped(x, up, down, weights, experts, stats[0], act=moe.relu2, first=first)
+    ref = moe.experts_plain(x, up, down, weights, experts, stats[1], act=moe.relu2, first=first)
+    mine = ((experts >= first) & (experts < first + held)).any(-1)
+    assert bool(mine.any()) and not bool(mine.all())
+    assert got[~mine].abs().max().item() == 0.0  # a token with no held expert gets nothing
+    rel = ((got[mine].float() - ref[mine].float()).norm(dim=-1) / ref[mine].float().norm(dim=-1)).max().item()
+    assert rel <= 1e-2
+    pairs, touched, dropped, elsewhere = stats[0].tolist()
+    held_pairs = int(((experts >= first) & (experts < first + held)).sum())
+    assert stats[0].tolist() == stats[1].tolist() and (pairs, dropped, elsewhere) == (tokens * k, 0,
+                                                                                      tokens * k - held_pairs)

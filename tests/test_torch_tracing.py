@@ -86,7 +86,8 @@ def test_a_tts_call_is_one_span_tree(pipe):
     assert audio_s == pytest.approx(3 * frames * pipe.cfg.audio_encoder.hop_length / sr)  # before the trim
     assert 0 < sum(w.shape[0] for w in waves) / sr <= audio_s
     prefill, = [s for s in spans if s["name"] == "generate.prefill"]
-    assert prefill["attrs"] == {"route": "eager", "kv_bytes": prefill["attrs"]["kv_bytes"], "conv_bytes": 0}
+    assert prefill["attrs"] == {"route": "eager", "kv_bytes": prefill["attrs"]["kv_bytes"], "conv_bytes": 0,
+                                "ssm_bytes": 0}
     assert prefill["attrs"]["kv_bytes"] > 0
     for s in spans:  # children end inside their parents; no device events on the CPU
         parent = next((p for p in spans if p["id"] == s["parent"]), None)
