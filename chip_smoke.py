@@ -19,8 +19,8 @@ Phases, in order; any failure exits non-zero before the result line:
    backward's two routes (K4, and K2 + K3 forced by
    ``PARLER_FLASH_NO_FUSED_BWD=1``) against each other in fp32 and bf16;
    the build fails unless ``ptxas`` reports each bf16 tensor-core K1, K2,
-   K3 and K4 and each K5 kernel at head dims 32 and 64, K6's two instances
-   and K7's four, with no spills;
+   K3 and K4 and each K5 kernel at head dims 32 and 64, K6's two instances,
+   K7's four and K9's instances at the cells' widths, with no spills;
    device times (CUDA-graph replay) of each kernel, its plain version and the
    one PyTorch call computing the same function (timed as a yardstick only,
    never called by the port); the LFM2 cell's grouped experts against the
@@ -40,7 +40,12 @@ Phases, in order; any failure exits non-zero before the result line:
    128 rows (``ssm_check``; ``ssm_step_time``: its ms and % of its bound,
    the fp32 state read and written once), K5 at head dim 128 (groups 16
    and 1) and K1 at head dim 128 at the cell's shapes (``k5_time`` and
-   ``k1_time`` lines with head dim 128);
+   ``k1_time`` lines with head dim 128); K9, the LayerNorm and RMSNorm,
+   against the plain chains at each shape the cells send (``norm_time``
+   lines: at least 99.9 % of the elements equal and the rest within one
+   bf16 ulp, its ms and the plain chain's with its kernels, against x read
+   and y written once; ``norm_summary``: each family's decode step's norms
+   both ways);
 3. reference: a small config (``dummy_config``) at fp32 on the card (kernel
    path) and on the CPU (plain path): greedy generation (composite,
    decoder-only continuation, int8 KV cache and weights, and a stream whose
@@ -57,8 +62,9 @@ Phases, in order; any failure exits non-zero before the result line:
    whose prompt buckets give prefill lengths 17, 65 and 257; each call must
    launch K1 once per decoder layer, K5 twice per layer per decode step
    (replayed or captured), K6 29 times and K7 25 times per DAC decode group
-   (the train paths none).  Then one more call with each phase synchronised and
-   timed, and a short call under torch.profiler for the device's busy
+   (the train paths none), and K9 73 times per decode step and 98 per
+   prefill (T5's 25, the decoder's 73; a train step T5's 25 alone).  Then
+   one more call with each phase synchronised and timed, and a short call under torch.profiler for the device's busy
    time.  On the same model, each path with the counts set
    to 0 just before it and read just after, K1 once per layer per prefill
    and held against its plain version on each prefill's own tensors (a
@@ -262,6 +268,17 @@ DAC_CONV_SHAPES = ((1024, 1536, 7, 1, 1, False),) + tuple(
     (c, c, k, d, per_frame, k == 1) for c, per_frame in ((768, 8), (384, 64), (192, 256), (96, 512))
     for d in (1, 3, 9) for k in (7, 1))
 DAC_CONVS_PER_DECODE = len(DAC_CONV_SHAPES)
+# K9's instances at the cells' widths (mangled: lanes a row, chunks of 8 a lane, LayerNorm, bf16 weights):
+# 1024 LayerNorm (Parler), 768 / 2048 / 2688 / 64 RMSNorm (T5, LFM2, Nemotron-H, LFM2's q and k)
+NORM_KERNELS = ("norm_kernelILi32ELi4ELb1E13__nv_bfloat16E", "norm_kernelILi32ELi3ELb0E13__nv_bfloat16E",
+                "norm_kernelILi128ELi2ELb0E13__nv_bfloat16E", "norm_kernelILi128ELi3ELb0E13__nv_bfloat16E",
+                "norm_kernelILi8ELi1ELb0E13__nv_bfloat16E")
+# the norms the cells send K9, by site: (kind, rows, width) at 96 / 192 / 128 rows, T5 at 64 description tokens
+NORM_SHAPES = {"parler": ("layer", 96, 1024), "lfm2": ("rms", 192, 2048), "lfm2_q": ("rms", 192 * 32, 64),
+               "lfm2_k": ("rms", 192 * 8, 64), "nemotron_h": ("rms", 128, 2688), "t5": ("rms", 96 * 64, 768)}
+# each family's norms per decode step by site, and T5's per prefill
+NORM_SITES = {"parler": {"parler": 73}, "lfm2": {"lfm2": 73, "lfm2_q": 6, "lfm2_k": 6},
+              "nemotron_h": {"nemotron_h": 59}, "t5_prefill": {"t5": 25}}
 # the Nemotron-H cell's instances (mangled): K8 at a state of 128 in bf16, K1 at head dim 128, K5 at head
 # dim 128 with groups of 16 and of 1
 NEMOTRON_H_KERNELS = ("ssm_step_kernelI13__nv_bfloat16Li128EE", "flash_fwd_mma_kernelILi128E",
@@ -1017,6 +1034,78 @@ def check_snake(dac_mod, snake_mod, frames: int = 862, rows: int = 4) -> dict:
     return {"per_shape": rows_out, **summary}
 
 
+def norm_agreement(got, want, x, scale, bias, eps: float) -> dict:
+    """K9's output against the plain chain's: the share of elements equal,
+    the largest distance in bf16 ulps (the bit patterns as integers in
+    their order), and the elements farther than one ulp of ``want`` (2^-8
+    of its binade) or, for a LayerNorm, than 2^-16 of the terms it sums,
+    (|x| + |mean|) · rstd · |scale| + |bias| in float64 (where they nearly
+    cancel, the two chains' fp32 statistics move the small result by more
+    than one ulp of it)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    ulps = (ordered(got) - ordered(want)).abs()
+    err = (got.double() - want.double()).abs()
+    allowed = torch.ldexp(torch.ones_like(err), torch.frexp(want.double())[1] - 8)
+    if bias is not None:
+        x64 = x.double()
+        mean, var = x64.mean(-1, keepdim=True), x64.var(-1, unbiased=False, keepdim=True)
+        terms = (x64.abs() + mean.abs()) * torch.rsqrt(var + eps) * scale.double().abs() + bias.double().abs()
+        allowed = torch.maximum(allowed, 2.0**-16 * terms)
+    return {"equal_share": float((ulps == 0).float().mean()), "max_ulps": int(ulps.max()),
+            "over_tolerance": int((err > allowed).sum())}
+
+
+def check_norm(norm_mod) -> dict:
+    """Phase 2: K9 against the plain chains (``layer_norm_plain``,
+    ``rms_norm_plain``) at each shape the cells send (``NORM_SHAPES``),
+    weights in bf16 as in the cells: at least 99.9 % of the elements equal
+    and the rest within one bf16 ulp (``norm_agreement``); device times
+    (CUDA-graph replay) of K9 and of the plain chain, whose kernels are
+    profiled, against x read and y written once at 3.35 TB/s, and of the
+    one PyTorch call computing the same function (``F.layer_norm`` / ``F.rms_norm`` on the bf16 tensors, a
+    yardstick the port never calls).  The summary weighs the shapes by each
+    family's norms a decode step (``NORM_SITES``; T5's per prefill)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows_out = {}
+    for site, (kind, rows, width) in NORM_SHAPES.items():
+        x = (torch.randn((rows, width), generator=gen, device="cuda") * 3
+             + torch.randn((rows, 1), generator=gen, device="cuda")).to(torch.bfloat16)
+        scale = (1 + 0.2 * torch.randn(width, generator=gen, device="cuda")).to(torch.bfloat16)
+        if kind == "layer":
+            bias = (0.1 * torch.randn(width, generator=gen, device="cuda")).to(torch.bfloat16)
+            plain = lambda: norm_mod.layer_norm_plain(x, scale, bias, 1e-5)  # noqa: E731
+            k9 = lambda: norm_mod.norm_cuda(x, scale, bias, 1e-5)  # noqa: E731
+            library = lambda: torch.nn.functional.layer_norm(x, (width,), scale, bias, 1e-5)  # noqa: E731
+        else:
+            bias = None
+            plain = lambda: norm_mod.rms_norm_plain(x, scale, 1e-6)  # noqa: E731
+            k9 = lambda: norm_mod.norm_cuda(x, scale, None, 1e-6)  # noqa: E731
+            library = lambda: torch.nn.functional.rms_norm(x, (width,), scale, 1e-6)  # noqa: E731
+        kernels = device_kernels(plain)
+        row = {"site": site, "kind": kind, "shape": [rows, width],
+               **norm_agreement(k9(), plain(), x, scale, bias, 1e-5 if kind == "layer" else 1e-6),
+               "ms": graph_ms(k9), "plain_ms": graph_ms(plain), "library_ms": graph_ms(library),
+               "plain_launches": sum(n for _, _, n in kernels), "plain_kernels": kernels,
+               "bound_ms": 1e3 * (2 * x.numel() + width * (2 if bias is not None else 1)) * 2 / H100_BYTES_PER_S}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit({"phase": "norm_time", **row})
+        if row["equal_share"] < 0.999 or row["over_tolerance"]:
+            raise AssertionError(f"the norm kernel is off the plain chain at {site} {row['shape']}: "
+                                 f"{row['equal_share']} equal, {row['over_tolerance']} over its tolerance")
+        rows_out[site] = row
+    summaries = {}
+    for family, sites in NORM_SITES.items():
+        summaries[family] = {"norms": sum(sites.values()),
+                             "plain_launches": sum(n * rows_out[s]["plain_launches"] for s, n in sites.items()),
+                             **{key: sum(n * rows_out[s][key] for s, n in sites.items())
+                                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+        emit({"phase": "norm_summary", "family": family,
+              "per": "prefill" if family == "t5_prefill" else "decode step", **summaries[family]})
+    return {"per_shape": list(rows_out.values()), "per_step": summaries}
+
+
 def dac_conv_bound(c_in: int, c_out: int, taps: int, t: int, residual: bool, rows: int) -> dict:
     """Operations and bytes of one decoder convolution (inputs read once,
     the output written once) and the least time the card could take."""
@@ -1029,7 +1118,7 @@ def dac_conv_bound(c_in: int, c_out: int, taps: int, t: int, residual: bool, row
 
 def device_kernels(fn) -> list:
     """The CUDA kernels of one ``fn()`` under torch.profiler, after a warm-up
-    call: [name, device ms], longest first."""
+    call: [name, device ms, launches], longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1038,11 +1127,12 @@ def device_kernels(fn) -> list:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = collections.Counter()
+    by_name, calls = collections.Counter(), collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    return [[name, ms] for name, ms in by_name.most_common()]
+            calls[e.name] += 1
+    return [[name, ms, calls[name]] for name, ms in by_name.most_common()]
 
 
 def check_dac_conv(dac_mod, conv_mod, codec_mod, cfg_mod, frames: int = 862, rows: int = 4) -> dict:
@@ -1151,7 +1241,7 @@ def check_dac_conv(dac_mod, conv_mod, codec_mod, cfg_mod, frames: int = 862, row
             profiles["parent"] = device_kernels(lambda: codec_mod.decode(codec, codes))
         finally:
             dac_mod.dac_conv_cuda = route
-    summary["decode_group_ms"] = {name: sum(ms for _, ms in kernels) for name, kernels in profiles.items()}
+    summary["decode_group_ms"] = {name: sum(ms for _, ms, _ in kernels) for name, kernels in profiles.items()}
     summary["decode_group_kernels"] = {name: kernels[:16] for name, kernels in profiles.items()}
     del codec, codes
     torch.cuda.empty_cache()
@@ -1174,6 +1264,7 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
     max_seconds = 2.5
     layers = cfg.decoder.num_hidden_layers
     hop = cfg.audio_encoder.hop_length
+    text_norms, step_norms = 2 * cfg.text_encoder.num_layers + 1, 3 * layers + 1  # T5's RMSNorms; LayerNorms
 
     calls = []
     reset_counts()
@@ -1192,6 +1283,7 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
         launched = after["flash_attention_fwd"] - before["flash_attention_fwd"]
         snake_launched, decode_groups = after["snake"] - before["snake"], len(groups) - groups_before
         conv_launched = after["dac_conv"] - before["dac_conv"]
+        norm_launched = after["norm"] - before["norm"]
         # a captured step's warm-up launches K5 as a replay does
         decode_steps = counter("decode.replays") + counter("decode.captures") - steps_before
         decode_launched = after["decode_attention"] - before["decode_attention"]
@@ -1212,6 +1304,9 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
         if conv_launched != DAC_CONVS_PER_DECODE * decode_groups:
             raise AssertionError(f"tts call launched dac_conv {conv_launched} times over {decode_groups} DAC decode "
                                  f"groups, want {DAC_CONVS_PER_DECODE} a group")
+        if norm_launched != step_norms * decode_steps + text_norms + step_norms:
+            raise AssertionError(f"tts call launched norm {norm_launched} times over {decode_steps} steps, want "
+                                 f"{step_norms} a step and {text_norms + step_norms} for the prefill")
         prompt_tokens = max(len(tok.encode(x)) for x in prompts)
         calls.append({"requests": len(wavs), "prompt_tokens": prompt_tokens,
                       "prefill_T": pipeline_mod._bucket(prompt_tokens) + 1, "pcm16": p.pcm16,
@@ -1219,7 +1314,7 @@ def run_main_path(cfg_mod, parler, fa, pipeline_mod, tokenizer_mod, card: str):
                       "wall_s": wall, "audio_s_per_wall_s": sum(w.size for w in wavs) / sr / wall,
                       "k1_launches": launched, "decode_steps": decode_steps, "k5_launches": decode_launched,
                       "dac_decode_groups": decode_groups, "k6_launches": snake_launched,
-                      "k7_launches": conv_launched})
+                      "k7_launches": conv_launched, "k9_launches": norm_launched})
         emit({"phase": "tts", **calls[-1]})
     del model.audio_encoder.decode  # the class's method again
     launches = counts()
@@ -1397,6 +1492,7 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
     whole phase."""
     cfg = cfg_mod.mini_600m_config()
     layers = cfg.decoder.num_hidden_layers
+    text_norms = 2 * cfg.text_encoder.num_layers + 1  # T5 runs without autograd: its RMSNorms take K9
     base = parler.init(SEED, cfg, device="cuda")  # fp32 parameters
     n_params = sum(p.numel() for p in step_mod.trainable_parameters(base))
     reset_counts()
@@ -1417,7 +1513,7 @@ def run_train_path(cfg_mod, parler, fa, step_mod, data_mod, card: str) -> dict:
         tol = {k: TRAIN_GRAPH_SPREAD * v for k, v in spread.items()}
         want = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                 "flash_attention_dqkv": 0, "decode_attention": 0, "snake": 0,
-                "dac_conv": 0, "ssm_step": 0}
+                "dac_conv": 0, "ssm_step": 0, "norm": text_norms}
         if route == "flash_attention_dqkv":
             want["flash_attention_dqkv"] = layers
         else:
@@ -1616,6 +1712,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
             "--max_eval_samples", "3", "--generation_max_length", "100", "--warmup_steps", "1",
             "--output_dir", out_dir]
     layers = cfg_mod.mini_600m_config().decoder.num_hidden_layers
+    text_norms = 2 * cfg_mod.mini_600m_config().text_encoder.num_layers + 1  # T5's RMSNorms, on K9
     per_step, routes, restored, loaded = [], [], [], {}
     make_train_step, load_train_state = step_mod.make_train_step, ck.load_train_state
     spy = KernelSpy(fa, ("flash_attention_fwd", "flash_attention_dqkv"), place="eval")
@@ -1667,7 +1764,7 @@ def run_train_cli(cfg_mod, run_mod, ck, step_mod, fa, out_dir: str, card: str) -
     losses = [r["train/loss"] for r in train]
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                  "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0,
-                 "dac_conv": 0, "ssm_step": 0}
+                 "dac_conv": 0, "ssm_step": 0, "norm": text_norms}
     # K1 also runs in each eval loss batch and each eval generation prefill (2 + 2 of them)
     want_first = {"flash_attention_fwd": layers * (4 + 2 + 2), "flash_attention_dqkv": layers * 4}
     ckpts = [os.path.basename(p) for p in ck.sorted_checkpoints(out_dir)]
@@ -1877,6 +1974,7 @@ def run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod, data_m
 
     # ----- training from the prepared file -----
     layers = cfg.decoder.num_hidden_layers
+    text_norms = 2 * cfg.text_encoder.num_layers + 1  # T5's RMSNorms, on K9
     spy = KernelSpy(fa, ("flash_attention_fwd", "flash_attention_dqkv"), place="text train step")
     reset_counts()
     with spy:
@@ -1890,7 +1988,7 @@ def run_text(cfg_mod, run_mod, fa, pipeline_mod, generate_mod, codec_mod, data_m
                   for f in tokenizer_mod.FILES)
     want_cli = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                 "flash_attention_dqkv": 2 * layers, "decode_attention": 0, "snake": 0,
-                "dac_conv": 0, "ssm_step": 0}
+                "dac_conv": 0, "ssm_step": 0, "norm": 2 * text_norms}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3897,9 +3995,10 @@ def run_multiprocess(cfg_mod, parler, ck, run_mod, step_mod, generate_mod, strea
     bound = max(MP_SPREAD_FACTOR * spread, MP_GAP_FLOOR)
     norm_bound = max(MP_SPREAD_FACTOR * norm_spread, MP_NORM_FLOOR)
     layers = cfg.decoder.num_hidden_layers
+    text_norms = 2 * cfg.text_encoder.num_layers + 1  # T5's RMSNorms, on K9 on every rank
     want_step = {"flash_attention_fwd": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                  "flash_attention_dqkv": layers, "decode_attention": 0, "snake": 0,
-                 "dac_conv": 0, "ssm_step": 0}
+                 "dac_conv": 0, "ssm_step": 0, "norm": text_norms}
     runs = {"nccl": (1, "nccl", ["--per_device_train_batch_size", "2"], 2),
             "data2": (2, "gloo", ["--per_device_train_batch_size", "1"], 1),
             "model2": (2, "gloo", ["--per_device_train_batch_size", "2", "--model_parallel_size", "2"], 2)}
@@ -4006,6 +4105,7 @@ def main() -> int:
     from parler_tts_tpu_torch.ops import decode_attention as da
     from parler_tts_tpu_torch.ops import flash_attention as fa
     from parler_tts_tpu_torch.ops import moe as moe_mod
+    from parler_tts_tpu_torch.ops import norm as norm_mod
     from parler_tts_tpu_torch.ops import snake as snake_mod
     from parler_tts_tpu_torch.ops import ssm as ssm_mod
     from parler_tts_tpu_torch.training import data as data_mod
@@ -4024,18 +4124,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = cuda_build.build(["flash_attention_fwd", "flash_attention_bwd", "decode_attention", "snake", "dac_conv",
-                             "ssm_step"])
+                             "ssm_step", "norm"])
     kernels_built = ptxas_report("\n".join(logs.values()))
     spills = {name: r for name, r in kernels_built.items()
               if ("mma_kernel" in name or "decode_attn" in name or "snake_kernel" in name or "dac_conv" in name
-                  or "ssm_step" in name)
+                  or "ssm_step" in name or "norm_kernel" in name)
               and r["spill_bytes"]}
     # each tensor-core instance and each K5 instance (the mangled name holds the head dim) must be in the report
     missing = [f"{kernel}<{d}>" for kernel in MMA_KERNELS for d in (32, 64)
                if not any(f"{kernel}ILi{d}E" in name and r["registers"] for name, r in kernels_built.items())]
     missing += [f"{kernel}<{t}, {d}>" for kernel in DECODE_KERNELS for t in ("13__nv_bfloat16", "f") for d in (32, 64)
                 if not any(f"{kernel}I{t}Li{d}E" in name and r["registers"] for name, r in kernels_built.items())]
-    missing += [kernel for kernel in SNAKE_KERNELS + DAC_CONV_KERNELS + NEMOTRON_H_KERNELS
+    missing += [kernel for kernel in SNAKE_KERNELS + DAC_CONV_KERNELS + NEMOTRON_H_KERNELS + NORM_KERNELS
                 if not any(kernel in name and r["registers"] for name, r in kernels_built.items())]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "flags": " ".join(cuda_build.NVCC_FLAGS),
           "ptxas": kernels_built, "missing_from_ptxas": missing, "ok": not spills and not missing})
@@ -4048,6 +4148,7 @@ def main() -> int:
         k5 = check_decode_kernel(da)
         k6 = check_snake(dac_mod, snake_mod)
         k7 = check_dac_conv(dac_mod, dac_conv_mod, codec_mod, cfg_mod)
+        k9 = check_norm(norm_mod)
         experts = check_experts(moe_mod)
         nemotron_h = check_nemotron_h_kernels(ssm_mod, da, fa)
         check_reference(cfg_mod, parler, generate_mod, streaming_mod)
@@ -4207,6 +4308,23 @@ def main() -> int:
         "per_audio_s": {key: k7[key] for key in ("ms_per_audio_s", "plain_ms_per_audio_s", "library_ms_per_audio_s",
                                                  "channels_last_ms_per_audio_s", "bound_ms_per_audio_s",
                                                  "share_of_bound")},
+    })
+    head = k9["per_shape"][0]
+    kernels.append({
+        "name": "norm", "route": "cuda", "source": "parler_tts_tpu_torch/csrc/norm.cu",
+        "replaces": "no TPU kernel: XLA's fusion of parler_tts_tpu/ops/nn.py layer_norm / rms_norm",
+        # each path's own count, set to 0 just before it; checked: 73 per decode step and 98 per prefill in tts,
+        # T5's 25 per train step
+        "launches": sum(p["norm"] for p in (tts_launches, train_launches, cli_launches, text_launches,
+                                             mp_launches)),
+        "launches_by_path": {"tts": tts_launches["norm"], "train": train_launches["norm"],
+                             "train_cli": cli_launches["norm"], "text": text_launches["norm"],
+                             "multiprocess": mp_launches["norm"]},
+        "max_ulps": max(r["max_ulps"] for r in k9["per_shape"]),
+        "min_equal_share": min(r["equal_share"] for r in k9["per_shape"]), "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": "bytes",
+        "library_ms": head["library_ms"], "library_call": "F.layer_norm on the bf16 tensors", "shape": head["shape"],
+        "per_shape": k9["per_shape"], "per_step": k9["per_step"],
     })
     emit({"kernels": kernels, "grouped_experts": experts["per_shape"], "nemotron_h": nemotron_h})
     print(card, flush=True)

@@ -12,8 +12,8 @@ leased.
 
 The hand-written kernels (``KERNELS``: K1-K4 in ``ops/flash_attention.py``,
 K5 in ``ops/decode_attention.py``, K6 in ``ops/snake.py``, K7 in
-``ops/dac_conv.py``) count each call
-through ``count``: a launch, or, while a stream is captured, a launch of the
+``ops/dac_conv.py``, K8 in ``ops/ssm.py``, K9 in ``ops/norm.py``) count each
+call through ``count``: a launch, or, while a stream is captured, a launch of the
 capturing program, which each replay then adds (``Program.replayed``).  So
 ``launches()`` reads every launch, eager or replayed.  The plain versions
 and the CPU path count nothing."""
@@ -35,7 +35,7 @@ GRAPH_MEMORY_SHARE = 0.25
 
 #: the hand-written kernels, each with its launch counter
 KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "flash_attention_dqkv",
-           "decode_attention", "snake", "dac_conv", "ssm_step")
+           "decode_attention", "snake", "dac_conv", "ssm_step", "norm")
 
 _launches = dict.fromkeys(KERNELS, 0)
 # the launches of the program being captured; a module global, not a

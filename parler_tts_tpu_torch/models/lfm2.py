@@ -101,9 +101,11 @@ class GQAttention(nn.Module):
 
     def project(self, h: torch.Tensor, positions: torch.Tensor):
         """(B, T, H) -> pre-scaled q (B, heads, T, D), k and v (B, kv_heads,
-        T, D): q and k normed per head and rotated."""
-        q = rope(self.q_norm(split_heads(self.q(h), self.heads)), positions, self.theta)
-        k = rope(self.k_norm(split_heads(self.k(h), self.kv_heads)), positions, self.theta)
+        T, D): q and k normed per head (on the projection's contiguous
+        (B, T, heads, D) rows, before the heads move in front of T) and
+        rotated."""
+        q = rope(self.q_norm(self.q(h).unflatten(-1, (self.heads, -1))).transpose(1, 2), positions, self.theta)
+        k = rope(self.k_norm(self.k(h).unflatten(-1, (self.kv_heads, -1))).transpose(1, 2), positions, self.theta)
         return q * self.scale, k, split_heads(self.v(h), self.kv_heads)
 
 

@@ -3,7 +3,8 @@
 Each library is one source ``parler_tts_tpu_torch/csrc/<name>.cu`` whose
 kernels have a plain C interface (``flash_attention_fwd.cu`` holds K1,
 ``flash_attention_bwd.cu`` K2-K4, ``decode_attention.cu`` K5, ``snake.cu``
-K6, ``dac_conv.cu`` K7, ``ssm_step.cu`` K8), plus the headers of ``csrc/`` it includes (``sm90_mma.cuh``, the tensor-core
+K6, ``dac_conv.cu`` K7, ``ssm_step.cu`` K8, ``norm.cu`` K9), plus the
+headers of ``csrc/`` it includes (``sm90_mma.cuh``, the tensor-core
 building blocks and helpers they share).  It
 is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
 and loaded with ``ctypes``.  Libraries live in

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from parler_tts_tpu_torch.ops import norm
 from parler_tts_tpu_torch.ops.quantization import quantize_dense
 
 NEG_INF = -1e9  # finite additive mask: a fully masked row is uniform, not NaN
@@ -54,16 +55,20 @@ def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = Non
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
                eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with fp32 statistics, result in ``x.dtype``."""
-    y = F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(), eps)
-    return y.to(x.dtype)
+    """LayerNorm with fp32 statistics, result in ``x.dtype``: K9 where it
+    takes x (``ops/norm.takes``: bf16 on the card, no autograd), else the
+    plain chain."""
+    if norm.takes(x, scale, bias):
+        return norm.norm_cuda(x, scale, bias, eps)
+    return norm.layer_norm_plain(x, scale, bias, eps)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    """T5 RMSNorm (no mean subtraction, no bias), fp32 statistics."""
-    x32 = x.float()
-    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
-    return (y * scale.float()).to(x.dtype)
+    """T5 RMSNorm (no mean subtraction, no bias), fp32 statistics: K9
+    where it takes x, as ``layer_norm``."""
+    if norm.takes(x, scale):
+        return norm.norm_cuda(x, scale, None, eps)
+    return norm.rms_norm_plain(x, scale, eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,8 @@ ADMITTED = {
 # chip_smoke.py, the card-only tests, the reference converter and the port's
 # examples run on a machine without JAX, transformers or safetensors
 SOURCES = sorted((REPO / "parler_tts_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py", REPO / "tests" / "torch_multiprocess_worker.py",
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py", REPO / "tests" / "test_torch_norm.py",
+    REPO / "tests" / "torch_multiprocess_worker.py",
     REPO / "helpers" / "convert_reference_checkpoint_torch.py", REPO / "helpers" / "gradio_demo" / "app_torch.py",
 ] + [path for folder in ("examples", "helpers/model_init_scripts", "helpers/push_to_hub_scripts")
      for path in sorted((REPO / folder).glob("*_torch.py"))]

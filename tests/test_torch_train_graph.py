@@ -366,7 +366,7 @@ def test_replays_add_the_launches_their_graphs_hold(monkeypatch, replays):
     assert pgraphs.launches() == before
     assert program.launches == {"flash_attention_fwd": 1, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                                 "flash_attention_dqkv": 0, "decode_attention": 2, "snake": 0,
-                                "dac_conv": 0, "ssm_step": 0}
+                                "dac_conv": 0, "ssm_step": 0, "norm": 0}
     fn()  # an eager call launches
     assert pgraphs.launches()["decode_attention"] == before["decode_attention"] + 2
     before = pgraphs.launches()
